@@ -1,0 +1,67 @@
+"""repro_torch — the paper's MapReduce mRMR feature selection in PyTorch,
+with hand-written CUDA kernels for one NVIDIA H100.
+
+A port of the JAX package ``repro`` (which stays the reference): the same
+module names, layouts, dtypes and results, run eagerly with torch tensors.
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU, where the kernels' plain PyTorch versions run instead.
+
+    >>> from repro_torch import MRMRSelector, CorralSource
+    >>> X, y = CorralSource(100_000, 200).materialize()
+    >>> MRMRSelector(num_select=10).fit(X, y).selected_
+
+Contingency counting and MI finalization run through
+``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``),
+built with ``nvcc`` for ``sm_90a`` at first use.
+"""
+
+from repro_torch.core.criteria import (
+    Criterion,
+    available_criteria,
+    register_criterion,
+    resolve_criterion,
+)
+from repro_torch.core.mrmr import (
+    MRMRResult,
+    mrmr_alternative,
+    mrmr_conventional,
+    mrmr_reference,
+)
+from repro_torch.core.scores import MIScore, ScoreFn
+from repro_torch.core.selector import (
+    MRMRSelector,
+    SelectionPlan,
+    available_encodings,
+    plan_selection,
+)
+from repro_torch.core.streaming import mrmr_streaming
+from repro_torch.data.sources import (
+    ArraySource,
+    CorralSource,
+    DataSource,
+    NpySource,
+    as_source,
+)
+
+__all__ = [
+    "ArraySource",
+    "CorralSource",
+    "Criterion",
+    "DataSource",
+    "MIScore",
+    "MRMRResult",
+    "MRMRSelector",
+    "NpySource",
+    "ScoreFn",
+    "SelectionPlan",
+    "as_source",
+    "available_criteria",
+    "available_encodings",
+    "mrmr_alternative",
+    "mrmr_conventional",
+    "mrmr_reference",
+    "mrmr_streaming",
+    "plan_selection",
+    "register_criterion",
+    "resolve_criterion",
+]

@@ -1,0 +1,261 @@
+"""Feature-score functions for mRMR — discrete mutual information.
+
+A score function is an object with two batched primitives —
+
+  * ``relevance(cands, cls)``   -> per-candidate f(x_k; c)
+  * ``redundancy(cands, other)``-> per-candidate f(x_k; x_j) for ONE j
+
+from which the engines assemble the mRMR objective through a criterion
+(:mod:`repro_torch.core.criteria`).  Both take candidates in feature-major
+layout ``(F, M)``, the alternative encoding's row-per-feature storage.
+
+Every MI value here is finalized by the MI kernel
+(:mod:`repro_torch.kernels.mi_score`) on a CUDA tensor and by its plain
+version on the CPU; every contingency count by the contingency kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Union
+
+import torch
+
+from repro_torch.core import contingency
+from repro_torch.core.contingency import OOR
+from repro_torch.kernels import ops
+
+_EPS = 1e-12
+
+
+# ---------------------------------------------------------------------------
+# Mutual information from contingency tables
+# ---------------------------------------------------------------------------
+
+def mi_from_counts(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+    """Mutual information (nats) from contingency tables.
+
+    Args:
+      counts: (..., V, C) non-negative counts (int32 or float).
+    Returns:
+      (...,) float32 MI. Zero cells contribute zero (lim p->0 of p log p).
+    """
+    lead, (v, c) = counts.shape[:-2], counts.shape[-2:]
+    flat = counts.reshape(-1, v, c)
+    return ops.mi_scores(flat, use_kernel).reshape(lead)
+
+
+def cmi_from_counts(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+    """Conditional mutual information (nats) from 3-way count tables.
+
+    ``I(x; w | y) = sum_c p(y=c) * I(x; w | y=c)``: per-class MI of each
+    class slice, weighted by the empirical class mass.  Empty class slices
+    contribute zero.
+
+    Args:
+      counts: (..., V, W, C) non-negative counts — the layout
+        :func:`repro_torch.core.contingency.conditional_counts` produces.
+    Returns:
+      (...,) float32 conditional MI in nats.
+    """
+    per_class = mi_from_counts(counts.movedim(-1, -3), use_kernel)  # (..., C)
+    cls_mass = counts.sum(dim=(-3, -2)).to(torch.float32)  # (..., C)
+    total = torch.clamp_min(cls_mass.sum(dim=-1, keepdim=True), 1.0)
+    return (per_class * cls_mass / total).sum(dim=-1)
+
+
+def entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy (nats) of a histogram (..., K)."""
+    counts = counts.to(torch.float32)
+    total = torch.clamp_min(counts.sum(dim=-1, keepdim=True), 1.0)
+    p = counts / total
+    terms = torch.where(
+        p > 0, p * torch.log(torch.clamp_min(p, _EPS)), torch.zeros_like(p)
+    )
+    return -terms.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Score-function objects
+# ---------------------------------------------------------------------------
+
+class ScoreFn:
+    """Base interface.
+
+    ``incremental_safe`` marks scores of the mRMR additive form, for which
+    the engines may carry a running redundancy fold instead of recomputing
+    it (the paper's baseline).  Scores computed from block-wise sufficient
+    statistics set ``supports_streaming`` and implement ``init_state`` /
+    ``accumulate`` / ``finalize`` — the paper's map+combine / reduce /
+    score evaluation factored onto the score object.
+    ``supports_conditional`` marks scores with a class-conditioned pair
+    statistic (needed by JMI/CMIM and the other conditional criteria);
+    ``supports_state_merge`` scores whose statistics merge across row
+    partitions by plain addition.
+    """
+
+    incremental_safe: bool = True
+    supports_streaming: bool = False
+    supports_conditional: bool = False
+    supports_state_merge: bool = False
+
+    def relevance(self, cands: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def redundancy(self, cands: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def redundancy_terms(
+        self, cands: torch.Tensor, other: torch.Tensor,
+        cls: torch.Tensor | None = None, *, conditional: bool = False,
+    ) -> dict:
+        """``{"marginal": (F,), "conditional": (F,) | None}`` — the pairwise
+        score of every candidate against ``other`` and, with
+        ``conditional=True``, the same statistic conditioned on ``cls``."""
+        if conditional:
+            raise ValueError(
+                f"{type(self).__name__} has no class-conditioned pair "
+                "statistic (supports_conditional=False); conditional "
+                "criteria like JMI/CMIM need MIScore"
+            )
+        return dict(marginal=self.redundancy(cands, other), conditional=None)
+
+    def init_state(self, n_features: int, target_kind: str = "class"):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support streaming fits"
+        )
+
+    def accumulate(self, state, X_block, target, valid=None):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support streaming fits"
+        )
+
+    def finalize(self, state) -> torch.Tensor:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support streaming fits"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MIScore(ScoreFn):
+    """Exact discrete mutual information (the paper's mRMR score).
+
+    ``num_values`` (``d_v``) / ``num_classes`` (``d_c``) follow the paper:
+    the union of categorical values over all features, and over the class.
+    Categories must live in ``[0, d)``: out-of-range values (including
+    negatives) count nothing — the selector validates this and raises.
+    ``use_kernel="auto"`` counts and finalizes through the CUDA kernels for
+    tensors on the card and the plain versions for tensors on the CPU;
+    ``True`` forces the kernels (a CPU tensor raises), ``False`` forces the
+    plain versions (the blocked one-hot count, ``block`` features at a time).
+    """
+
+    num_values: int = 2
+    num_classes: int = 2
+    block: int = 64
+    use_kernel: Union[bool, Literal["auto"]] = "auto"
+
+    supports_streaming = True
+    supports_conditional = True
+    # int32 contingency counts over disjoint row partitions sum exactly.
+    supports_state_merge = True
+
+    def __post_init__(self):
+        ops.check_use_kernel(self.use_kernel)
+
+    def tables(self, X_cols: torch.Tensor, tgt: torch.Tensor, vy: int) -> torch.Tensor:
+        """(M, F) column-layout int32 contingency tables against one target."""
+        if self.use_kernel is False:
+            return contingency.batched_counts(
+                X_cols, tgt, self.num_values, vy, block=self.block
+            )
+        return ops.contingency_tables(
+            X_cols, tgt, self.num_values, vy, use_kernel=self.use_kernel
+        )
+
+    def mi(self, counts: torch.Tensor) -> torch.Tensor:
+        return mi_from_counts(counts, self.use_kernel)
+
+    def terms_from_conditional(self, counts: torch.Tensor) -> dict:
+        """(F, V, V, C) 3-way counts -> both redundancy terms: the marginal
+        table is the class-sum, so one count yields both."""
+        return dict(
+            marginal=self.mi(counts.sum(dim=-1, dtype=torch.int32)),
+            conditional=cmi_from_counts(counts, self.use_kernel),
+        )
+
+    def relevance(self, cands: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+        # Feature-major candidates -> (M, F) column view for the kernel
+        # (a stride swap; the kernel reads either layout in place).
+        return self.mi(self.tables(cands.T, cls, self.num_classes))
+
+    def redundancy(self, cands: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+        return self.mi(self.tables(cands.T, other, self.num_values))
+
+    def conditional_tables(
+        self, X_cols: torch.Tensor, xj: torch.Tensor, cls: torch.Tensor
+    ) -> torch.Tensor:
+        """(M, F) columns -> (F, V, V, C) class-conditioned pair tables."""
+        if self.use_kernel is False:
+            return contingency.conditional_counts(
+                X_cols, xj, cls, self.num_values, self.num_values,
+                self.num_classes, block=self.block,
+            )
+        return ops.conditional_tables(
+            X_cols, xj, cls, self.num_values, self.num_classes,
+            use_kernel=self.use_kernel,
+        )
+
+    def redundancy_terms(
+        self, cands: torch.Tensor, other: torch.Tensor,
+        cls: torch.Tensor | None = None, *, conditional: bool = False,
+    ) -> dict:
+        if not conditional:
+            return dict(marginal=self.redundancy(cands, other), conditional=None)
+        return self.terms_from_conditional(
+            self.conditional_tables(cands.T, other, cls)
+        )
+
+    # -- streaming: per-pair contingency tables, summed block-by-block ----
+
+    def init_state(self, n_features: int, target_kind: str = "class") -> torch.Tensor:
+        # int32 running counts, exact to ~2.1B observations per cell.
+        # "feature_cond" carries the class axis fused into the target slot;
+        # finalize_conditional unflattens it.
+        vy = {
+            "class": self.num_classes,
+            "feature": self.num_values,
+            "feature_cond": self.num_values * self.num_classes,
+        }[target_kind]
+        return torch.zeros((n_features, self.num_values, vy), dtype=torch.int32)
+
+    def accumulate(
+        self, state: torch.Tensor, X_block: torch.Tensor, target: torch.Tensor,
+        valid=None,
+    ) -> torch.Tensor:
+        """Add one block's counts to ``state`` IN PLACE (and return it)."""
+        tgt = target.to(torch.int32)
+        if valid is not None:
+            # An out-of-range target counts nothing, so padded rows vanish
+            # from the tables without touching X.
+            tgt = torch.where(valid, tgt, torch.full_like(tgt, OOR))
+        state += self.tables(X_block, tgt, state.shape[-1])
+        return state
+
+    def finalize(self, state: torch.Tensor) -> torch.Tensor:
+        return self.mi(state)
+
+    def finalize_conditional(self, state: torch.Tensor) -> dict:
+        """Reduce a ``"feature_cond"`` state to both redundancy terms."""
+        n, v, vc = state.shape
+        counts = state.reshape(n, v, vc // self.num_classes, self.num_classes)
+        return self.terms_from_conditional(counts)
+
+
+__all__ = [
+    "MIScore",
+    "ScoreFn",
+    "cmi_from_counts",
+    "entropy_from_counts",
+    "mi_from_counts",
+]

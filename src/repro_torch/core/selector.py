@@ -1,0 +1,378 @@
+"""The front-door selection API: ``MRMRSelector`` / ``SelectionPlan``.
+
+1. **Planning** — ``plan_selection`` implements the paper's §III rule on one
+   device: tall/narrow data -> conventional encoding, wide/short ->
+   alternative (non-MI scores always alternative).
+2. **Engines** — a registry mapping encoding names to fit functions
+   (``reference`` / ``conventional`` / ``alternative`` here, ``streaming``
+   in :mod:`repro_torch.core.streaming`).
+3. **The selector** — ``MRMRSelector.fit(X, y)`` resolves the score and
+   the plan, lands the data on the device and hands off to the engine.
+   Inputs are always observations × features; layout changes are views.
+
+    >>> from repro_torch import MRMRSelector
+    >>> sel = MRMRSelector(num_select=10).fit(X, y)   # on the card
+    >>> X_reduced = sel.transform(X)                  # selection order
+
+The selector runs on ``device="cuda"`` unless told otherwise and raises
+when no card is present; it never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import mrmr as mrmr_mod
+from repro_torch.core.criteria import Criterion, resolve_criterion
+from repro_torch.core.mrmr import MRMRResult
+from repro_torch.core.scores import MIScore, ScoreFn
+from repro_torch.data.sources import ArraySource, DataSource
+from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch sees no CUDA device; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+def check_num_select(num_select, n_features: int) -> None:
+    """Shared fit-time bounds check: ``1 <= num_select <= num_features``."""
+    if not 1 <= int(num_select) <= n_features:
+        raise ValueError(
+            f"num_select={num_select} out of range: need "
+            f"1 <= num_select <= num_features ({n_features})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectionPlan:
+    """Resolved strategy for one ``fit`` on one device.
+
+    ``score=None`` means "resolve from the data at fit time";
+    ``criterion`` is a registered name or a
+    :class:`~repro_torch.core.criteria.Criterion` instance.
+    """
+
+    encoding: str                     # reference|conventional|alternative|streaming
+    incremental: bool = True          # running criterion fold vs recompute
+    score: ScoreFn | None = None      # score spec (None = auto from data)
+    block_obs: int = 65536            # streaming: observations per block
+    prefetch: int = 2                 # streaming: blocks staged ahead
+    criterion: object = "mid"         # greedy objective (name or Criterion)
+    batch_candidates: int = 1         # streaming: redundancy vectors per pass
+    device: str = "cuda"              # where the engine runs
+
+
+def plan_selection(
+    shape: tuple,
+    score: ScoreFn | None = None,
+    *,
+    incremental: bool = True,
+    criterion: Criterion | str = "mid",
+    device="cuda",
+) -> SelectionPlan:
+    """Pick the encoding for a dataset shape (paper §III, one device).
+
+    Args:
+      shape: (observations, features) of the conventional-orientation input.
+      score: the score spec.  Non-MI scores force the alternative encoding
+        (the only layout that supports arbitrary scores, §IV.D).
+    """
+    criterion = resolve_criterion(criterion)
+    m, n = int(shape[0]), int(shape[1])
+    mi_ok = score is None or isinstance(score, MIScore)
+    tall = m / max(n, 1) >= 1.0
+    encoding = "conventional" if mi_ok and tall else "alternative"
+    return SelectionPlan(
+        encoding=encoding, incremental=incremental, score=score,
+        criterion=criterion, device=str(device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# engine registry
+# ---------------------------------------------------------------------------
+
+# name -> fit(X, y, *, num_select, plan) -> MRMRResult, with X in
+# conventional orientation (observations × features) on the plan's device.
+_ENGINES: dict = {}
+
+
+def register_engine(name: str) -> Callable:
+    """Register a selection engine under an encoding name (decorator)."""
+
+    def deco(fn):
+        _ENGINES[name] = fn
+        return fn
+
+    return deco
+
+
+def get_engine(name: str):
+    try:
+        return _ENGINES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown encoding {name!r}; registered: {sorted(_ENGINES)}"
+        ) from None
+
+
+def available_encodings() -> tuple:
+    return tuple(sorted(_ENGINES))
+
+
+@register_engine("reference")
+def _fit_reference(X, y, *, num_select, plan) -> MRMRResult:
+    return mrmr_mod.mrmr_reference(
+        X.T, y, num_select, plan.score, incremental=plan.incremental,
+        criterion=plan.criterion,
+    )
+
+
+@register_engine("conventional")
+def _fit_conventional(X, y, *, num_select, plan) -> MRMRResult:
+    return mrmr_mod.mrmr_conventional(
+        X, y, num_select, plan.score, incremental=plan.incremental,
+        criterion=plan.criterion,
+    )
+
+
+@register_engine("alternative")
+def _fit_alternative(X, y, *, num_select, plan) -> MRMRResult:
+    # Feature-major storage as a transposed VIEW: no copy of X is made.
+    return mrmr_mod.mrmr_alternative(
+        X.T, y, num_select, plan.score, incremental=plan.incremental,
+        criterion=plan.criterion,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the selector
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MRMRSelector:
+    """mRMR feature selection, scikit-learn style, on one device.
+
+    ``fit(X, y)`` -> self with ``selected_`` / ``gains_`` / ``scores_`` /
+    ``ranking_`` / ``plan_`` / ``result_``; ``transform(X)`` returns the
+    selected columns in selection order.  ``X`` is always (observations ×
+    features).  A :class:`~repro_torch.data.sources.DataSource` passed
+    alone runs the ``"streaming"`` engine block by block.
+
+    Args:
+      num_select: L, number of features to pick (``1 <= L <= features``).
+      score: a ``ScoreFn``; None resolves exact MI with cardinalities
+        inferred from the data (discrete data only in this package).
+      encoding: "auto" (paper §III rule) or one of ``available_encodings()``.
+      incremental: False reproduces the paper's per-iteration redundancy
+        recomputation; True carries the criterion's running fold state.
+      block_obs: observations per streaming block.
+      prefetch: streaming host blocks staged ahead ("auto": 2 on CUDA).
+      criterion: the greedy objective — a registered name or a Criterion.
+      batch_candidates: streaming redundancy vectors speculated per pass.
+      device: where the fit runs; "cuda" (the default) raises without a
+        card, "cpu" runs the plain PyTorch versions.
+      mesh, hosts, bins, spill_dir, readahead: not yet ported; setting one
+        raises ``NotImplementedError``.
+    """
+
+    num_select: int
+    score: ScoreFn | None = None
+    encoding: str = "auto"
+    incremental: bool = True
+    block_obs: int = 65536
+    prefetch: int | str = "auto"
+    criterion: Criterion | str = "mid"
+    batch_candidates: int = 1
+    device: str = "cuda"
+    mesh: object = None
+    hosts: object = None
+    bins: int | None = None
+    spill_dir: str | None = None
+    readahead: int = 0
+
+    selected_: np.ndarray | None = None
+    gains_: np.ndarray | None = None
+    scores_: np.ndarray | None = None
+    ranking_: np.ndarray | None = None
+    result_: MRMRResult | None = None
+    n_features_in_: int | None = None
+    plan_: SelectionPlan | None = None
+
+    def __post_init__(self):
+        unported = dict(
+            mesh=self.mesh is not None,
+            hosts=self.hosts not in (None, 1),
+            bins=self.bins is not None,
+            spill_dir=self.spill_dir is not None,
+            readahead=bool(self.readahead),
+        )
+        for knob, is_set in unported.items():
+            if is_set:
+                raise NotImplementedError(
+                    f"MRMRSelector({knob}=...) is not yet ported to repro_torch"
+                )
+        self._device = resolve_device(self.device)
+
+    def _resolve_score(self, X: torch.Tensor, y: torch.Tensor) -> ScoreFn:
+        if self.score is not None:
+            return self.score
+        if int(X.min()) < 0 or int(y.min()) < 0:
+            # Negative categories count nothing, so those observations would
+            # silently vanish from the MI counts — fail instead.
+            raise ValueError(
+                "negative category values in discrete data: contingency "
+                "counts drop them silently; remap categories to 0..K-1 "
+                "before fitting"
+            )
+        return MIScore(num_values=int(X.max()) + 1, num_classes=int(y.max()) + 1)
+
+    def _resolve_source_score(self, source: DataSource) -> ScoreFn:
+        if self.score is not None:
+            return self.score
+        st = source.stats(self.block_obs)
+        if not st.discrete:
+            raise self._continuous_mi_error("the source")
+        return MIScore(num_values=st.num_values, num_classes=st.num_classes)
+
+    @staticmethod
+    def _continuous_mi_error(what: str) -> ValueError:
+        return ValueError(
+            f"MIScore needs discrete categories but {what} holds continuous "
+            "values; quantile binning (bins=) and the Pearson score are not "
+            "yet ported to repro_torch — discretise the data first"
+        )
+
+    def _finish_fit(self, res: MRMRResult, plan: SelectionPlan,
+                    n_features: int) -> "MRMRSelector":
+        self.selected_ = res.selected.cpu().numpy()
+        self.gains_ = res.gains.cpu().numpy()
+        self.scores_ = None if res.relevance is None else res.relevance.cpu().numpy()
+        ranking = np.full((n_features,), len(self.selected_) + 1, np.int32)
+        ranking[self.selected_] = np.arange(1, len(self.selected_) + 1)
+        self.ranking_ = ranking
+        self.n_features_in_ = int(n_features)
+        self.result_ = res
+        self.plan_ = plan
+        return self
+
+    def get_support(self, indices: bool = False) -> np.ndarray:
+        """Selected-feature mask, or ascending indices with ``indices=True``."""
+        if self.selected_ is None or self.n_features_in_ is None:
+            raise RuntimeError("fit() first")
+        mask = np.zeros((self.n_features_in_,), bool)
+        mask[self.selected_] = True
+        return np.flatnonzero(mask) if indices else mask
+
+    def _fit_source(self, source: DataSource) -> "MRMRSelector":
+        if self.encoding not in ("auto", "streaming"):
+            raise ValueError(
+                f"encoding {self.encoding!r} needs in-memory arrays; "
+                "DataSource inputs run the 'streaming' engine"
+            )
+        check_num_select(self.num_select, source.num_features)
+        dt = source.feature_dtype
+        if dt is not None and np.issubdtype(dt, np.floating):
+            raise self._continuous_mi_error("the source")
+        score = self._resolve_source_score(source)
+        crit = resolve_criterion(self.criterion)
+        mrmr_mod.check_conditional_support(score, crit)
+        q = int(self.batch_candidates)
+        if q < 1:
+            raise ValueError(f"batch_candidates must be >= 1, got {q}")
+        plan = SelectionPlan(
+            encoding="streaming",
+            block_obs=effective_block_obs(self.block_obs),
+            prefetch=resolve_prefetch(self.prefetch, self._device),
+            score=score, criterion=crit, batch_candidates=q,
+            device=str(self._device),
+        )
+        res = get_engine("streaming")(
+            source, None, num_select=self.num_select, plan=plan
+        )
+        return self._finish_fit(res, plan, source.num_features)
+
+    def fit(self, X, y=None) -> "MRMRSelector":
+        """X: (observations, features) array + y: (observations,) targets,
+        or a ``DataSource`` alone (targets come from its blocks)."""
+        if not isinstance(X, DataSource) and self.encoding == "streaming" and y is not None:
+            X, y = ArraySource(X, y), None
+        if isinstance(X, DataSource):
+            if y is not None:
+                raise ValueError("y comes from the DataSource; call fit(source) alone")
+            return self._fit_source(X)
+        if y is None:
+            raise ValueError(
+                "y is required for array inputs (only DataSource fits "
+                "carry their own targets)"
+            )
+        X = torch.as_tensor(X).to(self._device)
+        y = torch.as_tensor(y).to(self._device)
+        if X.dim() != 2 or y.dim() != 1 or y.shape[0] != X.shape[0]:
+            raise ValueError(f"bad shapes X{tuple(X.shape)} y{tuple(y.shape)}")
+        check_num_select(self.num_select, X.shape[1])
+        if X.dtype.is_floating_point or X.dtype.is_complex:
+            # The counts would truncate float columns to categories.
+            raise self._continuous_mi_error("X")
+        if X.dtype == torch.bool:
+            X = X.view(torch.uint8)  # same bytes, a dtype the kernel reads
+        score = self._resolve_score(X, y)
+        if not isinstance(score, MIScore):
+            raise NotImplementedError(
+                f"{type(score).__name__} is not yet ported to repro_torch"
+            )
+        y = y.to(torch.int32)
+        crit = resolve_criterion(self.criterion)
+        mrmr_mod.check_conditional_support(score, crit)
+        if self.encoding == "auto":
+            plan = plan_selection(
+                X.shape, score, incremental=self.incremental,
+                criterion=crit, device=self._device,
+            )
+        else:
+            plan = SelectionPlan(
+                encoding=self.encoding,
+                incremental=self.incremental, score=score, criterion=crit,
+                device=str(self._device),
+            )
+        res = get_engine(plan.encoding)(X, y, num_select=self.num_select, plan=plan)
+        return self._finish_fit(res, plan, X.shape[1])
+
+    def transform(self, X):
+        """Selected columns of ``X``, ordered by selection rank (a
+        ``DataSource`` streams through block by block)."""
+        if self.selected_ is None:
+            raise RuntimeError("fit() first")
+        if isinstance(X, DataSource):
+            return np.concatenate(
+                [blk[:, self.selected_] for blk, _ in X.iter_blocks(self.block_obs)]
+            )
+        if isinstance(X, torch.Tensor):
+            return X[:, torch.as_tensor(self.selected_, dtype=torch.long, device=X.device)]
+        return np.asarray(X)[:, self.selected_]
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X, y).transform(X)
+
+
+__all__ = [
+    "MRMRSelector",
+    "SelectionPlan",
+    "available_encodings",
+    "check_num_select",
+    "get_engine",
+    "plan_selection",
+    "register_engine",
+    "resolve_device",
+]

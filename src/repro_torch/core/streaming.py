@@ -1,0 +1,283 @@
+"""Streaming mRMR — the paper's MapReduce fit over out-of-core data, on one
+device.
+
+Each scoring pass is one MapReduce job in the paper's conventional encoding:
+``map`` + ``combine`` = the per-block contingency count (the contingency
+kernel on the card), ``reduce`` = the int32 running sum across blocks, and
+the score evaluation = the MI kernel on the summed tables.  The greedy loop
+is host-driven:
+
+    pass 0:        relevance statistics vs the class   -> rel (N,)
+    pick l, then:  statistics of ALL features vs the just-selected column,
+                   folded into the criterion's running state
+
+Total I/O is ``L`` passes over the source (1 relevance + L-1 redundancy;
+no pass follows the last pick) while peak device memory is
+``O(block_obs × N)`` for the block plus the statistics state, independent
+of ``num_obs``.  A criterion with ``needs_redundancy = False`` (``maxrel``)
+runs one pass; one with ``needs_conditional_redundancy = True`` fuses the
+class into each redundancy pass's target (``"feature_cond"`` state) so the
+same sweep yields both ``I(x_k; x_j)`` and ``I(x_k; x_j | y)``.
+
+``batch_candidates=q`` scores the pass's target column and the top ``q-1``
+remaining candidates in the same sweep (one count per candidate per
+block), committing picks from the speculated vectors — ``L-1`` redundancy
+passes drop toward ``⌈(L-1)/q⌉``, with identical selections.
+
+Every fit reports its I/O on the result: ``MRMRResult.io`` carries
+``passes`` / ``blocks_read`` / ``bytes_read`` / ``state_bytes``, counted
+exactly as the JAX package's streaming engine counts them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.criteria import Criterion, resolve_criterion
+from repro_torch.core.mrmr import MRMRResult, check_conditional_support
+from repro_torch.core.scores import ScoreFn
+from repro_torch.core.selector import check_num_select, register_engine, resolve_device
+from repro_torch.data.sources import as_source
+from repro_torch.dist.streaming import BlockPlacer, PrefetchPlacer, resolve_prefetch
+
+_NEG_INF = float("-inf")
+
+
+def _extract_target(X_blk: np.ndarray, y_blk: np.ndarray, target_cols,
+                    cond_classes: int | None = None):
+    """The pass target from one raw host block: the class (``None``), one
+    feature column (int -> ``(B,)``) or a batch of candidate columns
+    (sequence -> ``(q, B)``).  ``cond_classes`` marks a class-conditioned
+    redundancy pass: each column fuses with the labels into one code
+    ``col * cond_classes + label``."""
+    if target_cols is None:
+        return y_blk
+    labels = None if cond_classes is None else y_blk.astype(np.int64)
+
+    def column(c):
+        col = X_blk[:, int(c)]
+        if labels is None:
+            return col
+        return (col.astype(np.int64) * cond_classes + labels).astype(np.int32)
+
+    if np.ndim(target_cols) == 0:
+        return column(target_cols)
+    return np.ascontiguousarray(np.stack([column(c) for c in target_cols]))
+
+
+class _PassIO:
+    """Per-fit I/O ledger: every pass/block/byte the engine consumes, plus
+    the peak statistics-state footprint (``state_bytes``)."""
+
+    def __init__(self):
+        self.passes = 0
+        self.blocks_read = 0
+        self.bytes_read = 0
+        self.state_bytes = 0
+
+    def count(self, raw_blocks):
+        for X_blk, y_blk in raw_blocks:
+            self.blocks_read += 1
+            self.bytes_read += X_blk.nbytes + y_blk.nbytes
+            yield X_blk, y_blk
+
+    def note_state(self, state: torch.Tensor):
+        size = state.numel() * state.element_size()
+        self.state_bytes = max(self.state_bytes, size)
+
+    def as_dict(self) -> dict:
+        return dict(
+            passes=self.passes,
+            blocks_read=self.blocks_read,
+            bytes_read=self.bytes_read,
+            state_bytes=self.state_bytes,
+        )
+
+
+def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
+                prefetch: int, io: _PassIO, batch: int | None = None,
+                conditional: bool = False):
+    """One full map-reduce pass over ``raw_pass`` (an ``(X, y)`` raw host
+    block iterator): ``(N,)`` scores of every feature against the class
+    (``target_cols=None``) / one column (int), or ``(q, N)`` scores against
+    a batch of candidate columns (sequence of length ``q``).
+    ``conditional=True`` returns ``dict(marginal=..., conditional=...)``
+    instead — both terms from the one counting sweep."""
+    io.passes += 1
+    cond = conditional and target_cols is not None
+    kind = (
+        "class"
+        if target_cols is None
+        else ("feature_cond" if cond else "feature")
+    )
+    state = score.init_state(placer.num_features, kind)
+    if batch is not None:
+        state = torch.stack([state] * batch)
+    state = placer.place_state(state)
+    io.note_state(state)
+    cond_classes = score.num_classes if cond else None
+
+    def host_blocks():
+        for X_blk, y_blk in io.count(raw_pass):
+            yield X_blk, _extract_target(X_blk, y_blk, target_cols, cond_classes)
+
+    if prefetch > 0:
+        placed = PrefetchPlacer(placer, depth=prefetch).stream(host_blocks())
+    else:
+        placed = (placer(X_blk, tgt) for X_blk, tgt in host_blocks())
+    for X_dev, tgt, valid in placed:
+        if batch is None:
+            state = score.accumulate(state, X_dev, tgt, valid)
+        else:  # one count per candidate column, the block shared
+            for i in range(batch):
+                state[i] = score.accumulate(state[i], X_dev, tgt[i], valid)
+
+    states = [state] if batch is None else list(state)
+    if cond:
+        terms = [score.finalize_conditional(s) for s in states]
+        out = {
+            k: np.stack([t[k].cpu().numpy() for t in terms]).astype(np.float32)
+            for k in ("marginal", "conditional")
+        }
+        return {k: v[0] for k, v in out.items()} if batch is None else out
+    scores = np.stack([score.finalize(s).cpu().numpy() for s in states])
+    scores = scores.astype(np.float32)
+    return scores[0] if batch is None else scores
+
+
+def _greedy_select(run_pass, crit: Criterion, n: int, num_select: int, q: int):
+    """The host-driven greedy loop: one relevance pass, then exact per-pick
+    criterion folds with ``q``-wide redundancy speculation.  The fold runs
+    on float32 CPU tensors, the same elementwise math the in-memory engines
+    run, so argmax ties resolve identically (toward the lowest id)."""
+    rel = run_pass(None)
+    rel_t = torch.from_numpy(rel)
+    cstate = crit.init_state(n)
+    mask = np.zeros((n,), bool)
+    selected = np.full((num_select,), -1, np.int32)
+    gains = np.zeros((num_select,), np.float32)
+    # Speculated redundancy vectors by feature id: a pairwise property of
+    # the data, valid for the whole fit once computed.
+    pending: dict = {}
+    for l in range(num_select):
+        g = np.array(crit.objective(rel_t, cstate, l).numpy(), np.float32)
+        g[mask] = _NEG_INF
+        k = int(np.argmax(g))
+        selected[l], gains[l] = k, g[k]
+        mask[k] = True
+        if l + 1 >= num_select or not crit.needs_redundancy:
+            continue
+        if k in pending:
+            red = pending.pop(k)  # speculation hit: zero I/O
+        elif q == 1:
+            red = run_pass(k)
+        else:
+            # One sweep scores the needed column plus the top q-1 remaining
+            # candidates by the current objective; a short batch repeats
+            # its last column.
+            cols = [k]
+            for j in np.argsort(-g, kind="stable"):
+                if len(cols) == q:
+                    break
+                j = int(j)
+                if mask[j] or j in pending or g[j] == _NEG_INF:
+                    continue
+                cols.append(j)
+            padded = cols + [cols[-1]] * (q - len(cols))
+            reds = run_pass(padded, batch=q)
+            for i, c in enumerate(cols):
+                pending[c] = (
+                    {k2: v[i] for k2, v in reds.items()}
+                    if isinstance(reds, dict)
+                    else reds[i]
+                )
+            red = pending.pop(k)
+        terms = (
+            {k2: torch.from_numpy(v) for k2, v in red.items()}
+            if isinstance(red, dict)
+            else torch.from_numpy(red)
+        )
+        cstate = crit.update(cstate, terms, l)
+    return rel, selected, gains
+
+
+def mrmr_streaming(
+    source,
+    num_select: int,
+    score: ScoreFn,
+    *,
+    block_obs: int = 65536,
+    device="cuda",
+    prefetch="auto",
+    criterion: Criterion | str = "mid",
+    batch_candidates: int = 1,
+) -> MRMRResult:
+    """Greedy mRMR over a :class:`~repro_torch.data.sources.DataSource`.
+
+    Args:
+      source: a ``DataSource`` (or an ``(X, y)`` pair to wrap).
+      num_select: L, number of features to pick.
+      score: a streaming-capable ``ScoreFn`` (``supports_streaming``).
+      block_obs: observations per device block — the peak-memory knob.
+      device: where blocks are counted; ``"cuda"`` raises without a card.
+      prefetch: host blocks staged ahead of the device (0 = synchronous;
+        ``"auto"`` = 2 on a CUDA device, 0 on the CPU).
+      criterion: greedy objective, a registered name or a Criterion.
+      batch_candidates: redundancy vectors speculated per pass (``q``).
+    """
+    crit = resolve_criterion(criterion)
+    device = resolve_device(device)
+    source = as_source(*source) if isinstance(source, tuple) else as_source(source)
+    if not score.supports_streaming:
+        raise ValueError(
+            f"{type(score).__name__} cannot stream: it has no "
+            "sufficient-statistics decomposition (init_state/accumulate/"
+            "finalize). Materialise the data and use an in-memory engine."
+        )
+    check_conditional_support(score, crit)
+    needs_cond = crit.needs_redundancy and crit.needs_conditional_redundancy
+    n = source.num_features
+    check_num_select(num_select, n)
+    prefetch = resolve_prefetch(prefetch, device)
+    q = int(batch_candidates)
+    if q < 1:
+        raise ValueError(f"batch_candidates must be >= 1, got {q}")
+
+    placer = BlockPlacer(block_obs, device, num_features=n)
+    io = _PassIO()
+
+    def run_pass(target_cols, batch=None):
+        return _score_pass(
+            source.iter_blocks(placer.block_obs), score, placer,
+            target_cols, prefetch, io, batch,
+            conditional=needs_cond and target_cols is not None,
+        )
+
+    rel, selected, gains = _greedy_select(run_pass, crit, n, num_select, q)
+    return MRMRResult(
+        selected=torch.from_numpy(selected),
+        gains=torch.from_numpy(gains),
+        relevance=torch.from_numpy(rel),
+        criterion=crit.name,
+        engine="streaming",
+        io=io.as_dict(),
+    )
+
+
+@register_engine("streaming")
+def _fit_streaming(source, y, *, num_select, plan) -> MRMRResult:
+    del y  # targets come from the source's blocks
+    return mrmr_streaming(
+        source,
+        num_select,
+        plan.score,
+        block_obs=plan.block_obs,
+        device=plan.device,
+        prefetch=plan.prefetch,
+        criterion=plan.criterion,
+        batch_candidates=plan.batch_candidates,
+    )
+
+
+__all__ = ["mrmr_streaming"]

@@ -1,0 +1,348 @@
+"""Out-of-core dataset ingestion — the ``DataSource`` protocol (numpy only).
+
+A source knows its global geometry (``num_obs`` × ``num_features``) and
+yields observation-blocks — host-side numpy arrays ``(X_block (B, N),
+y_block (B,))`` in conventional orientation with ``B <= block_obs`` — whose
+concatenation is the full dataset, in a deterministic order that does not
+depend on the requested block size.  The streaming engine
+(:mod:`repro_torch.core.streaming`) consumes blocks and accumulates
+per-score sufficient statistics on the device, so peak device memory is
+bounded by the block size, never by ``num_obs``.
+
+Sources here: in-memory arrays (:class:`ArraySource`), memmapped ``.npy``
+files (:class:`NpySource`) and the paper's synthetic generator
+(:class:`CorralSource`).  Blocks are bitwise those of the JAX package's
+sources (``repro.data.sources``) for the same data and any ``block_obs``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import threading
+from collections import OrderedDict
+from typing import Iterator, Tuple
+
+import numpy as np
+
+Block = Tuple[np.ndarray, np.ndarray]
+
+# Internal generation granularity of synthetic sources: fixed, so the
+# emitted dataset is identical for every requested block_obs.
+_GEN_CHUNK = 8192
+
+# Cross-instance stats memo, keyed by source fingerprint: a fresh source
+# on the same file reuses the scan instead of paying a pass of I/O.
+_STATS_MEMO: OrderedDict = OrderedDict()
+_STATS_MEMO_CAP = 256
+_STATS_LOCK = threading.Lock()
+
+
+def clear_stats_memo() -> None:
+    """Drop every memoised ``stats()`` scan (tests / changed files)."""
+    with _STATS_LOCK:
+        _STATS_MEMO.clear()
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceStats:
+    """Streaming-scan metadata used to auto-resolve a score function."""
+
+    discrete: bool      # X and y both integral -> exact-MI territory
+    num_values: int     # d_v: 1 + max feature category (0 if continuous)
+    num_classes: int    # d_c: 1 + max class label (0 if continuous)
+
+
+def _rechunked(chunks: Iterator[Block], block_obs: int) -> Iterator[Block]:
+    """Re-slice an (X, y) chunk stream into blocks of exactly ``block_obs``
+    rows (the final block may be ragged)."""
+    pend_x, pend_y, have = [], [], 0
+    for X, y in chunks:
+        pend_x.append(X)
+        pend_y.append(y)
+        have += X.shape[0]
+        if have >= block_obs:
+            Xc, yc = np.concatenate(pend_x), np.concatenate(pend_y)
+            lo = 0
+            while have - lo >= block_obs:
+                yield Xc[lo : lo + block_obs], yc[lo : lo + block_obs]
+                lo += block_obs
+            pend_x, pend_y = [Xc[lo:]], [yc[lo:]]
+            have -= lo
+    if have:
+        yield np.concatenate(pend_x), np.concatenate(pend_y)
+
+
+class DataSource:
+    """Base class: geometry + deterministic observation-block iteration."""
+
+    @property
+    def num_obs(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def num_features(self) -> int:
+        raise NotImplementedError
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        """Yield ``(X (B, N), y (B,))`` numpy blocks, ``B <= block_obs``,
+        concatenating to the full dataset in a block-size-independent order."""
+        raise NotImplementedError
+
+    @property
+    def feature_dtype(self) -> "np.dtype | None":
+        """Static dtype of the feature blocks, when knowable without I/O
+        (``None`` otherwise): a floating hint means continuous."""
+        return None
+
+    def fingerprint(self) -> str:
+        """Content address of this source (hex sha256, memoised).
+
+        File-backed sources hash ``(path, size, mtime_ns)``; synthetic
+        sources their generating parameters; the base implementation hashes
+        the block stream (one pass; in-memory sources only).
+        """
+        cached = getattr(self, "_fingerprint", None)
+        if cached is not None:
+            return cached
+        h = hashlib.sha256()
+        h.update(
+            f"{type(self).__name__}:{self.num_obs}x{self.num_features}:".encode()
+        )
+        self._fingerprint_update(h)
+        fp = h.hexdigest()
+        object.__setattr__(self, "_fingerprint", fp)  # frozen-dataclass safe
+        return fp
+
+    def _fingerprint_update(self, h) -> None:
+        """Subclass hook: feed identity into the hash.  Default: full
+        content (dtypes + bytes of every block)."""
+        for X, y in self.iter_blocks(65536):
+            h.update(str(X.dtype).encode())
+            h.update(np.ascontiguousarray(X).tobytes())
+            h.update(str(y.dtype).encode())
+            h.update(np.ascontiguousarray(y).tobytes())
+
+    def stats(self, block_obs: int = 65536) -> SourceStats:
+        """One streaming pass of metadata (memoised per instance and by
+        :meth:`fingerprint`): dtype regime + the ``d_v`` / ``d_c`` counts."""
+        cached = getattr(self, "_stats", None)
+        if cached is not None:
+            return cached
+        fp = self.fingerprint()
+        with _STATS_LOCK:
+            memo = _STATS_MEMO.get(fp)
+            if memo is not None:
+                _STATS_MEMO.move_to_end(fp)
+        if memo is not None:
+            object.__setattr__(self, "_stats", memo)
+            return memo
+        x_max = y_max = 0
+        x_min = y_min = 0
+        discrete = True
+        for X, y in self.iter_blocks(block_obs):
+            discrete = discrete and (
+                np.issubdtype(X.dtype, np.integer) or X.dtype == np.bool_
+            ) and (np.issubdtype(y.dtype, np.integer) or y.dtype == np.bool_)
+            if not discrete:
+                break  # dtype settles it; don't burn a full pass of I/O
+            x_max = max(x_max, int(X.max(initial=0)))
+            y_max = max(y_max, int(y.max(initial=0)))
+            x_min = min(x_min, int(X.min(initial=0)))
+            y_min = min(y_min, int(y.min(initial=0)))
+        if discrete and (x_min < 0 or y_min < 0):
+            # A negative category counts nothing, so the observation would
+            # silently vanish from every contingency table.
+            raise ValueError(
+                "negative category values in discrete source "
+                f"(min feature value {x_min}, min target value {y_min}): "
+                "contingency counts drop them silently; remap "
+                "categories to 0..K-1 before fitting"
+            )
+        st = SourceStats(
+            discrete=discrete,
+            num_values=x_max + 1 if discrete else 0,
+            num_classes=y_max + 1 if discrete else 0,
+        )
+        object.__setattr__(self, "_stats", st)
+        with _STATS_LOCK:
+            _STATS_MEMO[fp] = st
+            _STATS_MEMO.move_to_end(fp)
+            while len(_STATS_MEMO) > _STATS_MEMO_CAP:
+                _STATS_MEMO.popitem(last=False)
+        return st
+
+    def materialize(self, block_obs: int = 65536) -> Block:
+        """Concatenate every block — small datasets and tests only."""
+        xs, ys = zip(*self.iter_blocks(block_obs))
+        return np.concatenate(xs), np.concatenate(ys)
+
+    def to_npy(
+        self, x_path: str, y_path: str, block_obs: int = 65536
+    ) -> tuple[str, str]:
+        """Stream the source into ``.npy`` files (block-wise via memmap, no
+        full-dataset host allocation) — ready for :class:`NpySource`."""
+        peek = self.iter_blocks(1)
+        try:
+            first = next(peek)  # dtype peek, one row
+        finally:
+            close = getattr(peek, "close", None)
+            if close is not None:
+                close()
+        Xm = np.lib.format.open_memmap(
+            x_path, mode="w+", dtype=first[0].dtype,
+            shape=(self.num_obs, self.num_features),
+        )
+        ym = np.lib.format.open_memmap(
+            y_path, mode="w+", dtype=first[1].dtype, shape=(self.num_obs,)
+        )
+        lo = 0
+        for X, y in self.iter_blocks(block_obs):
+            Xm[lo : lo + X.shape[0]] = X
+            ym[lo : lo + X.shape[0]] = y
+            lo += X.shape[0]
+        Xm.flush()
+        ym.flush()
+        return x_path, y_path
+
+
+def as_source(X, y=None) -> DataSource:
+    """Coerce ``fit`` inputs to a source: pass sources through, wrap arrays."""
+    if isinstance(X, DataSource):
+        if y is not None:
+            raise ValueError("y comes from the DataSource; pass the source alone")
+        return X
+    if y is None:
+        raise ValueError("array inputs need a target: as_source(X, y)")
+    return ArraySource(X, y)
+
+
+class ArraySource(DataSource):
+    """In-memory (or memmapped) arrays as a source — the fast-path adapter."""
+
+    def __init__(self, X, y):
+        # asanyarray keeps memmaps memmapped (no eager load).
+        self.X = np.asanyarray(X)
+        self.y = np.asanyarray(y)
+        if (
+            self.X.ndim != 2
+            or self.y.ndim != 1
+            or self.y.shape[0] != self.X.shape[0]
+        ):
+            raise ValueError(f"bad shapes X{self.X.shape} y{self.y.shape}")
+
+    @property
+    def num_obs(self) -> int:
+        return self.X.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.X.shape[1]
+
+    @property
+    def feature_dtype(self) -> np.dtype:
+        return self.X.dtype
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        for lo in range(0, self.num_obs, block_obs):
+            hi = min(lo + block_obs, self.num_obs)
+            # np.array forces a real copy: yielded blocks are contiguous
+            # and never pin a memmapped file.
+            yield np.array(self.X[lo:hi]), np.array(self.y[lo:hi])
+
+
+class NpySource(ArraySource):
+    """Memmapped ``.npy`` feature matrix + target vector, read one
+    observation-block at a time."""
+
+    def __init__(self, x_path: str, y_path: str, *, mmap: bool = True):
+        mode = "r" if mmap else None
+        super().__init__(
+            np.load(x_path, mmap_mode=mode), np.load(y_path, mmap_mode=mode)
+        )
+        self.x_path, self.y_path = x_path, y_path
+
+    def _fingerprint_update(self, h) -> None:
+        # (path, size, mtime_ns) instead of content: no pass over the file.
+        _stat_fingerprint(h, self.x_path, self.y_path)
+
+
+def _stat_fingerprint(h, *paths: str) -> None:
+    """Feed ``(abspath, size, mtime_ns)`` of each file into the hash."""
+    for p in paths:
+        st = os.stat(p)
+        h.update(
+            f"{os.path.abspath(p)}:{st.st_size}:{st.st_mtime_ns};".encode()
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CorralSource(DataSource):
+    """The paper's §V CorrAL-style generator as a streaming source (Eq. 3).
+
+    Rows are generated in fixed internal chunks, each seeded by
+    ``(seed, chunk_index)``, so the dataset is a pure function of
+    ``(seed, num_obs, num_cols)`` — identical for every ``block_obs`` and
+    never materialised whole.  Columns 0..7 are relevant (Eq. 3), 8
+    partially class-correlated (75% agreement), the rest iid noise;
+    ``flip_prob`` injects label noise.
+    """
+
+    num_rows: int
+    num_cols: int
+    seed: int = 0
+    flip_prob: float = 0.05
+
+    def __post_init__(self):
+        if self.num_cols < 9:
+            raise ValueError("CorralSource needs at least 9 columns")
+
+    @property
+    def num_obs(self) -> int:
+        return self.num_rows
+
+    @property
+    def num_features(self) -> int:
+        return self.num_cols
+
+    @property
+    def feature_dtype(self) -> np.dtype:
+        return np.dtype(np.int8)
+
+    def _fingerprint_update(self, h) -> None:
+        h.update(
+            repr(
+                (self.num_rows, self.num_cols, self.seed, self.flip_prob)
+            ).encode()
+        )
+
+    def _chunk(self, ci: int) -> Block:
+        rows = min(_GEN_CHUNK, self.num_rows - ci * _GEN_CHUNK)
+        rng = np.random.default_rng((self.seed, ci))
+        blk = rng.integers(0, 2, size=(rows, self.num_cols), dtype=np.int8)
+        x = [blk[:, i].astype(bool) for i in range(8)]
+        c = ((x[0] & x[1]) | (x[2] & x[3])) & ((x[4] & x[5]) | (x[6] & x[7]))
+        agree = rng.random(rows) < 0.75
+        blk[:, 8] = np.where(agree, c, ~c)
+        if self.flip_prob > 0:
+            flips = rng.random(rows) < self.flip_prob
+            c = np.where(flips, ~c, c)
+        return blk, c.astype(np.int8)
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        nchunks = -(-self.num_rows // _GEN_CHUNK)
+        yield from _rechunked(
+            (self._chunk(ci) for ci in range(nchunks)), block_obs
+        )
+
+
+__all__ = [
+    "ArraySource",
+    "CorralSource",
+    "DataSource",
+    "NpySource",
+    "SourceStats",
+    "as_source",
+    "clear_stats_memo",
+]

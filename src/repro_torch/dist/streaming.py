@@ -1,0 +1,163 @@
+"""Observation-block placement for the streaming engine, on one device.
+
+``BlockPlacer`` pads every host block to ``block_obs`` rows (reporting the
+padding through a ``valid`` mask, which the score turns into out-of-range
+targets) and lands it on the device: on a CUDA device through pinned host
+memory with a ``non_blocking`` copy, so the transfer runs on the stream
+while the host moves on; on the CPU as a view of the numpy block.
+
+``PrefetchPlacer`` is the double-buffered face of the same placement: a
+bounded host thread reads and pads block ``i+1`` while the consumer places
+block ``i`` and the device counts it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+
+import numpy as np
+import torch
+
+# End-of-stream sentinel for the prefetch queue.
+_DONE = object()
+
+
+def resolve_prefetch(prefetch, device) -> int:
+    """Resolve the ``prefetch`` knob: an int passes through, ``"auto"`` is
+    2 on a CUDA device (staging the next block overlaps the transfer and the
+    count) and 0 on the CPU (nothing to overlap with)."""
+    if prefetch != "auto":
+        try:
+            p = int(prefetch)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"prefetch must be an int >= 0 or 'auto', got {prefetch!r}"
+            ) from None
+        if p < 0:
+            raise ValueError(f"prefetch must be >= 0 or 'auto', got {p}")
+        return p
+    return 2 if torch.device(device).type == "cuda" else 0
+
+
+def effective_block_obs(block_obs: int, obs_extent: int = 1) -> int:
+    """Blocks round UP to a multiple of the observation-axes extent (1 on
+    one device), so ``plan_.block_obs`` reports what the placer runs."""
+    ext = max(int(obs_extent), 1)
+    return -(-int(block_obs) // ext) * ext
+
+
+@dataclasses.dataclass
+class BlockPlacer:
+    """Pad-and-place for observation blocks on one device.
+
+    Args:
+      block_obs: rows per placed block; shorter blocks are zero-padded and
+        their padding marked invalid.
+      device: the torch device the blocks land on.
+      num_features: expected feature count of every block.
+    """
+
+    block_obs: int
+    device: torch.device
+    num_features: int
+
+    def __post_init__(self):
+        self.block_obs = effective_block_obs(self.block_obs)
+        self.device = torch.device(self.device)
+
+    def place_state(self, state: torch.Tensor) -> torch.Tensor:
+        """Land a freshly initialised statistics tensor on the device."""
+        return state.to(self.device)
+
+    def stage(self, X_block: np.ndarray, target: np.ndarray):
+        """Host half: pad a (B, N) block and its ``(B,)`` or ``(q, B)``
+        target to ``block_obs`` rows and build the valid mask.  Pure numpy —
+        safe on a background thread (``PrefetchPlacer`` runs it there)."""
+        b, nf = X_block.shape
+        if b > self.block_obs:
+            raise ValueError(
+                f"block of {b} rows exceeds block_obs={self.block_obs}"
+            )
+        if nf != self.num_features:
+            raise ValueError(
+                f"block has {nf} features, placer expects {self.num_features}"
+            )
+        if b < self.block_obs:
+            pad = self.block_obs - b
+            X_block = np.concatenate(
+                [X_block, np.zeros((pad,) + X_block.shape[1:], X_block.dtype)]
+            )
+            tpad = np.zeros(target.shape[:-1] + (pad,), target.dtype)
+            target = np.concatenate([target, tpad], axis=-1)
+        valid = np.arange(self.block_obs) < b
+        return X_block, target, valid
+
+    def place(self, staged):
+        """Device half: land a staged (X, target, valid) triple.  On a CUDA
+        device each array goes through pinned memory with an asynchronous
+        copy (the caching host allocator keeps the pinned buffer alive until
+        the copy has run)."""
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in staged]
+        if self.device.type != "cuda":
+            return tuple(a.to(self.device) for a in arrays)
+        return tuple(
+            a.pin_memory().to(self.device, non_blocking=True) for a in arrays
+        )
+
+    def __call__(self, X_block: np.ndarray, target: np.ndarray):
+        """(B, N), (B,) host block -> placed (X, target, valid)."""
+        return self.place(self.stage(X_block, target))
+
+
+@dataclasses.dataclass
+class PrefetchPlacer:
+    """Double-buffered placement: a host thread runs the placer's staging
+    half up to ``depth`` blocks ahead while the consumer places and the
+    device counts the previous block.  Exceptions raised while reading or
+    staging re-raise in the consumer, and abandoning the iterator stops the
+    thread."""
+
+    placer: BlockPlacer
+    depth: int = 2
+
+    def __post_init__(self):
+        if self.depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {self.depth}")
+
+    def stream(self, host_blocks):
+        """``(X_block, target)`` host iterator -> placed-tuple iterator."""
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+
+        def produce():
+            try:
+                for X_block, target in host_blocks:
+                    if stop.is_set():
+                        return
+                    q.put((self.placer.stage(X_block, target), None))
+                q.put((_DONE, None))
+            except BaseException as exc:  # re-raised by the consumer
+                q.put((None, exc))
+
+        worker = threading.Thread(
+            target=produce, name="block-prefetch", daemon=True
+        )
+        worker.start()
+        try:
+            while True:
+                staged, exc = q.get()
+                if exc is not None:
+                    raise exc
+                if staged is _DONE:
+                    return
+                yield self.placer.place(staged)
+        finally:
+            stop.set()
+            while worker.is_alive():
+                try:  # unblock a producer waiting on a full queue
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                worker.join(timeout=0.01)

@@ -1,0 +1,70 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+``use_kernel`` decides on the device of the tensor it is given:
+
+  * ``"auto"`` — a CUDA tensor runs the kernel, a CPU tensor the plain
+    PyTorch version.
+  * ``True``  — the kernel; a CPU tensor raises (there is no interpreter
+    for a CUDA kernel).
+  * ``False`` — the plain version, wherever the tensor lies.
+
+A CUDA tensor never falls back to the plain version under ``"auto"``: a
+kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.contingency import (
+    conditional_tables_cuda,
+    contingency_tables_cuda,
+)
+from repro_torch.kernels.mi_score import mi_scores_cuda
+
+
+def check_use_kernel(use_kernel) -> None:
+    if use_kernel is not True and use_kernel is not False and use_kernel != "auto":
+        raise ValueError(
+            f"use_kernel must be True, False or 'auto'; got {use_kernel!r}"
+        )
+
+
+def _decide(use_kernel, t: torch.Tensor) -> bool:
+    """-> whether to run the kernel on ``t``."""
+    check_use_kernel(use_kernel)
+    if use_kernel is False:
+        return False
+    if use_kernel is True and not t.is_cuda:
+        raise ValueError(
+            f"use_kernel=True needs a CUDA tensor; got one on {t.device}"
+        )
+    return t.is_cuda
+
+
+def contingency_tables(
+    X: torch.Tensor, y: torch.Tensor, num_values: int, num_classes: int,
+    use_kernel="auto",
+) -> torch.Tensor:
+    """(M, F), (M,) -> (F, V, C) int32 contingency tables."""
+    if _decide(use_kernel, X):
+        return contingency_tables_cuda(X, y, num_values, num_classes)
+    return ref.contingency_tables(X, y, num_values, num_classes)
+
+
+def conditional_tables(
+    X: torch.Tensor, xj: torch.Tensor, y: torch.Tensor, num_values: int,
+    num_classes: int, use_kernel="auto",
+) -> torch.Tensor:
+    """(M, F), (M,), (M,) -> (F, V, V, C) int32 class-conditioned tables."""
+    if _decide(use_kernel, X):
+        return conditional_tables_cuda(X, xj, y, num_values, num_classes)
+    return ref.conditional_tables(X, xj, y, num_values, num_classes)
+
+
+def mi_scores(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+    """(F, V, C) counts -> (F,) float32 MI (nats)."""
+    if _decide(use_kernel, counts):
+        return mi_scores_cuda(counts)
+    return ref.mi_scores(counts)

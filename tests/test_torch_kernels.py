@@ -1,0 +1,207 @@
+"""repro_torch kernels and dispatch vs the JAX package's Pallas kernels.
+
+The port's CUDA kernels cannot run here (no card, no nvcc), so on the CPU
+the dispatcher runs their plain PyTorch versions; these tests hold those,
+bitwise for counts and within ``rtol=1e-5, atol=1e-6`` for MI, against the
+JAX Pallas kernels run in interpret mode (as ``tests/test_kernels.py`` runs
+them) and the JAX core functions, on the same numpy inputs.  The kernels
+themselves are held against the plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.core import contingency as jcont
+from repro.core import scores as jscores
+from repro.kernels.contingency import (
+    conditional_tables_pallas,
+    contingency_tables_pallas,
+)
+from repro.kernels.mi_score import mi_scores_pallas
+
+from repro_torch.core.contingency import OOR
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.contingency import (
+    _launch_geometry,
+    conditional_tables_cuda,
+    contingency_tables_cuda,
+)
+from repro_torch.kernels.mi_score import mi_scores_cuda
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _counts_data(m, f, v, c, np_dtype, seed, dirty=False):
+    rng = np.random.default_rng(seed)
+    X = rng.integers(0, v, (m, f)).astype(np.int64)
+    y = rng.integers(0, c, m).astype(np.int64)
+    if dirty:
+        X[rng.random((m, f)) < 0.05] = -1
+        y[rng.random(m) < 0.05] = -3
+        y[rng.random(m) < 0.05] = OOR
+        if np.dtype(np_dtype).itemsize == 4:
+            X[rng.random((m, f)) < 0.05] = OOR
+    return X.astype(np_dtype), y.astype(np.int32)
+
+
+def _as_int(a):
+    return np.asarray(a).astype(np.int64)
+
+
+class TestContingency:
+    @pytest.mark.parametrize("np_dtype", [np.int8, np.int16, np.int32])
+    @pytest.mark.parametrize(
+        "m,f,v,c,dirty",
+        [
+            (16, 4, 2, 2, False),
+            (100, 7, 3, 2, True),    # ragged M, negatives + sentinels
+            (1030, 33, 5, 4, True),  # ragged on both axes
+            (64, 1, 2, 2, False),    # single feature
+        ],
+    )
+    def test_matches_pallas_and_batched_counts(self, np_dtype, m, f, v, c, dirty):
+        X, y = _counts_data(m, f, v, c, np_dtype, seed=m * 31 + f, dirty=dirty)
+        got = ops.contingency_tables(torch.from_numpy(X), torch.from_numpy(y), v, c)
+        assert got.dtype == torch.int32 and got.shape == (f, v, c)
+        pallas = contingency_tables_pallas(
+            jnp.asarray(X), jnp.asarray(y), v, c, interpret=True
+        )
+        jref = jcont.batched_counts(jnp.asarray(X), jnp.asarray(y), v, c, block=8)
+        np.testing.assert_array_equal(got.numpy(), _as_int(pallas))
+        np.testing.assert_array_equal(got.numpy(), _as_int(jref))
+
+    def test_feature_major_view_counts_like_columns(self):
+        X, y = _counts_data(300, 40, 3, 2, np.int8, seed=5)
+        rows = torch.from_numpy(np.ascontiguousarray(X.T))  # (F, M) storage
+        got = ops.contingency_tables(rows.T, torch.from_numpy(y), 3, 2)
+        want = jcont.batched_counts(jnp.asarray(X), jnp.asarray(y), 3, 2)
+        np.testing.assert_array_equal(got.numpy(), _as_int(want))
+
+    @pytest.mark.parametrize("m,f,v,c", [(200, 9, 2, 2), (513, 17, 3, 4)])
+    def test_conditional_matches_pallas(self, m, f, v, c):
+        X, y = _counts_data(m, f, v, c, np.int32, seed=7, dirty=True)
+        xj = X[:, 2].copy()
+        got = ops.conditional_tables(
+            torch.from_numpy(X), torch.from_numpy(xj), torch.from_numpy(y), v, c
+        )
+        assert got.shape == (f, v, v, c)
+        pallas = conditional_tables_pallas(
+            jnp.asarray(X), jnp.asarray(xj), jnp.asarray(y), v, c, interpret=True
+        )
+        jref = jcont.conditional_counts(
+            jnp.asarray(X), jnp.asarray(xj), jnp.asarray(y), v, v, c
+        )
+        np.testing.assert_array_equal(got.numpy(), _as_int(pallas))
+        np.testing.assert_array_equal(got.numpy(), _as_int(jref))
+
+    def test_all_padding_counts_nothing(self):
+        X = torch.tensor([[0], [1], [OOR]], dtype=torch.int32)
+        y = torch.tensor([0, 1, OOR], dtype=torch.int32)
+        got = ops.contingency_tables(X, y, 2, 2)
+        np.testing.assert_array_equal(got[0].numpy(), [[1, 0], [0, 1]])
+
+
+class TestMIScores:
+    @pytest.mark.parametrize("shape", [(1, 2, 2), (37, 3, 4), (300, 2, 2), (64, 5, 3)])
+    def test_matches_pallas_and_mi_from_counts(self, shape):
+        rng = np.random.default_rng(sum(shape))
+        counts = rng.integers(0, 50, shape).astype(np.int32)
+        counts[::5] = 0  # all-zero tables
+        counts[1::5, 0] = 0  # zero cells
+        got = ops.mi_scores(torch.from_numpy(counts))
+        assert got.dtype == torch.float32 and got.shape == shape[:1]
+        pallas = mi_scores_pallas(jnp.asarray(counts, jnp.float32), interpret=True)
+        jref = jscores.mi_from_counts(jnp.asarray(counts))
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=RTOL, atol=ATOL)
+        assert np.all(got.numpy()[::5] == 0)
+
+    def test_float_counts(self):
+        counts = np.random.default_rng(0).integers(0, 9, (20, 2, 3)).astype(np.float32)
+        got = ref.mi_scores(torch.from_numpy(counts))
+        want = jscores.mi_from_counts(jnp.asarray(counts))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+class TestDispatch:
+    def test_auto_on_cpu_runs_plain_and_counts_no_launch(self):
+        X, y = _counts_data(50, 4, 2, 2, np.int8, seed=1)
+        before = contingency_tables_cuda.launches, mi_scores_cuda.launches
+        ops.mi_scores(ops.contingency_tables(torch.from_numpy(X), torch.from_numpy(y), 2, 2))
+        assert (contingency_tables_cuda.launches, mi_scores_cuda.launches) == before
+
+    @pytest.mark.parametrize("fn", ["contingency", "mi"])
+    def test_forced_kernel_on_cpu_raises(self, fn):
+        X, y = _counts_data(50, 4, 2, 2, np.int8, seed=1)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            if fn == "contingency":
+                ops.contingency_tables(
+                    torch.from_numpy(X), torch.from_numpy(y), 2, 2, use_kernel=True
+                )
+            else:
+                ops.mi_scores(torch.zeros((3, 2, 2)), use_kernel=True)
+
+    def test_forced_plain_matches_auto(self):
+        X, y = _counts_data(80, 6, 3, 2, np.int16, seed=2)
+        a = ops.contingency_tables(torch.from_numpy(X), torch.from_numpy(y), 3, 2)
+        b = ops.contingency_tables(
+            torch.from_numpy(X), torch.from_numpy(y), 3, 2, use_kernel=False
+        )
+        assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("bad", ["yes", None, 1.0])
+    def test_bad_use_kernel_raises(self, bad):
+        with pytest.raises(ValueError, match="use_kernel"):
+            ops.mi_scores(torch.zeros((1, 2, 2)), use_kernel=bad)
+
+    @pytest.mark.parametrize(
+        "wrapper,args",
+        [
+            (contingency_tables_cuda, (torch.zeros((4, 2), dtype=torch.int8),
+                                       torch.zeros(4, dtype=torch.int32), 2, 2)),
+            (conditional_tables_cuda, (torch.zeros((4, 2), dtype=torch.int8),
+                                       torch.zeros(4, dtype=torch.int32),
+                                       torch.zeros(4, dtype=torch.int32), 2, 2)),
+            (mi_scores_cuda, (torch.zeros((3, 2, 2)),)),
+        ],
+    )
+    def test_kernel_wrappers_refuse_cpu_tensors(self, wrapper, args):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            wrapper(*args)
+
+
+class TestBuildAndGeometry:
+    def test_library_key_follows_source_and_flags(self):
+        a = _build._lib_path("contingency")
+        b = _build._lib_path("mi_score")
+        assert a != b and a.parent.parent == _build.BUILD
+        assert a == _build._lib_path("contingency")  # stable
+
+    def test_every_source_has_a_signature(self):
+        sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+        assert sources == set(_build.SIGNATURES)
+
+    def test_missing_nvcc_raises(self, monkeypatch):
+        monkeypatch.setenv("PATH", "")
+        monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.nvcc()
+
+    @pytest.mark.parametrize(
+        "m,f,cells,lanes_on_rows",
+        [(65536, 1000, 4, False), (1_000_000, 1000, 8, False),
+         (10_000, 50_000, 4, True), (37, 3, 2048, False), (1, 1, 4, True)],
+    )
+    def test_launch_geometry_covers_every_row_and_feature(self, m, f, cells, lanes_on_rows):
+        tf, tr, rows_per_chunk, row_chunks, use_smem = _launch_geometry(
+            m, f, cells, lanes_on_rows, sms=132
+        )
+        threads = tf * tr
+        assert 32 <= threads <= 256 and threads % 32 == 0
+        assert tr == (32 if lanes_on_rows else 1)
+        assert rows_per_chunk * row_chunks >= m > rows_per_chunk * (row_chunks - 1)
+        assert row_chunks <= 65535
+        assert use_smem == (cells * threads * 4 <= 48 * 1024)

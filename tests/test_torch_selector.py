@@ -1,0 +1,186 @@
+"""repro_torch front door (``MRMRSelector``) vs the JAX selector on the CPU.
+
+Every registered criterion × the ``reference`` / ``conventional`` /
+``alternative`` engines on ``CorralSource(1500, 24, seed=3)``: selections
+exact, gains and relevance within ``rtol=1e-5, atol=1e-6``.  The JAX side
+runs without a mesh on one device.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.scores import MIScore as JMIScore
+from repro.core.selector import MRMRSelector as JSelector
+from repro.data.sources import CorralSource as JCorralSource
+
+from repro_torch import MIScore, MRMRSelector, available_criteria, plan_selection
+from repro_torch.core.selector import available_encodings, check_num_select
+
+RTOL, ATOL = 1e-5, 1e-6
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def corral():
+    return JCorralSource(1500, 24, seed=3).materialize()
+
+
+@pytest.mark.parametrize("engine", ["reference", "conventional", "alternative"])
+@pytest.mark.parametrize("criterion", available_criteria())
+def test_criterion_engine_matches_jax(corral, criterion, engine):
+    X, y = corral
+    t = MRMRSelector(5, score=MIScore(2, 2), encoding=engine, criterion=criterion,
+                     device="cpu").fit(X, y)
+    j = JSelector(5, score=JMIScore(2, 2), encoding=engine, criterion=criterion,
+                  devices=1).fit(X, y)
+    assert j.plan_.mesh_shape == ()
+    np.testing.assert_array_equal(t.selected_, j.selected_)
+    np.testing.assert_allclose(t.scores_, j.scores_, rtol=RTOL, atol=ATOL)
+    if criterion == "miq":
+        # The quotient rel / mean_red divides by redundancies of ~1e-3 nats,
+        # amplifying MI rounding into the gain; hold the MI-valued divisor
+        # rel_k / g_k = max(mean_red_k, 1e-4) to the stated tolerance.
+        np.testing.assert_allclose(t.scores_[t.selected_] / t.gains_,
+                                   j.scores_[j.selected_] / j.gains_,
+                                   rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(t.gains_, j.gains_, rtol=RTOL, atol=ATOL)
+    assert t.selected_.dtype == np.int32 and t.gains_.dtype == np.float32
+    assert (t.result_.engine, t.result_.criterion) == (engine, criterion)
+
+
+@pytest.mark.parametrize(
+    "shape,encoding", [((1500, 24), "conventional"), ((24, 1500), "alternative"),
+                       ((100, 100), "conventional")],
+)
+def test_plan_follows_aspect_rule_like_jax(shape, encoding):
+    from repro.core.selector import plan_selection as jplan
+
+    assert plan_selection(shape, device="cpu").encoding == encoding
+    assert jplan(shape, devices=1).encoding == encoding
+
+
+def test_auto_plan_and_read_side(corral):
+    X, y = corral
+    sel = MRMRSelector(4, device="cpu").fit(X, y)  # score inferred: MI(2, 2)
+    jsel = JSelector(4, devices=1).fit(X, y)
+    assert sel.plan_.encoding == jsel.plan_.encoding == "conventional"
+    assert sel.plan_.score == MIScore(2, 2)
+    np.testing.assert_array_equal(sel.selected_, jsel.selected_)
+    np.testing.assert_array_equal(sel.ranking_, jsel.ranking_)
+    np.testing.assert_array_equal(sel.get_support(), jsel.get_support())
+    np.testing.assert_array_equal(sel.get_support(indices=True),
+                                  jsel.get_support(indices=True))
+    np.testing.assert_array_equal(sel.transform(X), X[:, sel.selected_])
+    Xt = torch.from_numpy(X)
+    assert torch.equal(sel.transform(Xt), Xt[:, torch.from_numpy(sel.selected_).long()])
+    assert sel.n_features_in_ == 24
+
+
+def test_wide_plans_alternative(corral):
+    X, y = corral
+    Xw, yw = np.ascontiguousarray(X[:10]), y[:10]  # 10 observations x 24 features
+    sel = MRMRSelector(3, device="cpu").fit(Xw, yw)
+    jsel = JSelector(3, devices=1).fit(Xw, yw)
+    assert sel.plan_.encoding == jsel.plan_.encoding == "alternative"
+    np.testing.assert_array_equal(sel.selected_, jsel.selected_)
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MRMRSelector(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MRMRSelector(3, encoding="streaming")
+
+
+@pytest.mark.parametrize(
+    "knob", [dict(mesh=object()), dict(hosts=2), dict(bins=16),
+             dict(spill_dir="spill"), dict(readahead=2)],
+)
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        MRMRSelector(3, device="cpu", **knob)
+
+
+class TestGuards:
+    def test_num_select_bounds(self, corral):
+        X, y = corral
+        for bad in (0, 25):
+            with pytest.raises(ValueError, match="num_select"):
+                MRMRSelector(bad, device="cpu").fit(X, y)
+        with pytest.raises(ValueError, match="out of range"):
+            check_num_select(3, 2)
+
+    def test_continuous_features_raise(self, corral):
+        X, y = corral
+        with pytest.raises(ValueError, match="continuous"):
+            MRMRSelector(3, device="cpu").fit(X.astype(np.float32), y)
+
+    def test_negative_categories_raise(self, corral):
+        X, y = corral
+        Xn = X.astype(np.int32)
+        Xn[0, 0] = -1
+        with pytest.raises(ValueError, match="negative category"):
+            MRMRSelector(3, device="cpu").fit(Xn, y)
+        with pytest.raises(ValueError, match="negative category"):
+            JSelector(3, devices=1).fit(Xn, y)
+
+    def test_shapes_and_missing_target(self, corral):
+        X, y = corral
+        with pytest.raises(ValueError, match="bad shapes"):
+            MRMRSelector(3, device="cpu").fit(X, y[:-1])
+        with pytest.raises(ValueError, match="y is required"):
+            MRMRSelector(3, device="cpu").fit(X)
+
+    def test_unknown_encoding(self, corral):
+        X, y = corral
+        with pytest.raises(ValueError, match="unknown encoding"):
+            MRMRSelector(3, encoding="grid", device="cpu").fit(X, y)
+        assert available_encodings() == (
+            "alternative", "conventional", "reference", "streaming")
+
+    def test_transform_before_fit(self):
+        with pytest.raises(RuntimeError, match="fit"):
+            MRMRSelector(3, device="cpu").transform(np.zeros((2, 3)))
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = (
+        "import sys, repro_torch, repro_torch.launch.select; "
+        "import repro_torch.kernels.ops, repro_torch.data.synthetic; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'repro' or m.startswith('repro.')); print(bad)"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True, timeout=120)
+    assert out.stdout.strip() == "[]"
+
+
+def test_cli_prints_one_json_line_naming_the_device():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.select", "--rows", "2000",
+           "--cols", "30", "--select", "4", "--device", "cpu"]
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, check=True,
+                         timeout=120)
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["device"] == "cpu" and rec["encoding"] == "conventional"
+    assert len(rec["selected"]) == 4
+
+
+def test_bool_features_fit_like_jax(corral):
+    X, y = corral
+    Xb = X.astype(bool)
+    t = MRMRSelector(4, device="cpu").fit(Xb, y)
+    j = JSelector(4, devices=1).fit(Xb, y)
+    np.testing.assert_array_equal(t.selected_, j.selected_)
