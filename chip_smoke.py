@@ -12,9 +12,18 @@ Phases (each failure raises; the script exits non-zero and prints no result):
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes: contingency counts bitwise equal (int8/int16/int32, the
    class-fused conditional target, a ragged row count, injected negatives and
-   sentinels); MI within ``rtol=1e-5, atol=1e-6``.  Times with CUDA events:
-   kernel, plain version, the byte/operation bound and, for contingency,
-   ``torch.bincount`` on the fused index as the library yardstick.
+   sentinels, int32 codes of 16 bins); MI within ``rtol=1e-5, atol=1e-6``
+   (also at 16 values, and at every shape it is timed); bin codes bitwise equal
+   to the plain version and to the host binner (``QuantileBinner.transform``)
+   at 65,536 x 1000 and a ragged 65,499 rows, E of 15 and 63, values planted
+   on edges; row correlations within ``rtol=2e-4, atol=2e-5`` at 50,000 x
+   10,000 rows against T=1 and T=4, with a constant row and through the
+   ``X.T`` view.  Times with CUDA events: kernel, plain version, the
+   byte/operation bound and a library yardstick (contingency:
+   ``torch.bincount`` on the fused index, also for the class-fused
+   conditional count; bin codes: one ``torch.searchsorted`` on the
+   feature-major transpose; correlation: ``torch.matmul`` of pre-standardised
+   rows, the product only).
 3. Tall (the paper's Fig. 5/6 point): CorrAL 1,000,000 x 1000 int8, L=10,
    ``mid``.  The in-memory fit (plans ``conventional``), the streaming fit
    over ``ArraySource`` at ``block_obs=65536`` and the in-memory fit with the
@@ -23,13 +32,29 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    blocks.
 4. Wide (the repo's scaled Fig. 7 point): CorrAL 10,000 x 50,000, L=10,
    plans ``alternative``; kernels and plain versions select the same.
+5. Tall continuous (the Fig. 5/6 point with continuous values):
+   ``continuous_dataset_np(1_000_000, 1000)`` float32, ``bins=16``, L=10,
+   ``mid``.  The fingerprint and the sketch pass run once, timed apart
+   (``fit_binned``; every fit below reuses the memoised binner), and so does
+   the host binner's ``transform`` of one 65,536-row block, the work the
+   device encode replaces.  (a) the
+   streaming fused fit at ``block_obs=65536``, (b) the in-memory binned fit
+   (host sketch, device encode), (c) (b) with the plain versions must select
+   the same, first pick in {0, 8}; (a)'s ledger reads 10 passes, 160 blocks
+   and the float blocks' bytes.
+6. Wide continuous (the scaled Fig. 7 point, continuous):
+   ``continuous_dataset_np(10_000, 50_000)``, L=8, plans ``alternative`` with
+   ``PearsonMIScore``; kernel and plain versions select the same, first pick
+   in {0, 8}.
 
 Each main-path fit runs with the kernels' launch counts set to 0 just before
 it and read just after: an in-memory fit of L=10 counts 10 contingency
 launches (1 relevance + 9 folds; no fold follows the last pick), the
 streaming fit 160 (10 passes x 16 blocks), and every fit launches the MI
-kernel.  The second-to-last line is ``{"kernels": [...]}``, the last
-``{"ok": true, "device": {...}}``.
+kernel; the streaming binned fit encodes each of its 160 blocks once, the
+in-memory binned fit encodes X once, and the wide Pearson fit launches the
+correlation kernel 8 times (1 relevance + 7 folds).  The second-to-last
+line is ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,10 +76,23 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 RTOL, ATOL = 1e-5, 1e-6
+# Row correlations: float32 sums over M in another order (tests/test_kernels.py:83).
+CORR_RTOL, CORR_ATOL = 2e-4, 2e-5
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """name -> the wrapper whose ``launches`` counter each path reads."""
+    from repro_torch.kernels.binning import bin_codes_cuda
+    from repro_torch.kernels.contingency import contingency_tables_cuda
+    from repro_torch.kernels.mi_score import mi_scores_cuda
+    from repro_torch.kernels.pearson import pearson_corr_cuda
+
+    return dict(contingency_tables=contingency_tables_cuda, mi_scores=mi_scores_cuda,
+                bin_codes=bin_codes_cuda, pearson_corr=pearson_corr_cuda)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -128,6 +166,7 @@ def phase2(dev):
         ("int32 V=2 C=2", torch.int32, M, 2, 2, False),
         ("int8 ragged M=65499, negatives", torch.int8, 65499, 2, 2, True),
         ("int32 negatives + 2**31-1 sentinels", torch.int32, M, 2, 2, True),
+        ("int32 V=16 C=2 (binned codes)", torch.int32, M, 16, 2, False),
     ]
     for label, dtype, m, v, c, dirty in cases:
         X = rng.integers(0, v, (m, F))
@@ -148,7 +187,7 @@ def phase2(dev):
         log(f"[contingency] {label}: {m}x{F} bitwise equal")
 
     mi_err = 0.0
-    for shape in [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2)]:
+    for shape in [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2), (1000, 16, 2)]:
         counts = torch.as_tensor(rng.integers(0, 30000, shape)).to(torch.int32).to(dev)
         counts[::11] = 0  # all-zero rows
         got = mi_scores_cuda(counts)
@@ -187,12 +226,15 @@ def time_mi(counts, label, reps=50):
     from repro_torch.kernels.mi_score import mi_scores_cuda
 
     f, v, c = counts.shape
+    got, want = mi_scores_cuda(counts), ref.mi_scores(counts)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    err = (got - want).abs().max().item()
     ms = cuda_ms(lambda: mi_scores_cuda(counts), reps)
     plain_ms = cuda_ms(lambda: ref.mi_scores(counts), reps)
     nbytes = counts.numel() * counts.element_size() + f * 4
     b_ms, b_by = bound(nbytes, f * v * c * (v + 8))
     rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None, bytes=nbytes)
+               bound_by=b_by, library_ms=None, bytes=nbytes, max_abs_err=err)
     log(f"[time] mi {label}: {json.dumps(rec)}")
     return rec
 
@@ -200,19 +242,16 @@ def time_mi(counts, label, reps=50):
 def run_path(name, fn, dev, launches):
     """Drive one main-path fit with the launch counts zeroed just before
     and read just after; returns (result, record)."""
-    from repro_torch.kernels.contingency import contingency_tables_cuda
-    from repro_torch.kernels.mi_score import mi_scores_cuda
-
+    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    contingency_tables_cuda.launches = 0
-    mi_scores_cuda.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(contingency_tables=contingency_tables_cuda.launches,
-                  mi_scores=mi_scores_cuda.launches)
+    counts = {k: w.launches for k, w in wrappers.items()}
     launches[name] = counts
     rec = dict(path=name, seconds=seconds, launches=counts,
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
@@ -319,46 +358,300 @@ def phase4(dev, launches, timings):
     return [rec, prec]
 
 
+def time_conditional(X, xj, y, label, reps=40):
+    """The class-fused conditional count (kernel 1 behind ``fuse_targets``)."""
+    from repro_torch.core.contingency import fuse_targets
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.contingency import conditional_tables_cuda
+
+    from repro_torch.kernels.contingency import contingency_tables_cuda
+
+    m, f = X.shape
+    got = conditional_tables_cuda(X, xj, y, 2, 2)
+    if not torch.equal(got, ref.conditional_tables(X, xj, y, 2, 2)):
+        raise AssertionError(f"conditional counts differ at {label}")
+    ms = cuda_ms(lambda: conditional_tables_cuda(X, xj, y, 2, 2), reps)
+    fused = fuse_targets(xj, y, 2, 2)
+    count_ms = cuda_ms(lambda: contingency_tables_cuda(X, fused, 2, 4), reps)
+    plain_ms = cuda_ms(lambda: ref.conditional_tables(X, xj, y, 2, 2), 4, 1)
+    library_ms = cuda_ms(lambda: bincount_tables(X, fuse_targets(xj, y, 2, 2), 2, 4), 4, 1)
+    nbytes = X.numel() * X.element_size() + 2 * m * 4 + f * 2 * 4 * 4
+    b_ms, b_by = bound(nbytes, m * f)
+    rec = dict(shape=label, ms=ms, count_only_ms=count_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, bytes=nbytes)
+    log(f"[time] conditional {label}: {json.dumps(rec)}")
+    return rec
+
+
+def planted_block(rng, b, n, e):
+    """Float32 block and sorted edges (one duplicate), values planted on edges."""
+    X = rng.standard_normal((b, n), dtype=np.float32)
+    edges = np.sort(rng.standard_normal((n, e), dtype=np.float32), axis=1)
+    if e > 1:
+        edges[:, 1] = edges[:, 0]
+    X[::7] = edges[np.arange(n), rng.integers(0, e, n)]
+    X[1], X[2] = -0.0, 0.0
+    return X, edges
+
+
+def phase2_bins(dev):
+    """bin_codes bitwise against the plain version and the host binner."""
+    from repro_torch import QuantileBinner
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binning import bin_codes_cuda
+
+    rng = np.random.default_rng(2)
+    err, timings = 0, []
+    for label, b, e in [("65536x1000 E=15", 65536, 15), ("ragged 65499x1000 E=15", 65499, 15),
+                        ("65536x1000 E=63", 65536, 63)]:
+        X, edges = planted_block(rng, b, 1000, e)
+        Xd, ed = torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+        got = bin_codes_cuda(Xd, ed)
+        want = ref.bin_codes(Xd, ed)
+        binner = QuantileBinner(e + 1)
+        binner.edges_ = edges
+        host = torch.from_numpy(binner.transform(X))
+        diff = max((got.long() - want.long()).abs().max().item(),
+                   (got.cpu().long() - host.long()).abs().max().item())
+        err = max(err, diff)
+        if diff != 0 or got.dtype != torch.int32:
+            raise AssertionError(f"bin_codes {label}: codes differ (max {diff})")
+        log(f"[bin_codes] {label}: bitwise equal to the plain version and the host binner")
+        if b == 65536:
+            timings.append(time_bins(Xd, ed, f"{label} (streaming block)", reps=40))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Xd = torch.randn((1_000_000, 1000), generator=gen, device=dev)
+    ed = torch.sort(torch.randn((1000, 15), generator=gen, device=dev), dim=1).values
+    if not torch.equal(bin_codes_cuda(Xd, ed), ref.bin_codes(Xd, ed)):
+        raise AssertionError("bin_codes 1000000x1000: codes differ")
+    timings.append(time_bins(Xd, ed, "1000000x1000 E=15 (in-memory fit)", reps=10))
+    return err, timings
+
+
+def time_bins(Xd, ed, label, reps):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binning import bin_codes_cuda
+
+    b, n = Xd.shape
+    e = ed.shape[1]
+    ms = cuda_ms(lambda: bin_codes_cuda(Xd, ed), reps)
+    plain_ms = cuda_ms(lambda: ref.bin_codes(Xd, ed), max(2, reps // 5), 1)
+    Xt = Xd.T.contiguous()  # the library call's own layout, made outside the timing
+    library_ms = cuda_ms(lambda: torch.searchsorted(ed, Xt, right=True), max(2, reps // 5), 1)
+    del Xt
+    nbytes = 2 * b * n * 4 + n * e * 4
+    b_ms, b_by = bound(nbytes, 2 * b * n * e)
+    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms, library="torch.searchsorted(right=True) on the "
+               "(N, B) transpose", bytes=nbytes)
+    log(f"[time] bin_codes {label}: {json.dumps(rec)}")
+    return rec
+
+
+def phase2_pearson(dev):
+    """pearson_corr within CORR_RTOL/CORR_ATOL of the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pearson import pearson_corr_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    F, M = 50_000, 10_000
+    X = torch.randn((F, M), generator=gen, device=dev) * 2 + 3
+    X[7] = 2.5  # a constant row correlates 0
+    err, timings = 0.0, []
+    for t in (1, 4):
+        Y = torch.randn((t, M), generator=gen, device=dev)
+        got = pearson_corr_cuda(X, Y)
+        want = ref.pearson_corr(X, Y)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=CORR_RTOL, atol=CORR_ATOL)
+        if not torch.all(got[7] == 0):
+            raise AssertionError("a constant row does not correlate 0")
+        e = (got - want).abs().max().item()
+        err = max(err, e)
+        log(f"[pearson] {F}x{M} against T={t}: within rtol={CORR_RTOL} "
+            f"atol={CORR_ATOL}, max abs err {e:.3e}")
+        timings.append(time_pearson(X, Y, f"{F}x{M} T={t}", reps=20 if t == 1 else 5))
+    Xv = X[:2000].T.contiguous().T  # the X.T view of a row-major matrix
+    Y = torch.randn((1, M), generator=gen, device=dev)
+    got = pearson_corr_cuda(Xv, Y)
+    torch.testing.assert_close(got, ref.pearson_corr(Xv, Y), rtol=CORR_RTOL, atol=CORR_ATOL)
+    err = max(err, (got - ref.pearson_corr(Xv, Y)).abs().max().item())
+    log("[pearson] 2000x10000 through the X.T view: within tolerance")
+    return err, timings
+
+
+def time_pearson(X, Y, label, reps):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pearson import pearson_corr_cuda
+
+    f, m = X.shape
+    t = Y.shape[0]
+    ms = cuda_ms(lambda: pearson_corr_cuda(X, Y), reps)
+    plain_ms = cuda_ms(lambda: ref.pearson_corr(X, Y), 3, 1)
+    Xs, Ys = ref.standardize_rows(X), ref.standardize_rows(Y)
+    library_ms = cuda_ms(lambda: torch.matmul(Xs, Ys.T) / m, reps)
+    del Xs, Ys
+    nbytes = (f * m + t * m + f * t) * 4
+    b_ms, b_by = bound(nbytes, 4 * f * m + 2 * f * m * t)
+    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms, library="torch.matmul of pre-standardised rows "
+               "(product only)", bytes=nbytes)
+    log(f"[time] pearson_corr {label}: {json.dumps(rec)}")
+    return rec
+
+
+def phase5(dev, launches):
+    from repro_torch import ArraySource, MIScore, MRMRSelector, fit_binned
+    from repro_torch.data.synthetic import continuous_dataset_np
+
+    t0 = time.perf_counter()
+    X, y = continuous_dataset_np(1_000_000, 1000, seed=0)
+    log(f"[tall-binned] data 1000000x1000 float32 made in {time.perf_counter() - t0:.3f} s")
+    src = ArraySource(X, y)
+    t0 = time.perf_counter()
+    src.fingerprint()
+    fp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    binner = fit_binned(src, 16, block_obs=65536).binner
+    sketch_s = time.perf_counter() - t0
+    # What the device encode replaces: the host binner on one streaming block.
+    t0 = time.perf_counter()
+    binner.transform(X[:65536])
+    transform_s = time.perf_counter() - t0
+    log(f"[tall-binned] fingerprint (sha256 of 4 GB) {fp_s:.3f} s; "
+        f"sketch pass {sketch_s:.3f} s; host QuantileBinner.transform of one "
+        f"65536x1000 block {transform_s:.3f} s")
+
+    stream, srec = run_path(
+        "tall_binned_streaming",
+        lambda: MRMRSelector(10, bins=16, block_obs=65536).fit(src), dev, launches)
+    mem, mrec = run_path(
+        "tall_binned_in_memory", lambda: MRMRSelector(10, bins=16).fit(X, y), dev, launches)
+    plain, prec = run_path(
+        "tall_binned_plain",
+        lambda: MRMRSelector(10, bins=16, score=MIScore(16, 2, use_kernel=False)).fit(X, y),
+        dev, launches)
+    check_same_selection(stream, mem, "tall binned streaming vs in-memory")
+    check_same_selection(mem, plain, "tall binned kernels vs plain versions")
+    check_finite(mem, 1000)
+    if (stream.plan_.bins, mem.plan_.bins) != (16, 16):
+        raise AssertionError("binned fits did not record bins=16")
+    if int(mem.selected_[0]) not in (0, 8):
+        raise AssertionError(f"first binned pick {mem.selected_[0]} not in {{0, 8}}")
+    io = stream.result_.io
+    if (io["passes"], io["blocks_read"], io["bytes_read"]) != (10, 160, 10 * (X.nbytes + y.nbytes)):
+        raise AssertionError(f"binned streaming ledger {io}")
+    a, b, c = (launches[p] for p in ("tall_binned_streaming", "tall_binned_in_memory",
+                                     "tall_binned_plain"))
+    if (a["bin_codes"], a["contingency_tables"]) != (160, 160) or a["mi_scores"] == 0:
+        raise AssertionError(f"binned streaming launches {a}")
+    if b["bin_codes"] < 1 or b["contingency_tables"] != 10 or b["mi_scores"] == 0:
+        raise AssertionError(f"binned in-memory launches {b}")
+    if any(c.values()):
+        raise AssertionError(f"plain-version binned fit launched kernels: {c}")
+    return [dict(srec, fingerprint_s=fp_s, sketch_s=sketch_s,
+                 host_transform_block_s=transform_s), mrec, prec]
+
+
+def phase6(dev, launches):
+    from repro_torch import MRMRSelector, PearsonMIScore
+    from repro_torch.data.synthetic import continuous_dataset_np
+
+    t0 = time.perf_counter()
+    X, y = continuous_dataset_np(10_000, 50_000, seed=0)
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    del X
+    log(f"[wide-pearson] data 10000x50000 float32 made and placed in "
+        f"{time.perf_counter() - t0:.3f} s")
+    kern, rec = run_path("wide_pearson", lambda: MRMRSelector(8).fit(Xd, yd), dev, launches)
+    if kern.plan_.encoding != "alternative" or not isinstance(kern.plan_.score, PearsonMIScore):
+        raise AssertionError(f"wide continuous fit planned {kern.plan_}")
+    plain, prec = run_path(
+        "wide_pearson_plain",
+        lambda: MRMRSelector(8, score=PearsonMIScore(use_kernel=False)).fit(Xd, yd),
+        dev, launches)
+    if not np.array_equal(kern.selected_, plain.selected_):
+        raise AssertionError(f"wide Pearson selections differ: {kern.selected_} vs "
+                             f"{plain.selected_}")
+    np.testing.assert_allclose(kern.gains_, plain.gains_, rtol=CORR_RTOL, atol=CORR_ATOL)
+    check_finite(kern, 50_000)
+    if int(kern.selected_[0]) not in (0, 8):
+        raise AssertionError(f"first Pearson pick {kern.selected_[0]} not in {{0, 8}}")
+    if launches["wide_pearson"]["pearson_corr"] != 8:
+        raise AssertionError(f"wide Pearson launches {launches['wide_pearson']}")
+    if any(launches["wide_pearson_plain"].values()):
+        raise AssertionError(f"plain Pearson fit launched {launches['wide_pearson_plain']}")
+    return [rec, prec]
+
+
+def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=sum(launches[p][name] for p in paths),
+                launches_by_path={p: launches[p][name] for p in paths},
+                max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], at_shapes=shapes)
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase0()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase1()
-    count_err, mi_err = phase2(dev)
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name} {time.perf_counter() - t0:.3f} s")
+        return out
+
+    count_err, mi_err = phase("2 contingency+mi", phase2, dev)
+    bins_err, bin_times = phase("2 bin_codes", phase2_bins, dev)
+    corr_err, corr_times = phase("2 pearson_corr", phase2_pearson, dev)
     launches: dict = {}
     timings: list = []
-    fits = phase3(dev, launches, timings)
-    fits += phase4(dev, launches, timings)
+    fits = phase("3 tall", phase3, dev, launches, timings)
+    fits += phase("4 wide", phase4, dev, launches, timings)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    Xc = (torch.rand((65536, 1000), generator=gen, device=dev) < 0.5).to(torch.int8)
+    timings.append(time_conditional(Xc, Xc[:, 3].clone(), Xc[:, 5].to(torch.int32),
+                                    "65536x1000 int8 VC=4 (conditional)"))
+    del Xc
+    fits += phase("5 tall binned", phase5, dev, launches)
+    fits += phase("6 wide pearson", phase6, dev, launches)
     rng = np.random.default_rng(1)
     mi_block = torch.as_tensor(rng.integers(0, 30000, (1000, 2, 2))).to(torch.int32).to(dev)
     mi_times = [time_mi(mi_block, "1000x2x2 (tall pass)"),
-                time_mi(mi_block.repeat(50, 1, 1), "50000x2x2 (wide pass)")]
+                time_mi(mi_block.repeat(50, 1, 1), "50000x2x2 (wide pass)"),
+                time_mi(torch.as_tensor(rng.integers(0, 30000, (1000, 16, 2)))
+                        .to(torch.int32).to(dev), "1000x16x2 (tall binned pass)")]
 
-    kernel_paths = ("tall_conventional", "tall_streaming", "wide_alternative")
-    head_c = timings[1]  # the streaming block: the shape launched most often
-    head_m = mi_times[0]
+    mi_err = max([mi_err] + [r["max_abs_err"] for r in mi_times])
+    mi_paths = ("tall_conventional", "tall_streaming", "wide_alternative",
+                "tall_binned_streaming", "tall_binned_in_memory")
     kernels = [
-        dict(name="contingency_tables", route="cuda",
-             source="src/repro_torch/csrc/contingency.cu",
-             replaces="src/repro/kernels/contingency.py:59",
-             launches=sum(launches[p]["contingency_tables"] for p in kernel_paths),
-             launches_by_path={p: launches[p]["contingency_tables"] for p in kernel_paths},
-             max_abs_err=count_err,
-             ms=head_c["ms"], plain_ms=head_c["plain_ms"],
-             bound_ms=head_c["bound_ms"], bound_by=head_c["bound_by"],
-             library_ms=head_c["library_ms"], at_shapes=timings),
-        dict(name="mi_scores", route="cuda",
-             source="src/repro_torch/csrc/mi_score.cu",
-             replaces="src/repro/kernels/mi_score.py:40",
-             launches=sum(launches[p]["mi_scores"] for p in kernel_paths),
-             launches_by_path={p: launches[p]["mi_scores"] for p in kernel_paths},
-             max_abs_err=mi_err,
-             ms=head_m["ms"], plain_ms=head_m["plain_ms"],
-             bound_ms=head_m["bound_ms"], bound_by=head_m["bound_by"],
-             library_ms=None, at_shapes=mi_times),
+        # the streaming block: the shape launched most often
+        kernel_entry("contingency_tables", "src/repro_torch/csrc/contingency.cu",
+                     "src/repro/kernels/contingency.py:59", mi_paths, launches,
+                     count_err, timings[1], timings),
+        kernel_entry("mi_scores", "src/repro_torch/csrc/mi_score.cu",
+                     "src/repro/kernels/mi_score.py:40", mi_paths, launches,
+                     mi_err, mi_times[0], mi_times),
+        kernel_entry("bin_codes", "src/repro_torch/csrc/bin_codes.cu",
+                     "src/repro/kernels/binning.py:45",
+                     ("tall_binned_streaming", "tall_binned_in_memory"), launches,
+                     bins_err, bin_times[0], bin_times),
+        kernel_entry("pearson_corr", "src/repro_torch/csrc/pearson.cu",
+                     "src/repro/kernels/pearson.py:57", ("wide_pearson",), launches,
+                     corr_err, corr_times[0], corr_times),
     ]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was never launched on a main path")
     log(json.dumps(dict(fits=fits)))
+    log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,16 @@ the CPU, where the kernels' plain PyTorch versions run instead.
     >>> X, y = CorralSource(100_000, 200).materialize()
     >>> MRMRSelector(num_select=10).fit(X, y).selected_
 
-Contingency counting and MI finalization run through
-``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``),
-built with ``nvcc`` for ``sm_90a`` at first use.
+Continuous data takes the paper's Pearson score on the alternative
+encoding, or quantile bins and exact MI:
+
+    >>> MRMRSelector(num_select=10).fit(X_float, y)           # PearsonMIScore
+    >>> MRMRSelector(num_select=10, bins=16).fit(X_float, y)  # binned MI
+
+Contingency counting, MI finalization, bin encoding and row correlation run
+through ``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``,
+``csrc/bin_codes.cu``, ``csrc/pearson.cu``), built with ``nvcc`` for
+``sm_90a`` at first use.
 """
 
 from repro_torch.core.criteria import (
@@ -27,7 +34,13 @@ from repro_torch.core.mrmr import (
     mrmr_conventional,
     mrmr_reference,
 )
-from repro_torch.core.scores import MIScore, ScoreFn
+from repro_torch.core.scores import (
+    MIScore,
+    PearsonMIScore,
+    ScoreFn,
+    cor2mi,
+    pearson_rows,
+)
 from repro_torch.core.selector import (
     MRMRSelector,
     SelectionPlan,
@@ -35,6 +48,12 @@ from repro_torch.core.selector import (
     plan_selection,
 )
 from repro_torch.core.streaming import mrmr_streaming
+from repro_torch.data.binning import (
+    BinnedSource,
+    QuantileBinner,
+    QuantileSketch,
+    fit_binned,
+)
 from repro_torch.data.sources import (
     ArraySource,
     CorralSource,
@@ -45,6 +64,7 @@ from repro_torch.data.sources import (
 
 __all__ = [
     "ArraySource",
+    "BinnedSource",
     "CorralSource",
     "Criterion",
     "DataSource",
@@ -52,15 +72,21 @@ __all__ = [
     "MRMRResult",
     "MRMRSelector",
     "NpySource",
+    "PearsonMIScore",
+    "QuantileBinner",
+    "QuantileSketch",
     "ScoreFn",
     "SelectionPlan",
     "as_source",
     "available_criteria",
     "available_encodings",
+    "cor2mi",
+    "fit_binned",
     "mrmr_alternative",
     "mrmr_conventional",
     "mrmr_reference",
     "mrmr_streaming",
+    "pearson_rows",
     "plan_selection",
     "register_criterion",
     "resolve_criterion",

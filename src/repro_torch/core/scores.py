@@ -1,4 +1,5 @@
-"""Feature-score functions for mRMR — discrete mutual information.
+"""Feature-score functions for mRMR — discrete mutual information and the
+paper's Pearson-based approximation for continuous data.
 
 A score function is an object with two batched primitives —
 
@@ -11,7 +12,9 @@ layout ``(F, M)``, the alternative encoding's row-per-feature storage.
 
 Every MI value here is finalized by the MI kernel
 (:mod:`repro_torch.kernels.mi_score`) on a CUDA tensor and by its plain
-version on the CPU; every contingency count by the contingency kernel.
+version on the CPU; every contingency count by the contingency kernel; and
+every in-memory Pearson correlation by the correlation kernel
+(:mod:`repro_torch.kernels.pearson`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from repro_torch.core import contingency
 from repro_torch.core.contingency import OOR
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import cor2mi, standardize_rows
 
 _EPS = 1e-12
 
@@ -73,6 +77,24 @@ def entropy_from_counts(counts: torch.Tensor) -> torch.Tensor:
         p > 0, p * torch.log(torch.clamp_min(p, _EPS)), torch.zeros_like(p)
     )
     return -terms.sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Pearson correlation (batched, feature-major)
+# ---------------------------------------------------------------------------
+
+def pearson_rows(
+    cands: torch.Tensor, other: torch.Tensor, use_kernel="auto"
+) -> torch.Tensor:
+    """Pearson correlation of each row of ``cands`` (F, M) with ``other``.
+
+    ``other`` is (M,) or (T, M); result is (F,) or (F, T) float32.  Runs the
+    correlation kernel on a CUDA tensor (``use_kernel``, as in
+    :mod:`repro_torch.kernels.ops`).
+    """
+    squeeze = other.dim() == 1
+    corr = ops.pearson_corr(cands, other[None] if squeeze else other, use_kernel)
+    return corr[:, 0] if squeeze else corr
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +274,105 @@ class MIScore(ScoreFn):
         return self.terms_from_conditional(counts)
 
 
+@dataclasses.dataclass(frozen=True)
+class PearsonMIScore(ScoreFn):
+    """Listing-8 score: MI approximated via Pearson correlation.
+
+    Works for continuous data (alternative encoding only, as in the paper).
+    In memory, every relevance and redundancy vector is one call of the
+    correlation kernel (``use_kernel`` as for :class:`MIScore`).  Streams as
+    running moments — sum, sum-of-squares and cross-products — so one
+    block-wise pass recovers the exact full-dataset correlation.
+    """
+
+    use_kernel: Union[bool, Literal["auto"]] = "auto"
+
+    supports_streaming = True
+
+    def __post_init__(self):
+        ops.check_use_kernel(self.use_kernel)
+
+    def feature_rows(self, X_rows: torch.Tensor) -> torch.Tensor:
+        """One feature-major float32 copy of ``X_rows`` (N, M) per fit.
+
+        The correlation kernel reads rows contiguous along M; the
+        alternative engine hands a transposed view, which would otherwise
+        be copied on every call.  A contiguous float32 input is returned
+        as is.
+        """
+        if X_rows.dtype == torch.float32 and X_rows.is_contiguous():
+            return X_rows
+        out = torch.empty(X_rows.shape, dtype=torch.float32, device=X_rows.device)
+        return out.copy_(X_rows)
+
+    def relevance(self, cands: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+        return cor2mi(pearson_rows(cands, cls.to(torch.float32), self.use_kernel))
+
+    def redundancy(self, cands: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+        return cor2mi(pearson_rows(cands, other.to(torch.float32), self.use_kernel))
+
+    # -- streaming: running moments -------------------------------------
+
+    def init_state(self, n_features: int, target_kind: str = "class") -> dict:
+        z = torch.zeros((n_features,), dtype=torch.float32)
+        s = torch.zeros((), dtype=torch.float32)
+        # mu_x / mu_t: per-column shifts frozen from the first block.  The
+        # moments are accumulated on SHIFTED data — cov/var are
+        # shift-invariant, but naive uncentered f32 sums cancel
+        # catastrophically when |mean| >> std (sxx ~ n·mu² swamps the
+        # signal), so the shift keeps the sums near the origin.
+        return dict(n=s, mu_x=z, mu_t=s.clone(), sx=z.clone(), sxx=z.clone(),
+                    sxt=z.clone(), st=s.clone(), stt=s.clone())
+
+    def accumulate(
+        self, state: dict, X_block: torch.Tensor, target: torch.Tensor,
+        valid=None,
+    ) -> dict:
+        """One block's moments added to ``state``; returns a new dict."""
+        X = X_block.to(torch.float32)
+        t = target.to(torch.float32)
+        if valid is not None:
+            w = valid.to(torch.float32)
+            n = w.sum()
+        else:
+            w = torch.ones((X.shape[0],), dtype=torch.float32, device=X.device)
+            n = torch.tensor(float(X.shape[0]), dtype=torch.float32, device=X.device)
+        denom = torch.clamp_min(n, 1.0)
+        first = state["n"] == 0
+        mu_x = torch.where(first, (X * w[:, None]).sum(dim=0) / denom, state["mu_x"])
+        mu_t = torch.where(first, (t * w).sum() / denom, state["mu_t"])
+        # Shift, then zero padded rows: they drop out of every sum and only
+        # n carries the true observation count.
+        Xs = (X - mu_x) * w[:, None]
+        ts = (t - mu_t) * w
+        return dict(
+            n=state["n"] + n,
+            mu_x=mu_x,
+            mu_t=mu_t,
+            sx=state["sx"] + Xs.sum(dim=0),
+            sxx=state["sxx"] + (Xs * Xs).sum(dim=0),
+            sxt=state["sxt"] + (Xs * ts[:, None]).sum(dim=0),
+            st=state["st"] + ts.sum(),
+            stt=state["stt"] + (ts * ts).sum(),
+        )
+
+    def finalize(self, state: dict) -> torch.Tensor:
+        n = torch.clamp_min(state["n"], 1.0)
+        cov = state["sxt"] - state["sx"] * state["st"] / n
+        var_x = state["sxx"] - state["sx"] * state["sx"] / n
+        var_t = state["stt"] - state["st"] * state["st"] / n
+        corr = cov / torch.sqrt(torch.clamp_min(var_x * var_t, _EPS))
+        return cor2mi(torch.clamp(corr, -1.0, 1.0))
+
+
 __all__ = [
     "MIScore",
+    "PearsonMIScore",
     "ScoreFn",
     "cmi_from_counts",
+    "cor2mi",
     "entropy_from_counts",
     "mi_from_counts",
+    "pearson_rows",
+    "standardize_rows",
 ]

@@ -2,7 +2,9 @@
 
 1. **Planning** — ``plan_selection`` implements the paper's §III rule on one
    device: tall/narrow data -> conventional encoding, wide/short ->
-   alternative (non-MI scores always alternative).
+   alternative (non-MI scores always alternative).  Continuous data takes
+   the paper's Pearson score (``PearsonMIScore``) on the alternative
+   encoding, or, with ``bins=``, quantile codes and exact MI.
 2. **Engines** — a registry mapping encoding names to fit functions
    (``reference`` / ``conventional`` / ``alternative`` here, ``streaming``
    in :mod:`repro_torch.core.streaming`).
@@ -29,9 +31,11 @@ import torch
 from repro_torch.core import mrmr as mrmr_mod
 from repro_torch.core.criteria import Criterion, resolve_criterion
 from repro_torch.core.mrmr import MRMRResult
-from repro_torch.core.scores import MIScore, ScoreFn
+from repro_torch.core.scores import MIScore, PearsonMIScore, ScoreFn
+from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import ArraySource, DataSource
 from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
+from repro_torch.kernels import ops
 
 
 def resolve_device(device) -> torch.device:
@@ -71,6 +75,8 @@ class SelectionPlan:
     criterion: object = "mid"         # greedy objective (name or Criterion)
     batch_candidates: int = 1         # streaming: redundancy vectors per pass
     device: str = "cuda"              # where the engine runs
+    bins: int | None = None           # quantile-binned fit: codes per
+                                      # feature (None = data used as given)
 
 
 def plan_selection(
@@ -149,9 +155,15 @@ def _fit_conventional(X, y, *, num_select, plan) -> MRMRResult:
 
 @register_engine("alternative")
 def _fit_alternative(X, y, *, num_select, plan) -> MRMRResult:
-    # Feature-major storage as a transposed VIEW: no copy of X is made.
+    # Feature-major storage as a transposed VIEW: the contingency kernel
+    # reads it in place.  A score that wants its own row layout (Pearson:
+    # rows contiguous along M) gets one copy per fit here.
+    X_rows = X.T
+    feature_rows = getattr(plan.score, "feature_rows", None)
+    if feature_rows is not None:
+        X_rows = feature_rows(X_rows)
     return mrmr_mod.mrmr_alternative(
-        X.T, y, num_select, plan.score, incremental=plan.incremental,
+        X_rows, y, num_select, plan.score, incremental=plan.incremental,
         criterion=plan.criterion,
     )
 
@@ -173,7 +185,8 @@ class MRMRSelector:
     Args:
       num_select: L, number of features to pick (``1 <= L <= features``).
       score: a ``ScoreFn``; None resolves exact MI with cardinalities
-        inferred from the data (discrete data only in this package).
+        inferred from discrete data, and ``PearsonMIScore`` for continuous
+        data (or, with ``bins=``, MI sized from the bin config).
       encoding: "auto" (paper §III rule) or one of ``available_encodings()``.
       incremental: False reproduces the paper's per-iteration redundancy
         recomputation; True carries the criterion's running fold state.
@@ -183,7 +196,13 @@ class MRMRSelector:
       batch_candidates: streaming redundancy vectors speculated per pass.
       device: where the fit runs; "cuda" (the default) raises without a
         card, "cpu" runs the plain PyTorch versions.
-      mesh, hosts, bins, spill_dir, readahead: not yet ported; setting one
+      bins: discretise continuous features into this many equal-frequency
+        bins (one streaming quantile-sketch pass on the host, memoised by
+        the data's fingerprint) and select with exact discrete MI.  Ignored
+        for discrete data and for an explicit non-MI score; the resolved
+        ``plan_.bins`` records what ran.  Streaming fits encode each block
+        on the card; in-memory fits encode the whole matrix on the card once.
+      mesh, hosts, spill_dir, readahead: not yet ported; setting one
         raises ``NotImplementedError``.
     """
 
@@ -214,7 +233,6 @@ class MRMRSelector:
         unported = dict(
             mesh=self.mesh is not None,
             hosts=self.hosts not in (None, 1),
-            bins=self.bins is not None,
             spill_dir=self.spill_dir is not None,
             readahead=bool(self.readahead),
         )
@@ -228,6 +246,8 @@ class MRMRSelector:
     def _resolve_score(self, X: torch.Tensor, y: torch.Tensor) -> ScoreFn:
         if self.score is not None:
             return self.score
+        if X.dtype.is_floating_point:
+            return PearsonMIScore()
         if int(X.min()) < 0 or int(y.min()) < 0:
             # Negative categories count nothing, so those observations would
             # silently vanish from the MI counts — fail instead.
@@ -241,18 +261,89 @@ class MRMRSelector:
     def _resolve_source_score(self, source: DataSource) -> ScoreFn:
         if self.score is not None:
             return self.score
-        st = source.stats(self.block_obs)
-        if not st.discrete:
-            raise self._continuous_mi_error("the source")
-        return MIScore(num_values=st.num_values, num_classes=st.num_classes)
+        st = source.stats(self.block_obs)  # scan honours the memory knob
+        if st.discrete:
+            return MIScore(num_values=st.num_values, num_classes=st.num_classes)
+        return PearsonMIScore()
 
     @staticmethod
     def _continuous_mi_error(what: str) -> ValueError:
         return ValueError(
             f"MIScore needs discrete categories but {what} holds continuous "
-            "values; quantile binning (bins=) and the Pearson score are not "
-            "yet ported to repro_torch — discretise the data first"
+            "values: pass bins= to quantile-discretise on the fly — "
+            "MRMRSelector(num_select=..., bins=32) — or score with "
+            "PearsonMIScore()"
         )
+
+    def _bins_apply(self) -> bool:
+        """Whether ``bins=`` is set and the fit is headed down the discrete
+        MI path (score None or MI)."""
+        return self.bins is not None and (
+            self.score is None or isinstance(self.score, MIScore)
+        )
+
+    def _maybe_bin_source(self, source: DataSource) -> DataSource:
+        """Wrap a continuous source for on-the-fly discretisation when
+        ``bins=`` applies.  Discrete sources and explicit non-MI scores pass
+        through untouched."""
+        if not self._bins_apply() or isinstance(source, BinnedSource):
+            return source
+        if self._source_is_discrete(source):
+            return source
+        return BinnedSource(source, self.bins, fit_block_obs=self.block_obs)
+
+    def _source_is_discrete(self, source: DataSource) -> bool:
+        """Discrete-vs-continuous routing, free when the source's
+        ``feature_dtype`` is statically known (no ``iter_blocks`` pass)."""
+        dt = source.feature_dtype
+        if dt is not None:
+            return not np.issubdtype(dt, np.floating)
+        return source.stats(self.block_obs).discrete
+
+    def _bin_score(self, binned: BinnedSource) -> ScoreFn:
+        """Score for a binned fit: auto-sized MI, or the user's MIScore
+        checked against the code range (codes land in [0, bins))."""
+        if self.score is None:
+            return MIScore(
+                num_values=binned.bins,
+                num_classes=binned.stats().num_classes,
+            )
+        if isinstance(self.score, MIScore) and self.score.num_values < binned.bins:
+            raise ValueError(
+                f"score num_values={self.score.num_values} < bins="
+                f"{binned.bins}: bin codes in [0, {binned.bins}) would "
+                "count nothing; drop the explicit score or set "
+                "num_values >= bins"
+            )
+        return self.score
+
+    def _encode_in_memory(self, X: torch.Tensor, y: torch.Tensor):
+        """The in-memory binned fit's encode -> ``(codes, labels, score,
+        bins)`` on the device.
+
+        The sketch pass runs on the host over the same
+        :class:`BinnedSource` the streaming path builds, so the edges (and
+        hence the selection) are the streaming path's; a device-resident X
+        is copied to the host for it.  X is then encoded on the card by the
+        bin-code kernel, bitwise the codes ``QuantileBinner.transform``
+        gives, without a pass of host ``searchsorted`` per column.
+        """
+        # The sketch reads float32 (bf16 widens exactly; numpy has none).
+        X_host = X.cpu()
+        if X_host.dtype == torch.bfloat16:
+            X_host = X_host.to(torch.float32)
+        X_host, y_host = X_host.numpy(), y.cpu().numpy()
+        binned = BinnedSource(
+            ArraySource(X_host, y_host), self.bins, fit_block_obs=self.block_obs
+        )
+        score = self._bin_score(binned)  # the sketch pass, or its memo
+        edges = torch.from_numpy(binned.binner.edges_).to(self._device)
+        codes = ops.bin_codes(
+            X.to(device=self._device, dtype=torch.float32), edges,
+            getattr(score, "use_kernel", "auto"),
+        )
+        labels = torch.from_numpy(_as_class_labels(y_host)).to(self._device)
+        return codes, labels, score, binned.bins
 
     def _finish_fit(self, res: MRMRResult, plan: SelectionPlan,
                     n_features: int) -> "MRMRSelector":
@@ -282,10 +373,15 @@ class MRMRSelector:
                 "DataSource inputs run the 'streaming' engine"
             )
         check_num_select(self.num_select, source.num_features)
-        dt = source.feature_dtype
-        if dt is not None and np.issubdtype(dt, np.floating):
-            raise self._continuous_mi_error("the source")
-        score = self._resolve_source_score(source)
+        source = self._maybe_bin_source(source)
+        if isinstance(source, BinnedSource):
+            score = self._bin_score(source)
+        else:
+            score = self._resolve_source_score(source)
+            if isinstance(score, MIScore) and not self._source_is_discrete(source):
+                # Explicit MI on float blocks would truncate them to
+                # categories inside the count — fail actionably here.
+                raise self._continuous_mi_error("the source")
         crit = resolve_criterion(self.criterion)
         mrmr_mod.check_conditional_support(score, crit)
         q = int(self.batch_candidates)
@@ -297,6 +393,7 @@ class MRMRSelector:
             prefetch=resolve_prefetch(self.prefetch, self._device),
             score=score, criterion=crit, batch_candidates=q,
             device=str(self._device),
+            bins=source.bins if isinstance(source, BinnedSource) else None,
         )
         res = get_engine("streaming")(
             source, None, num_select=self.num_select, plan=plan
@@ -317,22 +414,27 @@ class MRMRSelector:
                 "y is required for array inputs (only DataSource fits "
                 "carry their own targets)"
             )
-        X = torch.as_tensor(X).to(self._device)
-        y = torch.as_tensor(y).to(self._device)
+        X = torch.as_tensor(X)
+        y = torch.as_tensor(y)
         if X.dim() != 2 or y.dim() != 1 or y.shape[0] != X.shape[0]:
             raise ValueError(f"bad shapes X{tuple(X.shape)} y{tuple(y.shape)}")
         check_num_select(self.num_select, X.shape[1])
-        if X.dtype.is_floating_point or X.dtype.is_complex:
-            # The counts would truncate float columns to categories.
-            raise self._continuous_mi_error("X")
-        if X.dtype == torch.bool:
-            X = X.view(torch.uint8)  # same bytes, a dtype the kernel reads
-        score = self._resolve_score(X, y)
-        if not isinstance(score, MIScore):
-            raise NotImplementedError(
-                f"{type(score).__name__} is not yet ported to repro_torch"
-            )
-        y = y.to(torch.int32)
+        if X.dtype.is_complex:
+            raise ValueError("complex features are not supported")
+        plan_bins = None
+        if self._bins_apply() and X.dtype.is_floating_point:
+            X, y, score, plan_bins = self._encode_in_memory(X, y)
+        else:
+            X, y = X.to(self._device), y.to(self._device)
+            if X.dtype == torch.bool:
+                X = X.view(torch.uint8)  # same bytes, a dtype the kernel reads
+            score = self._resolve_score(X, y)
+            if isinstance(score, MIScore) and X.dtype.is_floating_point:
+                # The counts would truncate float columns to categories.
+                raise self._continuous_mi_error("X")
+        # Discrete MI needs integral class labels; every other score keeps
+        # continuous targets intact.
+        y = y.to(torch.int32 if isinstance(score, MIScore) else torch.float32)
         crit = resolve_criterion(self.criterion)
         mrmr_mod.check_conditional_support(score, crit)
         if self.encoding == "auto":
@@ -346,6 +448,7 @@ class MRMRSelector:
                 incremental=self.incremental, score=score, criterion=crit,
                 device=str(self._device),
             )
+        plan = dataclasses.replace(plan, bins=plan_bins)
         res = get_engine(plan.encoding)(X, y, num_select=self.num_select, plan=plan)
         return self._finish_fit(res, plan, X.shape[1])
 

@@ -24,6 +24,17 @@ remaining candidates in the same sweep (one count per candidate per
 block), committing picks from the speculated vectors — ``L-1`` redundancy
 passes drop toward ``⌈(L-1)/q⌉``, with identical selections.
 
+A :class:`~repro_torch.data.binning.BinnedSource` scored with ``MIScore``
+streams FUSED: the base source's raw float blocks (cast to float32 on the
+host) go to the device, where the bin-code kernel encodes each block once
+ahead of the counts, so no int block is encoded on the host.  Pass targets
+(the class labels, each selected column's codes) are encoded on the host,
+with the same float32 ``searchsorted`` the kernel runs.  The binner's sketch
+pass runs (or is reused, memoised) before the first scoring pass and is not
+counted in the ledger.  Any other score on a binned source streams the
+wrapper's host-encoded blocks.  Scores with a dict state
+(``PearsonMIScore``'s running moments) stream the same way.
+
 Every fit reports its I/O on the result: ``MRMRResult.io`` carries
 ``passes`` / ``blocks_read`` / ``bytes_read`` / ``state_bytes``, counted
 exactly as the JAX package's streaming engine counts them.
@@ -36,27 +47,37 @@ import torch
 
 from repro_torch.core.criteria import Criterion, resolve_criterion
 from repro_torch.core.mrmr import MRMRResult, check_conditional_support
-from repro_torch.core.scores import ScoreFn
+from repro_torch.core.scores import MIScore, ScoreFn
 from repro_torch.core.selector import check_num_select, register_engine, resolve_device
+from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import as_source
 from repro_torch.dist.streaming import BlockPlacer, PrefetchPlacer, resolve_prefetch
+from repro_torch.kernels import ops
 
 _NEG_INF = float("-inf")
 
 
 def _extract_target(X_blk: np.ndarray, y_blk: np.ndarray, target_cols,
-                    cond_classes: int | None = None):
+                    binner=None, cond_classes: int | None = None):
     """The pass target from one raw host block: the class (``None``), one
     feature column (int -> ``(B,)``) or a batch of candidate columns
-    (sequence -> ``(q, B)``).  ``cond_classes`` marks a class-conditioned
-    redundancy pass: each column fuses with the labels into one code
-    ``col * cond_classes + label``."""
+    (sequence -> ``(q, B)``).  With a ``binner`` the block is raw float32:
+    the class becomes validated int32 labels and each target column encodes
+    through the same float32 ``searchsorted`` the device kernel runs, so host
+    and device codes agree bitwise.  ``cond_classes`` marks a
+    class-conditioned redundancy pass: each column fuses with the labels
+    into one code ``col * cond_classes + label``."""
     if target_cols is None:
-        return y_blk
-    labels = None if cond_classes is None else y_blk.astype(np.int64)
+        return _as_class_labels(y_blk) if binner is not None else y_blk
+    labels = None
+    if cond_classes is not None:
+        labels = (
+            _as_class_labels(y_blk) if binner is not None else y_blk
+        ).astype(np.int64)
 
     def column(c):
-        col = X_blk[:, int(c)]
+        c = int(c)
+        col = binner.encode_column(c, X_blk[:, c]) if binner is not None else X_blk[:, c]
         if labels is None:
             return col
         return (col.astype(np.int64) * cond_classes + labels).astype(np.int32)
@@ -82,8 +103,10 @@ class _PassIO:
             self.bytes_read += X_blk.nbytes + y_blk.nbytes
             yield X_blk, y_blk
 
-    def note_state(self, state: torch.Tensor):
-        size = state.numel() * state.element_size()
+    def note_state(self, states):
+        """``states``: the pass's list of per-candidate states."""
+        leaves = [t for s in states for t in (s.values() if isinstance(s, dict) else [s])]
+        size = sum(t.numel() * t.element_size() for t in leaves)
         self.state_bytes = max(self.state_bytes, size)
 
     def as_dict(self) -> dict:
@@ -97,13 +120,15 @@ class _PassIO:
 
 def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
                 prefetch: int, io: _PassIO, batch: int | None = None,
-                conditional: bool = False):
+                conditional: bool = False, binner=None, edges=None):
     """One full map-reduce pass over ``raw_pass`` (an ``(X, y)`` raw host
     block iterator): ``(N,)`` scores of every feature against the class
     (``target_cols=None``) / one column (int), or ``(q, N)`` scores against
     a batch of candidate columns (sequence of length ``q``).
     ``conditional=True`` returns ``dict(marginal=..., conditional=...)``
-    instead — both terms from the one counting sweep."""
+    instead — both terms from the one counting sweep.  ``edges`` (the
+    binner's, on the device) makes the pass fused: each placed float block
+    is encoded to bin codes on the device, once, before the counts."""
     io.passes += 1
     cond = conditional and target_cols is not None
     kind = (
@@ -111,29 +136,40 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
         if target_cols is None
         else ("feature_cond" if cond else "feature")
     )
-    state = score.init_state(placer.num_features, kind)
-    if batch is not None:
-        state = torch.stack([state] * batch)
-    state = placer.place_state(state)
-    io.note_state(state)
+    # One state per candidate column (one, for an unbatched pass).
+    states = [placer.place_state(score.init_state(placer.num_features, kind))
+              for _ in range(batch or 1)]
+    io.note_state(states)
     cond_classes = score.num_classes if cond else None
+    use_kernel = getattr(score, "use_kernel", "auto")
 
     def host_blocks():
         for X_blk, y_blk in io.count(raw_pass):
-            yield X_blk, _extract_target(X_blk, y_blk, target_cols, cond_classes)
+            if binner is not None or (
+                X_blk.dtype.kind == "f" and X_blk.dtype != np.float32
+            ):
+                # Float32 on the host: the device computes in float32 anyway,
+                # so the values are the same and half the bytes of float64
+                # cross to the card.
+                X_blk = np.asarray(X_blk, np.float32)
+            yield X_blk, _extract_target(
+                X_blk, y_blk, target_cols, binner, cond_classes
+            )
 
     if prefetch > 0:
         placed = PrefetchPlacer(placer, depth=prefetch).stream(host_blocks())
     else:
         placed = (placer(X_blk, tgt) for X_blk, tgt in host_blocks())
     for X_dev, tgt, valid in placed:
+        if edges is not None:
+            # Padded rows encode to some code; their targets are masked.
+            X_dev = ops.bin_codes(X_dev, edges, use_kernel)
         if batch is None:
-            state = score.accumulate(state, X_dev, tgt, valid)
+            states[0] = score.accumulate(states[0], X_dev, tgt, valid)
         else:  # one count per candidate column, the block shared
             for i in range(batch):
-                state[i] = score.accumulate(state[i], X_dev, tgt[i], valid)
+                states[i] = score.accumulate(states[i], X_dev, tgt[i], valid)
 
-    states = [state] if batch is None else list(state)
     if cond:
         terms = [score.finalize_conditional(s) for s in states]
         out = {
@@ -245,13 +281,23 @@ def mrmr_streaming(
         raise ValueError(f"batch_candidates must be >= 1, got {q}")
 
     placer = BlockPlacer(block_obs, device, num_features=n)
+    # A BinnedSource scoring discrete MI streams FUSED: the base's raw float
+    # blocks go to the device and are encoded there.  The sketch pass
+    # (memoised by fingerprint) happens here, before the first scoring pass.
+    binner = edges = None
+    block_src = source
+    if isinstance(source, BinnedSource) and isinstance(score, MIScore):
+        binner = source.binner
+        edges = placer.place_edges(binner.edges_)
+        block_src = source.base
     io = _PassIO()
 
     def run_pass(target_cols, batch=None):
         return _score_pass(
-            source.iter_blocks(placer.block_obs), score, placer,
+            block_src.iter_blocks(placer.block_obs), score, placer,
             target_cols, prefetch, io, batch,
             conditional=needs_cond and target_cols is not None,
+            binner=binner, edges=edges,
         )
 
     rel, selected, gains = _greedy_select(run_pass, crit, n, num_select, q)

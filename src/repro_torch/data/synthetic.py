@@ -1,4 +1,5 @@
-"""Synthetic data — the paper's CorrAL-style generator (Eq. 3), numpy only.
+"""Synthetic data, numpy only — the paper's CorrAL-style generator (Eq. 3)
+and a continuous dataset for the binned and Pearson paths.
 
 The paper evaluates on binary artificial datasets where the class depends on
 8 features:
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 RELEVANT = 8  # features participating in Eq. 3 (placed at indices 0..7)
+_CONT_CHUNK = 65536  # rows generated at a time by continuous_dataset_np
 
 
 def corral_dataset_np(
@@ -45,4 +47,40 @@ def corral_dataset_np(
             c = np.where(flips, ~c, c)
         X[start:stop] = blk
         y[start:stop] = c.astype(np.int8)
+    return X, y
+
+
+def continuous_dataset_np(
+    num_rows: int,
+    num_cols: int,
+    *,
+    seed: int = 0,
+    signal_cols: int = 8,
+    noise: float = 0.5,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(num_rows, num_cols) float32 features and (num_rows,) int32 classes.
+
+    The numpy counterpart of ``repro.data.synthetic.continuous_wide_dataset``
+    (same construction, other random numbers): a balanced binary class;
+    columns ``0..signal_cols-1`` carry graded linear signal
+    ``y * s_j + noise * N(0, 1)`` with ``s_j`` from 1.5 down to 0.5, so later
+    signal columns are partly redundant with earlier ones; column
+    ``signal_cols`` is a shadow of column 0 (``x_0 + 0.1 * N(0, 1)``) that
+    mRMR should down-rank; the rest are iid ``N(0, 1)`` noise.  Built
+    65,536 rows at a time into the output, so the largest temporary is one
+    such chunk.
+    """
+    rng = np.random.default_rng(seed)
+    X = np.empty((num_rows, num_cols), dtype=np.float32)
+    y = (rng.random(num_rows) < 0.5).astype(np.int32)
+    strengths = np.linspace(1.5, 0.5, signal_cols).astype(np.float32)
+    for start in range(0, num_rows, _CONT_CHUNK):
+        stop = min(start + _CONT_CHUNK, num_rows)
+        blk = X[start:stop]
+        rng.standard_normal(dtype=np.float32, out=blk)
+        yc = y[start:stop, None].astype(np.float32)
+        blk[:, :signal_cols] = yc * strengths + np.float32(noise) * blk[:, :signal_cols]
+        if num_cols > signal_cols:
+            shadow = rng.standard_normal(stop - start, dtype=np.float32)
+            blk[:, signal_cols] = blk[:, 0] + np.float32(0.1) * shadow
     return X, y

@@ -67,9 +67,23 @@ class BlockPlacer:
         self.block_obs = effective_block_obs(self.block_obs)
         self.device = torch.device(self.device)
 
-    def place_state(self, state: torch.Tensor) -> torch.Tensor:
-        """Land a freshly initialised statistics tensor on the device."""
+    def place_state(self, state):
+        """Land a freshly initialised statistics state on the device: one
+        tensor (contingency counts) or a dict of tensors (running moments)."""
+        if isinstance(state, dict):
+            return {k: v.to(self.device) for k, v in state.items()}
         return state.to(self.device)
+
+    def place_edges(self, edges: np.ndarray) -> torch.Tensor:
+        """Land fitted bin edges ``(N, E)`` as one contiguous float32 tensor,
+        the operand every block's device encode reads."""
+        e = np.ascontiguousarray(edges, dtype=np.float32)
+        if e.shape[0] != self.num_features:
+            raise ValueError(
+                f"edges cover {e.shape[0]} features, placer expects "
+                f"{self.num_features}"
+            )
+        return torch.from_numpy(e).to(self.device)
 
     def stage(self, X_block: np.ndarray, target: np.ndarray):
         """Host half: pad a (B, N) block and its ``(B,)`` or ``(q, B)``

@@ -49,6 +49,12 @@ SIGNATURES = {
     "mi_score": {
         "mi_scores_launch": (_P, _I, _I64, _I, _I, _P, _P),
     },
+    "bin_codes": {
+        "bin_codes_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _I, _P, _P),
+    },
+    "pearson": {
+        "pearson_corr_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _P, _P, _P),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -17,11 +17,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.binning import bin_codes_cuda
 from repro_torch.kernels.contingency import (
     conditional_tables_cuda,
     contingency_tables_cuda,
 )
 from repro_torch.kernels.mi_score import mi_scores_cuda
+from repro_torch.kernels.pearson import pearson_corr_cuda
 
 
 def check_use_kernel(use_kernel) -> None:
@@ -68,3 +70,17 @@ def mi_scores(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
     if _decide(use_kernel, counts):
         return mi_scores_cuda(counts)
     return ref.mi_scores(counts)
+
+
+def bin_codes(X: torch.Tensor, edges: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+    """(B, N) floats x (N, E) sorted edges -> (B, N) int32 bin codes."""
+    if _decide(use_kernel, X):
+        return bin_codes_cuda(X, edges)
+    return ref.bin_codes(X, edges)
+
+
+def pearson_corr(X: torch.Tensor, Y: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+    """(F, M), (T, M) -> (F, T) float32 row correlations."""
+    if _decide(use_kernel, X):
+        return pearson_corr_cuda(X, Y)
+    return ref.pearson_corr(X, Y)

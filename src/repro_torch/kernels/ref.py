@@ -53,3 +53,42 @@ def mi_scores(counts: torch.Tensor) -> torch.Tensor:
         p > 0, p * torch.log(torch.clamp_min(ratio, _EPS)), torch.zeros_like(p)
     )
     return terms.sum(dim=-1).sum(dim=-1)
+
+
+def bin_codes(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """(B, N) floats x (N, E) sorted edges -> (B, N) int32 bin codes.
+
+    ``code[b, n] = searchsorted(edges[n], X[b, n], side="right")``, the
+    number of edges ``<= X[b, n]``; comparisons in float32 to match the
+    host encoder (``QuantileBinner.transform``) and the kernel bit for bit.
+    One batched ``torch.searchsorted`` over the feature-major transpose:
+    no ``(B, N, E)`` compare tensor is ever built.
+    """
+    X = X.to(torch.float32)
+    if X.numel() == 0 or edges.shape[-1] == 0:
+        return torch.zeros(X.shape, dtype=torch.int32, device=X.device)
+    e = edges.to(device=X.device, dtype=torch.float32).contiguous()
+    codes = torch.searchsorted(e, X.T.contiguous(), right=True)  # (N, B)
+    return codes.to(torch.int32).T.contiguous()
+
+
+def standardize_rows(X: torch.Tensor) -> torch.Tensor:
+    """Zero-mean unit-variance rows (two-pass: mean, then mean squared
+    deviation); the standard deviation is clamped at 1e-12, so a constant
+    row maps to all zeros."""
+    X = X.to(torch.float32)
+    mu = X.mean(dim=-1, keepdim=True)
+    xc = X - mu
+    sd = torch.sqrt((xc * xc).mean(dim=-1, keepdim=True))
+    return xc / torch.clamp_min(sd, _EPS)
+
+
+def pearson_corr(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """(F, M), (T, M) -> (F, T) float32 Pearson correlation of rows."""
+    return standardize_rows(X) @ standardize_rows(Y).T / X.shape[-1]
+
+
+def cor2mi(corr: torch.Tensor) -> torch.Tensor:
+    """Gaussian MI approximation from correlation (paper Listing 8)."""
+    r2 = torch.clamp(corr * corr, 0.0, 1.0 - 1e-6)
+    return -0.5 * torch.log1p(-r2)

@@ -13,8 +13,14 @@
     PYTHONPATH=src python -m repro_torch.launch.select --criterion jmi \
         --encoding alternative --device cpu
 
+    # Continuous features: quantile-bin into 16 codes and select with exact
+    # MI, or score with the paper's Pearson approximation (Listing 8)
+    PYTHONPATH=src python -m repro_torch.launch.select \
+        --input X.npy --target y.npy --bins 16
+    PYTHONPATH=src python -m repro_torch.launch.select --score pearson
+
 Prints one JSON line: the plan, the device it ran on, the picks and gains
-(and the streaming engine's I/O ledger).
+(and the streaming engine's I/O ledger, and the bins of a binned fit).
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.criteria import available_criteria, resolve_criterion
-from repro_torch.core.scores import MIScore
+from repro_torch.core.scores import MIScore, PearsonMIScore
 from repro_torch.core.selector import MRMRSelector, check_num_select
 from repro_torch.data.sources import NpySource
 from repro_torch.data.synthetic import corral_dataset_np
@@ -50,6 +57,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--select", type=int, default=10)
     ap.add_argument("--criterion", default="mid",
                     help=f"greedy objective: {', '.join(available_criteria())}")
+    ap.add_argument("--score", default="mi", choices=["mi", "pearson"],
+                    help="exact discrete MI, or the Pearson approximation "
+                         "for continuous features (alternative encoding)")
+    ap.add_argument("--bins", type=int, default=0,
+                    help="quantile-discretise continuous features into this "
+                         "many equal-frequency bins (one sketch pass) and "
+                         "select with exact discrete MI; 0 = off")
     ap.add_argument("--num-values", type=int, default=2)
     ap.add_argument("--num-classes", type=int, default=2)
     ap.add_argument("--block-obs", type=int, default=65536,
@@ -81,11 +95,21 @@ def main(argv=None) -> dict:
     except ValueError as e:
         raise SystemExit(f"--select invalid: {e}") from None
 
+    if args.bins:
+        # Auto-resolve: the selector wraps continuous inputs for binning
+        # and sizes the MI score from the bin config.
+        score = None
+    elif args.score == "mi":
+        score = MIScore(num_values=args.num_values, num_classes=args.num_classes)
+    else:
+        score = PearsonMIScore()
+    if (args.bins or args.score == "pearson") and args.input is None:
+        data = (data[0].astype(np.float32), data[1])  # as the JAX CLI casts
+
     sel = MRMRSelector(
-        num_select=args.select,
-        score=MIScore(num_values=args.num_values, num_classes=args.num_classes),
+        num_select=args.select, score=score,
         criterion=args.criterion, encoding=args.encoding,
-        block_obs=args.block_obs, device=args.device,
+        block_obs=args.block_obs, device=args.device, bins=args.bins or None,
     )
     t0 = time.perf_counter()
     sel.fit(*data)
@@ -103,6 +127,8 @@ def main(argv=None) -> dict:
     if sel.result_.io is not None:
         out["block_obs"] = sel.plan_.block_obs
         out["io"] = sel.result_.io
+    if sel.plan_.bins is not None:
+        out["bins"] = sel.plan_.bins
     print(json.dumps(out))
     return out
 

@@ -5,22 +5,34 @@ where torch sees no CUDA device.  On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Contingency counts must equal the plain version bitwise; MI agrees within
-``rtol=1e-5, atol=1e-6`` (only ``logf`` rounding differs).
+Contingency counts and bin codes must equal the plain versions bitwise; MI
+agrees within ``rtol=1e-5, atol=1e-6`` (only ``logf`` rounding differs);
+row correlations within ``rtol=2e-4, atol=2e-5`` (float32 sums over M in
+another order, the JAX kernel test's own tolerance).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import CorralSource, MIScore, MRMRSelector
+from repro_torch import (
+    ArraySource,
+    CorralSource,
+    MIScore,
+    MRMRSelector,
+    PearsonMIScore,
+    QuantileBinner,
+)
 from repro_torch.core.contingency import OOR
+from repro_torch.data.synthetic import continuous_dataset_np
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.binning import bin_codes_cuda
 from repro_torch.kernels.contingency import (
     conditional_tables_cuda,
     contingency_tables_cuda,
 )
 from repro_torch.kernels.mi_score import mi_scores_cuda
+from repro_torch.kernels.pearson import pearson_corr_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +59,7 @@ def _data(m, f, v, c, dtype, seed=0, dirty=False):
 
 def test_build_all(cuda):
     libs = _build.build_all()
-    assert set(libs) == {"contingency", "mi_score"}
+    assert set(libs) == {"contingency", "mi_score", "bin_codes", "pearson"}
     assert all(p.exists() for p in libs.values())
 
 
@@ -133,3 +145,101 @@ def test_fit_kernel_matches_plain(cuda, encoding, criterion):
     np.testing.assert_array_equal(on_card.selected_, plain.selected_)
     np.testing.assert_array_equal(on_card.selected_, on_cpu.selected_)
     np.testing.assert_allclose(on_card.gains_, on_cpu.gains_, rtol=1e-5, atol=1e-6)
+
+
+def _binned_block(b, n, e, seed=0):
+    """Float32 block and sorted edges with values planted on edges."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(b, n)).astype(np.float32)
+    edges = np.sort(rng.normal(size=(n, e)).astype(np.float32), axis=1)
+    X[::7] = edges[np.arange(n), rng.integers(0, e, n)]
+    X[1, :], X[2, :], X[3, :], X[4, :] = -0.0, 1e30, np.inf, -np.inf
+    return X, edges
+
+
+@pytest.mark.parametrize("b,n,e", [(4096, 100, 15), (1037, 33, 63), (513, 40, 1),
+                                   (300, 70, 70)])
+def test_bin_codes_bitwise(cuda, b, n, e):
+    X, edges = _binned_block(b, n, e, seed=e)
+    got = bin_codes_cuda(torch.from_numpy(X).to(cuda), torch.from_numpy(edges).to(cuda))
+    assert got.dtype == torch.int32
+    want = ref.bin_codes(torch.from_numpy(X), torch.from_numpy(edges))
+    assert torch.equal(got.cpu(), want)
+    binner = QuantileBinner(e + 1)
+    binner.edges_ = edges
+    np.testing.assert_array_equal(got.cpu().numpy(), binner.transform(X))
+
+
+def test_bin_codes_strided_rows(cuda):
+    X, edges = _binned_block(2000, 50, 15, seed=1)
+    Xd = torch.from_numpy(X).to(cuda)[3:1500:2]  # a row stride, no copy
+    got = bin_codes_cuda(Xd, torch.from_numpy(edges).to(cuda))
+    assert torch.equal(got.cpu(), ref.bin_codes(torch.from_numpy(X[3:1500:2]),
+                                                torch.from_numpy(edges)))
+
+
+def _corr_rows(f, t, m, seed):
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.normal(size=(f, m)) * 2 + 3, dtype=torch.float32)
+    Y = torch.as_tensor(rng.normal(size=(t, m)), dtype=torch.float32)
+    X[1] = 2.5  # constant row: correlation 0
+    return X, Y
+
+
+@pytest.mark.parametrize("f,t,m", [(500, 1, 10000), (300, 4, 2000), (37, 9, 1031),
+                                   (20, 2, 20000)])
+def test_pearson_corr(cuda, f, t, m):
+    X, Y = _corr_rows(f, t, m, seed=f)
+    got = pearson_corr_cuda(X.to(cuda), Y.to(cuda)).cpu()
+    np.testing.assert_allclose(got, ref.pearson_corr(X, Y), rtol=2e-4, atol=2e-5)
+    assert torch.all(got[1] == 0)
+
+
+def test_pearson_corr_transposed_view(cuda):
+    X, Y = _corr_rows(200, 1, 3000, seed=3)
+    Xv = X.T.contiguous().to(cuda).T  # what the alternative engine holds
+    got = pearson_corr_cuda(Xv, Y[0].to(cuda)[None]).cpu()
+    np.testing.assert_allclose(got, ref.pearson_corr(X, Y), rtol=2e-4, atol=2e-5)
+
+
+def test_new_kernels_count_launches(cuda):
+    X, edges = _binned_block(100, 8, 15)
+    before = bin_codes_cuda.launches, pearson_corr_cuda.launches
+    ops.bin_codes(torch.from_numpy(X).to(cuda), torch.from_numpy(edges).to(cuda))
+    ops.pearson_corr(torch.from_numpy(X.T.copy()).to(cuda),
+                     torch.from_numpy(X[:, :1].T.copy()).to(cuda))
+    assert (bin_codes_cuda.launches, pearson_corr_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    ops.bin_codes(torch.from_numpy(X).to(cuda), torch.from_numpy(edges).to(cuda),
+                  use_kernel=False)
+    assert bin_codes_cuda.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_binned_fit_kernel_matches_plain(cuda, streaming):
+    X, y = continuous_dataset_np(20000, 48, seed=6)
+    data = (ArraySource(X, y),) if streaming else (X, y)
+    before = bin_codes_cuda.launches
+    on_card = MRMRSelector(5, bins=16, block_obs=4096).fit(*data)
+    assert bin_codes_cuda.launches - before == (5 * 5 if streaming else 1)
+    plain = MRMRSelector(5, bins=16, block_obs=4096,
+                         score=MIScore(16, 2, use_kernel=False)).fit(*data)
+    on_cpu = MRMRSelector(5, bins=16, block_obs=4096, device="cpu").fit(*data)
+    np.testing.assert_array_equal(on_card.selected_, plain.selected_)
+    np.testing.assert_array_equal(on_card.selected_, on_cpu.selected_)
+    np.testing.assert_allclose(on_card.gains_, on_cpu.gains_, rtol=1e-5, atol=1e-6)
+
+
+def test_pearson_fit_kernel_matches_plain(cuda):
+    X, y = continuous_dataset_np(2000, 5000, seed=7)
+    before = pearson_corr_cuda.launches
+    on_card = MRMRSelector(6).fit(X, y)
+    assert on_card.plan_.encoding == "alternative"
+    assert pearson_corr_cuda.launches - before == 6
+    plain = MRMRSelector(6, score=PearsonMIScore(use_kernel=False)).fit(X, y)
+    on_cpu = MRMRSelector(6, device="cpu").fit(X, y)
+    np.testing.assert_array_equal(on_card.selected_, plain.selected_)
+    np.testing.assert_array_equal(on_card.selected_, on_cpu.selected_)
+    np.testing.assert_allclose(on_card.gains_, plain.gains_, rtol=2e-4, atol=2e-5)
+    streamed = MRMRSelector(6, block_obs=512).fit(ArraySource(X, y))
+    np.testing.assert_array_equal(streamed.selected_, on_card.selected_)

@@ -102,7 +102,7 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize(
-    "knob", [dict(mesh=object()), dict(hosts=2), dict(bins=16),
+    "knob", [dict(mesh=object()), dict(hosts=2), dict(hosts="auto"),
              dict(spill_dir="spill"), dict(readahead=2)],
 )
 def test_unported_knobs_raise(knob):
@@ -122,7 +122,7 @@ class TestGuards:
     def test_continuous_features_raise(self, corral):
         X, y = corral
         with pytest.raises(ValueError, match="continuous"):
-            MRMRSelector(3, device="cpu").fit(X.astype(np.float32), y)
+            MRMRSelector(3, score=MIScore(2, 2), device="cpu").fit(X.astype(np.float32), y)
 
     def test_negative_categories_raise(self, corral):
         X, y = corral
@@ -156,6 +156,8 @@ def test_import_leaves_jax_and_repro_out():
     code = (
         "import sys, repro_torch, repro_torch.launch.select; "
         "import repro_torch.kernels.ops, repro_torch.data.synthetic; "
+        "import repro_torch.kernels.binning, repro_torch.kernels.pearson; "
+        "import repro_torch.data.binning, repro_torch.core.streaming; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )

@@ -168,7 +168,8 @@ class TestStreamingFrontDoor:
         with pytest.raises(ValueError, match="y comes from the DataSource"):
             MRMRSelector(3, device="cpu").fit(src, y)
         with pytest.raises(ValueError, match="continuous"):
-            MRMRSelector(3, device="cpu").fit(tsources.ArraySource(X.astype(np.float32), y))
+            MRMRSelector(3, score=MIScore(2, 2), device="cpu").fit(
+                tsources.ArraySource(X.astype(np.float32), y))
         with pytest.raises(ValueError, match="batch_candidates"):
             MRMRSelector(3, batch_candidates=0, device="cpu").fit(src)
         with pytest.raises(ValueError, match="num_select"):
