@@ -46,6 +46,30 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    ``continuous_dataset_np(10_000, 50_000)``, L=8, plans ``alternative`` with
    ``PearsonMIScore``; kernel and plain versions select the same, first pick
    in {0, 8}.
+7. Yi-6B serve (the LM side, at the published widths and depth): random
+   bf16 weights from a seeded generator on the card (~6.06e9 parameters),
+   ``ServeEngine.serve`` of 8 greedy requests, 32 new tokens each, in two
+   waves (4 prompts of 1000 tokens, 4 of 2048), prefill attention through
+   the flash-attention kernel (32 launches per wave, one per layer).  Each
+   of the 64 prefill attentions of a kernel run is held to the plain version
+   on that layer's own q, k and v, within phase 2's bf16 tolerances (the
+   per-row one included).  Held against the plain attention
+   (``use_kernel=False``) on the same weights and prompts:
+   last-position prefill logits within the bf16 model's own
+   rounding error (the plain bf16 logits against float32 logits of the same
+   weights), greedy tokens equal up to the first step whose plain top-1 /
+   top-2 margin is below twice the logits error; then the 2048-token wave in
+   float32 (24 GB of weights), whose kernel and plain tokens must be equal.
+
+Phase 2 also holds the flash-attention kernel to its plain version at the
+serve shapes (B=4, S=T=2048 and the ragged 1000, H=32, KV=4, D=128, bf16),
+a long prompt (B=1, S=T=8192), MHA, S=1, a ragged S, S < T causal and
+non-causal: float32 within ``rtol=2e-5, atol=2e-5``, bf16 within
+``rtol=3e-2, atol=3e-2`` and, for every dtype, each output row
+(``(b, s, h)``, L2 over D) within a relative error of ``1e-2``; it times
+the kernel, the plain version and one ``scaled_dot_product_attention(
+is_causal=True, enable_gqa=True)`` call (the library yardstick, which the
+port never calls).
 
 Each main-path fit runs with the kernels' launch counts set to 0 just before
 it and read just after: an in-memory fit of L=10 counts 10 contingency
@@ -53,12 +77,15 @@ launches (1 relevance + 9 folds; no fold follows the last pick), the
 streaming fit 160 (10 passes x 16 blocks), and every fit launches the MI
 kernel; the streaming binned fit encodes each of its 160 blocks once, the
 in-memory binned fit encodes X once, and the wide Pearson fit launches the
-correlation kernel 8 times (1 relevance + 7 folds).  The second-to-last
-line is ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``.
+correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
+launches the flash-attention kernel 64 times (2 waves x 32 layers).  The
+second-to-last line is ``{"kernels": [...]}``, the last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -71,10 +98,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and the SMs'
-# 32-bit non-tensor rate for the integer compare-and-count and float work.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, the SMs'
+# 32-bit non-tensor rate for the integer compare-and-count and float work,
+# and the dense bf16 tensor-core rate (attention's products in bf16).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 RTOL, ATOL = 1e-5, 1e-6
 # Row correlations: float32 sums over M in another order (tests/test_kernels.py:83).
 CORR_RTOL, CORR_ATOL = 2e-4, 2e-5
@@ -88,11 +117,13 @@ def kernel_wrappers() -> dict:
     """name -> the wrapper whose ``launches`` counter each path reads."""
     from repro_torch.kernels.binning import bin_codes_cuda
     from repro_torch.kernels.contingency import contingency_tables_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mi_score import mi_scores_cuda
     from repro_torch.kernels.pearson import pearson_corr_cuda
 
     return dict(contingency_tables=contingency_tables_cuda, mi_scores=mi_scores_cuda,
-                bin_codes=bin_codes_cuda, pearson_corr=pearson_corr_cuda)
+                bin_codes=bin_codes_cuda, pearson_corr=pearson_corr_cuda,
+                flash_attention=flash_attention_cuda)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
@@ -110,11 +141,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over HBM rate vs
-    operations over the scalar rate, whichever is larger."""
+    operations over their peak rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -584,6 +615,304 @@ def phase6(dev, launches):
     return [rec, prec]
 
 
+FLASH_F32_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py, float32
+FLASH_BF16_TOL = dict(rtol=3e-2, atol=3e-2)  # tests/test_kernels.py, bf16
+# Per-row relative error |got - want| / |want| (L2 over D), max over (b, s, h).
+# At S = 2048-8192 a row's output shrinks to ~0.02-0.04, inside the bf16 atol
+# above, so that elementwise tolerance alone passes a kernel whose scores are
+# 1% too large (tools/flash_planted_faults.py); a row's relative error does
+# not shrink with the output. bf16 rounds P for P.V and the output once
+# each: ~4-5e-3 per row.
+FLASH_ROW_RTOL = 1e-2
+
+
+def flash_errors(got, want, dtype):
+    """Hold a flash output to its plain version; (max abs err, max row err)."""
+    got, want = got.float(), want.float()
+    tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    diff = got - want
+    row = (diff.norm(dim=-1) / want.norm(dim=-1)).max().item()
+    if not row <= FLASH_ROW_RTOL:
+        raise AssertionError(f"flash attention row error {row:.3e} > {FLASH_ROW_RTOL}")
+    return diff.abs().max().item(), row
+
+
+def attn_inputs(b, s, t, h, kv, d, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+def visible_pairs(s, t, causal):
+    """(query, key) pairs the attention needs: query i sees keys <= i + t - s."""
+    if not causal:
+        return s * t
+    i = np.arange(s)
+    return int(np.clip(i + t - s + 1, 0, t).sum())
+
+
+def phase2_flash(dev):
+    """flash_attention against its plain version, and its times."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, b, s, t, h, kv, d, causal, dtype, timed
+        ("serve prefill B=4 S=T=2048", 4, 2048, 2048, 32, 4, 128, True, bf, True),
+        ("ragged wave B=4 S=T=1000", 4, 1000, 1000, 32, 4, 128, True, bf, True),
+        ("long prompt B=1 S=T=8192", 1, 8192, 8192, 32, 4, 128, True, bf, True),
+        ("MHA B=2 S=T=512 H=KV=32", 2, 512, 512, 32, 32, 128, True, f32, False),
+        ("S=T=1", 4, 1, 1, 32, 4, 128, True, f32, False),
+        ("ragged S=T=1000 f32", 2, 1000, 1000, 32, 4, 128, True, f32, False),
+        ("S=256 < T=2048 causal", 2, 256, 2048, 32, 4, 128, True, f32, False),
+        ("non-causal S=300 T=1000", 2, 300, 1000, 32, 4, 128, False, f32, False),
+        ("D=64 S=T=777 bf16", 2, 777, 777, 16, 16, 64, True, bf, False),
+    ]
+    err, timings = 0.0, []
+    for i, (label, b, s, t, h, kv, d, causal, dtype, timed) in enumerate(cases):
+        q, k, v = attn_inputs(b, s, t, h, kv, d, dtype, dev, seed=10 + i)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        e, row = flash_errors(got, want, dtype)
+        del want
+        err = max(err, e)
+        log(f"[flash] {label} {str(dtype)[6:]}: max abs err {e:.3e}, "
+            f"max row err {row:.3e}")
+        if timed:
+            timings.append(time_flash(q, k, v, label))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return err, timings
+
+
+def time_flash(q, k, v, label):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    reps = 20 if s * b <= 8192 else 10
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), reps)
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 2, 1)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+    torch.testing.assert_close(lib.float(), flash_attention_cuda(q, k, v, causal=True).float(),
+                               **FLASH_BF16_TOL)
+    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), reps)
+    es = q.element_size()
+    nbytes = (2 * b * s * h * d + 2 * b * t * kvh * d) * es
+    flops = 4 * b * h * d * visible_pairs(s, t, True)
+    b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms, library="scaled_dot_product_attention(is_causal=True, "
+               "enable_gqa=True)", bytes=nbytes, flops=flops,
+               tflops=flops / ms / 1e9)
+    log(f"[time] flash_attention {label}: {json.dumps(rec)}")
+    return rec
+
+
+def margin_engine(model, **kw):
+    """A ServeEngine that keeps, for each sampled step, the top-1 / top-2
+    logit margin of every row (waves in serving order) in ``.margins``."""
+    from repro_torch.serve import ServeEngine
+
+    class MarginEngine(ServeEngine):
+        def _sample(self, logits):
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            self.margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+            return super()._sample(logits)
+
+    engine = MarginEngine(model, **kw)
+    engine.margins = []
+    return engine
+
+
+def serve_run(name, model, reqs, dev, launches, use_kernel="auto"):
+    """Serve ``reqs`` with launch counts zeroed just before and read just
+    after; prefill's flash launches are also counted per wave."""
+    wrappers = kernel_wrappers()
+    flash = wrappers["flash_attention"]
+    per_wave = []
+    prefill = model.prefill
+
+    def counted_prefill(*a, **kw):
+        before = flash.launches
+        out = prefill(*a, **kw)
+        per_wave.append(flash.launches - before)
+        return out
+
+    model.prefill = counted_prefill
+    engine = margin_engine(model, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        outs = engine.serve(reqs)
+    finally:
+        del model.prefill
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches[name] = {k: w.launches for k, w in wrappers.items()}
+    new = sum(len(o) for o in outs)
+    steps = sum(w["decode_steps"] for w in engine.stats)
+    rec = dict(path=name, seconds=seconds, launches=launches[name],
+               flash_launches_per_wave=per_wave, waves=engine.stats,
+               prefill_s=[w["prefill_s"] for w in engine.stats],
+               decode_ms_per_step=1e3 * sum(w["decode_s"] for w in engine.stats) / steps,
+               new_tokens=new, tokens_per_s=new / seconds,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    log(f"[serve] {json.dumps(rec)}")
+    return outs, engine.margins, rec
+
+
+def wave_rows(reqs):
+    """Request index -> (wave, row) in the engine's serving order."""
+    lens = sorted({len(r.prompt) for r in reqs})
+    rows: dict = {}
+    for i in sorted(range(len(reqs)), key=lambda i: len(reqs[i].prompt)):
+        w = lens.index(len(reqs[i].prompt))
+        rows[i] = (w, sum(1 for wr in rows.values() if wr[0] == w))
+    return rows
+
+
+@contextlib.contextmanager
+def held_to_plain(errs):
+    """While open, every prefill attention is also computed by the plain
+    version on the same q, k, v (the layer's own activations) and held to it
+    with ``flash_errors``; ``errs`` collects (max abs err, max row err)."""
+    from repro_torch.kernels import ops, ref
+
+    inner = ops.flash_attention
+
+    def checked(q, k, v, *, causal, use_kernel="auto"):
+        out = inner(q, k, v, causal=causal, use_kernel=use_kernel)
+        errs.append(flash_errors(out, ref.flash_attention(q, k, v, causal=causal), q.dtype))
+        return out
+
+    ops.flash_attention = checked
+    try:
+        yield
+    finally:
+        ops.flash_attention = inner
+
+
+def last_logits(model, reqs, use_kernel):
+    """Last-position prefill logits (float32) of every request, by wave."""
+    out = []
+    for n in sorted({len(r.prompt) for r in reqs}):
+        toks = torch.tensor([r.prompt for r in reqs if len(r.prompt) == n], device=model.device)
+        logits, caches = model.prefill(toks, use_kernel=use_kernel)
+        out.append(logits.float())
+        del caches
+    return out
+
+
+def phase7(dev, launches):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request
+
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[yi6b] {model.num_params()} parameters, {model.weight_bytes()} weight bytes "
+        f"(bf16), made on the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    new = 32
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(), new)
+            for n in [2048] * 4 + [1000] * 4]
+    rows = wave_rows(reqs)
+    n_layers = cfg.num_layers
+    # Warm-up (library handles, allocator): one short request, not counted.
+    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])
+
+    outs, _, rec = serve_run("yi6b_serve", model, reqs, dev, launches)
+    if rec["flash_launches_per_wave"] != [n_layers, n_layers]:
+        raise AssertionError(f"flash launches per wave {rec['flash_launches_per_wave']}, "
+                             f"want {n_layers} per wave")
+    plain, margins, prec = serve_run("yi6b_serve_plain", model, reqs, dev, launches,
+                                     use_kernel=False)
+    if any(launches["yi6b_serve_plain"].values()):
+        raise AssertionError(f"plain serve launched {launches['yi6b_serve_plain']}")
+    for o in outs:
+        if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"bad generation {o}")
+
+    # The kernel inside the model: each of the 64 prefill attentions of the
+    # two waves held to the plain version on its own inputs, so no error of
+    # an earlier layer enters the comparison.
+    layer_errs = []
+    flash = kernel_wrappers()["flash_attention"]
+    before = flash.launches
+    with held_to_plain(layer_errs):
+        kern_logits = last_logits(model, reqs, "auto")
+    if flash.launches - before != 2 * n_layers or len(layer_errs) != 2 * n_layers:
+        raise AssertionError(f"held {len(layer_errs)} prefill attentions, "
+                             f"{flash.launches - before} launches; want {2 * n_layers}")
+    layer_abs_err = max(e for e, _ in layer_errs)
+    layer_row_err = max(r for _, r in layer_errs)
+    log(f"[yi6b] prefill attention in the model, kernel vs plain on each layer's own "
+        f"q, k, v: max abs err {layer_abs_err:.4e}, max row err {layer_row_err:.4e} "
+        f"(limit {FLASH_ROW_RTOL})")
+    plain_logits = last_logits(model, reqs, False)
+    logit_err = max((a - b).abs().max().item() for a, b in zip(kern_logits, plain_logits))
+    for lg in kern_logits:
+        if not torch.isfinite(lg).all():
+            raise AssertionError("non-finite prefill logits")
+    agree = []
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        w, r = rows[i]
+        low = [j for j in range(new) if margins[new * w + j][r] < 2 * logit_err]
+        first_low = low[0] if low else new
+        first_diff = next((j for j in range(new) if a[j] != b[j]), new)
+        if first_diff < first_low:
+            raise AssertionError(
+                f"request {i}: kernel and plain tokens differ at step {first_diff}, "
+                f"before the first low-margin step {first_low}")
+        agree.append(dict(request=i, prompt_len=len(reqs[i].prompt), first_diff=first_diff,
+                          first_low_margin_step=first_low))
+    log(f"[yi6b] bf16 tokens, kernel vs plain: {json.dumps(agree)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # Float32 at full width and depth: the same weights before bf16 rounding.
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[yi6b] float32 model, {model.weight_bytes()} weight bytes, made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    f32_logits = last_logits(model, reqs, False)
+    bf16_err = max((a - b).abs().max().item() for a, b in zip(plain_logits, f32_logits))
+    log(f"[yi6b] last-position logits: kernel vs plain (bf16) max abs err {logit_err:.4e}; "
+        f"plain bf16 vs float32 (the bf16 model's own rounding) {bf16_err:.4e}")
+    if not logit_err <= bf16_err:
+        raise AssertionError(f"kernel-vs-plain logits error {logit_err} exceeds the bf16 "
+                             f"model's own rounding error {bf16_err}")
+    wave = reqs[:4]  # the 2048-token prompts
+    f32_outs, _, frec = serve_run("yi6b_serve_f32", model, wave, dev, launches)
+    f32_plain, _, fprec = serve_run("yi6b_serve_f32_plain", model, wave, dev, launches,
+                                    use_kernel=False)
+    if frec["flash_launches_per_wave"] != [n_layers]:
+        raise AssertionError(f"float32 wave flash launches {frec['flash_launches_per_wave']}")
+    if f32_outs != f32_plain:
+        raise AssertionError(f"float32 tokens differ: {f32_outs} vs {f32_plain}")
+    log("[yi6b] float32 wave: kernel and plain tokens equal")
+    del model
+    torch.cuda.empty_cache()
+    recs = [rec, prec, frec, fprec]
+    for r in recs:
+        r.update(arch="yi-6b")
+    return recs, dict(logit_err=logit_err, bf16_vs_f32_err=bf16_err, agreement=agree,
+                      layer_abs_err=layer_abs_err, layer_row_err=layer_row_err)
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -610,6 +939,7 @@ def main():
     count_err, mi_err = phase("2 contingency+mi", phase2, dev)
     bins_err, bin_times = phase("2 bin_codes", phase2_bins, dev)
     corr_err, corr_times = phase("2 pearson_corr", phase2_pearson, dev)
+    flash_err, flash_times = phase("2 flash_attention", phase2_flash, dev)
     launches: dict = {}
     timings: list = []
     fits = phase("3 tall", phase3, dev, launches, timings)
@@ -621,6 +951,7 @@ def main():
     del Xc
     fits += phase("5 tall binned", phase5, dev, launches)
     fits += phase("6 wide pearson", phase6, dev, launches)
+    serves, serve_check = phase("7 yi-6b serve", phase7, dev, launches)
     rng = np.random.default_rng(1)
     mi_block = torch.as_tensor(rng.integers(0, 30000, (1000, 2, 2))).to(torch.int32).to(dev)
     mi_times = [time_mi(mi_block, "1000x2x2 (tall pass)"),
@@ -646,11 +977,14 @@ def main():
         kernel_entry("pearson_corr", "src/repro_torch/csrc/pearson.cu",
                      "src/repro/kernels/pearson.py:57", ("wide_pearson",), launches,
                      corr_err, corr_times[0], corr_times),
+        kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:79", ("yi6b_serve",), launches,
+                     flash_err, flash_times[0], flash_times),
     ]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
-    log(json.dumps(dict(fits=fits)))
+    log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

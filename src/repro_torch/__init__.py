@@ -20,6 +20,15 @@ Contingency counting, MI finalization, bin encoding and row correlation run
 through ``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``,
 ``csrc/bin_codes.cu``, ``csrc/pearson.cu``), built with ``nvcc`` for
 ``sm_90a`` at first use.
+
+The dense decoder LMs of the registry are served by
+:mod:`repro_torch.serve` over :mod:`repro_torch.models`, prefill attention
+through ``csrc/flash_attention.cu``:
+
+    >>> from repro_torch.configs import get_config
+    >>> from repro_torch.models import build_model
+    >>> from repro_torch.serve import Request, ServeEngine
+    >>> ServeEngine(build_model(get_config("yi-6b"))).serve([Request([1, 2, 3])])
 """
 
 from repro_torch.core.criteria import (

@@ -1,0 +1,21 @@
+"""dbrx-132b [moe]: 40L d_model=6144 48H (GQA kv=8) d_ff=10752
+vocab=100352, MoE 16 experts top-4 fine-grained
+[hf:databricks/dbrx-base; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=10752,
+    vocab_size=100352,
+    num_experts=16,
+    experts_per_token=4,
+    rope_theta=5e5,
+    microbatches=4,  # §Perf A6: fits v5e HBM (EXPERIMENTS.md)
+    optimizer_moment_dtype="bfloat16",
+)

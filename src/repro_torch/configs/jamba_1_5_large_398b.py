@@ -1,0 +1,34 @@
+"""jamba-1.5-large-398b [hybrid]: 72L d_model=8192 64H (GQA kv=8)
+d_ff=24576, MoE 16 experts top-2, Mamba+attention 1:7 interleave
+[arXiv:2403.19887; hf].
+
+Superblock of 8 layers: attention at offset 4, Mamba elsewhere; MoE
+replaces the dense MLP on odd layers (period 2).  We use Mamba-2 mixers
+(unified SSM substrate; Jamba ships Mamba-1 — recorded deviation).
+Largest arch in the pool: bf16 optimizer moments (see DESIGN.md).
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="jamba-1.5-large-398b",
+    family="hybrid",
+    num_layers=72,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=24576,
+    vocab_size=65536,
+    num_experts=16,
+    experts_per_token=2,
+    attn_period=8,
+    attn_offset=4,
+    moe_period=2,
+    ssm_state=128,
+    ssm_headdim=64,
+    ssm_expand=2,
+    ssm_conv=4,
+    ssm_chunk=256,
+    optimizer_moment_dtype="bfloat16",
+    microbatches=8,  # §Perf A6: fits v5e HBM (EXPERIMENTS.md)
+)

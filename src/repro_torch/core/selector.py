@@ -34,19 +34,9 @@ from repro_torch.core.mrmr import MRMRResult
 from repro_torch.core.scores import MIScore, PearsonMIScore, ScoreFn
 from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import ArraySource, DataSource
+from repro_torch.device import resolve_device
 from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
 from repro_torch.kernels import ops
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but torch sees no CUDA device; pass "
-            "device='cpu' to run the plain PyTorch versions on the CPU"
-        )
-    return dev
 
 
 def check_num_select(num_select, n_features: int) -> None:
@@ -477,5 +467,4 @@ __all__ = [
     "get_engine",
     "plan_selection",
     "register_engine",
-    "resolve_device",
 ]

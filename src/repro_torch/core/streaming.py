@@ -48,9 +48,10 @@ import torch
 from repro_torch.core.criteria import Criterion, resolve_criterion
 from repro_torch.core.mrmr import MRMRResult, check_conditional_support
 from repro_torch.core.scores import MIScore, ScoreFn
-from repro_torch.core.selector import check_num_select, register_engine, resolve_device
+from repro_torch.core.selector import check_num_select, register_engine
 from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import as_source
+from repro_torch.device import resolve_device
 from repro_torch.dist.streaming import BlockPlacer, PrefetchPlacer, resolve_prefetch
 from repro_torch.kernels import ops
 

@@ -34,7 +34,7 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # C signature of every entry point: argtypes (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits) and an int return,
@@ -54,6 +54,11 @@ SIGNATURES = {
     },
     "pearson": {
         "pearson_corr_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _P, _P, _P),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _P,
+        ),
     },
 }
 

@@ -1,0 +1,88 @@
+"""GQA flash attention on the card: the CUDA port of the TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention_pallas``.
+
+The kernel (``csrc/flash_attention.cu``) computes softmax attention of
+``q (B, S, H, D)`` against ``k, v (B, T, KV, D)``, query head ``h`` reading
+KV head ``h // (H / KV)``, with an online softmax over 64-row KV tiles:
+float32 scores, softmax and accumulator, the output in q's dtype.  bfloat16
+inputs run both products on the tensor cores (P rounded to bf16 as the
+operand of P.V), float32 inputs on the CUDA cores in float32.  With
+``causal`` query ``i`` sees keys ``<= i + T - S`` and the tiles above the
+diagonal are skipped.  Any ``S, T >= 1``; D of 32, 64 or 128.
+
+Strides: q, k and v are read in place through the strides of their first
+three axes (the ``(B, S, H, D)`` view of a ``(B, S, H*D)`` projection
+costs no copy).  A tensor is copied once, contiguous, only where the kernel
+cannot read it in place: a last axis that is not contiguous, or (bf16, read
+in 16-byte rows) a stride that is not a multiple of 8 elements or a
+misaligned start.  The output is a new contiguous ``(B, S, H, D)`` tensor.
+
+The plain version is :func:`repro_torch.kernels.ref.flash_attention`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    ok = t.stride(-1) == 1
+    if ok and t.dtype == torch.bfloat16:
+        ok = t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+    return t if ok else t.clone(memory_format=torch.contiguous_format)  # a fresh, aligned copy
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
+) -> torch.Tensor:
+    """(B, S, H, D) x (B, T, KV, D) on the card -> (B, S, H, D) in q's dtype."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_cuda needs a CUDA tensor")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"need q (B, S, H, D) and k, v (B, T, KV, D); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kvh == 0 or h % kvh != 0:
+        raise ValueError(
+            f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} "
+            "(same B and D, H a multiple of KV)"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"q, k, v must all be float32 or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+    if t == 0:
+        raise ValueError("attention over zero keys is undefined")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if b == 0 or s == 0 or h == 0:
+        return out
+    q, k, v = _readable(q), _readable(k), _readable(v)
+    strides = (ctypes.c_int64 * 9)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]
+    )
+    lib = _build.load("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        b, s, t, h, kvh, d, ctypes.addressof(strides), float(d ** -0.5),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention_launch")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

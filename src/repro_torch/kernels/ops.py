@@ -22,6 +22,7 @@ from repro_torch.kernels.contingency import (
     conditional_tables_cuda,
     contingency_tables_cuda,
 )
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mi_score import mi_scores_cuda
 from repro_torch.kernels.pearson import pearson_corr_cuda
 
@@ -84,3 +85,13 @@ def pearson_corr(X: torch.Tensor, Y: torch.Tensor, use_kernel="auto") -> torch.T
     if _decide(use_kernel, X):
         return pearson_corr_cuda(X, Y)
     return ref.pearson_corr(X, Y)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+    use_kernel="auto",
+) -> torch.Tensor:
+    """(B, S, H, D) x (B, T, KV, D) -> (B, S, H, D) GQA softmax attention."""
+    if _decide(use_kernel, q):
+        return flash_attention_cuda(q, k, v, causal=causal)
+    return ref.flash_attention(q, k, v, causal=causal)

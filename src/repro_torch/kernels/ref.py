@@ -92,3 +92,26 @@ def cor2mi(corr: torch.Tensor) -> torch.Tensor:
     """Gaussian MI approximation from correlation (paper Listing 8)."""
     r2 = torch.clamp(corr * corr, 0.0, 1.0 - 1e-6)
     return -0.5 * torch.log1p(-r2)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
+) -> torch.Tensor:
+    """(B, S, H, D) x (B, T, KV, D) -> (B, S, H, D) GQA softmax attention.
+
+    Query head ``h`` attends KV head ``h // (H / KV)``.  Scores, softmax and
+    the product with V in float32, the output in q's dtype.  With ``causal``
+    query ``i`` sees keys ``<= i + T - S`` (``tril(k=T-S)``); masked scores
+    are ``-1e30``, so a row with no visible key averages V uniformly
+    instead of producing NaN.
+    """
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d).to(torch.float32) * (d ** -0.5)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    if causal:
+        mask = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
+        sc = sc.masked_fill(~mask, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)

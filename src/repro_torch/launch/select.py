@@ -37,12 +37,7 @@ from repro_torch.core.scores import MIScore, PearsonMIScore
 from repro_torch.core.selector import MRMRSelector, check_num_select
 from repro_torch.data.sources import NpySource
 from repro_torch.data.synthetic import corral_dataset_np
-
-
-def _device_name(device: torch.device) -> str:
-    if device.type == "cuda":
-        return torch.cuda.get_device_name(device)
-    return "cpu"
+from repro_torch.device import device_name
 
 
 def main(argv=None) -> dict:
@@ -119,7 +114,7 @@ def main(argv=None) -> dict:
     out = {
         "encoding": sel.plan_.encoding,
         "criterion": sel.result_.criterion,
-        "device": _device_name(sel._device),
+        "device": device_name(sel._device),
         "selected": sel.selected_.tolist(),
         "gains": [float(g) for g in sel.gains_],
         "seconds": seconds,

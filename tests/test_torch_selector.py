@@ -158,6 +158,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.ops, repro_torch.data.synthetic; "
         "import repro_torch.kernels.binning, repro_torch.kernels.pearson; "
         "import repro_torch.data.binning, repro_torch.core.streaming; "
+        "import repro_torch.kernels.flash_attention, repro_torch.models.convert; "
+        "import repro_torch.models, repro_torch.serve, repro_torch.launch.serve; "
+        "import repro_torch.configs; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )
