@@ -8,7 +8,13 @@ Phases (each failure raises; the script exits non-zero and prints no result):
 0. The card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name.
    No CUDA device -> exit 1.
 1. Build every CUDA source of the port with ``nvcc`` (one process per
-   source, all started together); print the build time and ``-Xptxas -v``.
+   source, all started together); print the build time and ``-Xptxas -v``,
+   the flash-attention and correlation kernels' register and spill lines
+   apart, and, where ``cuobjdump`` sits next to ``nvcc``, the count of
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) in the flash-attention
+   library's SASS and of ``UBLKCP`` (bulk copies) and ``LDG.E.128`` in the
+   correlation library's; a flash library without ``HGMMA`` or ``UTMALDG``
+   fails ("not checked" where ``cuobjdump`` is missing).
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes: contingency counts bitwise equal (int8/int16/int32, the
    class-fused conditional target, a ragged row count, injected negatives and
@@ -45,7 +51,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
 6. Wide continuous (the scaled Fig. 7 point, continuous):
    ``continuous_dataset_np(10_000, 50_000)``, L=8, plans ``alternative`` with
    ``PearsonMIScore``; kernel and plain versions select the same, first pick
-   in {0, 8}.
+   in {0, 8}.  Two more (warm) kernel fits: one on the host clock, one under
+   ``torch.profiler``, whose device-only activities (kernels, copies) are
+   printed by name with their share of the traced fit's wall time.
 7. Yi-6B serve (the LM side, at the published widths and depth): random
    bf16 weights from a seeded generator on the card (~6.06e9 parameters),
    ``ServeEngine.serve`` of 8 greedy requests, 32 new tokens each, in two
@@ -69,7 +77,8 @@ non-causal: float32 within ``rtol=2e-5, atol=2e-5``, bf16 within
 (``(b, s, h)``, L2 over D) within a relative error of ``1e-2``; it times
 the kernel, the plain version and one ``scaled_dot_product_attention(
 is_causal=True, enable_gqa=True)`` call (the library yardstick, which the
-port never calls).
+port never calls).  The flash and correlation timings also print their
+share of the bound (bound ms over kernel ms).
 
 Each main-path fit runs with the kernels' launch counts set to 0 just before
 it and read just after: an in-memory fit of L=10 counts 10 contingency
@@ -88,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -171,6 +181,33 @@ def phase0() -> str:
     return smi
 
 
+# SASS instructions that show each redesigned kernel is built as designed:
+# flash attention's wgmma (HGMMA) fed by TMA tile loads (UTMALDG); the
+# correlation kernel's bulk row copies (UBLKCP) and 128-bit global loads.
+SASS_MARKS = {"flash_attention": ("HGMMA", "UTMALDG"), "pearson": ("UBLKCP", "LDG.E.128")}
+
+
+def sass_check(libs) -> dict:
+    """Count SASS_MARKS in each library with ``cuobjdump`` (next to ``nvcc``);
+    fails if flash attention has no HGMMA or no UTMALDG."""
+    from repro_torch.kernels import _build
+
+    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        log("[sass] cuobjdump not found next to nvcc: not checked")
+        return {}
+    counts = {}
+    for name, marks in SASS_MARKS.items():
+        sass = subprocess.run([str(tool), "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True).stdout
+        counts[name] = {m: len(re.findall(rf"\b{re.escape(m)}", sass)) for m in marks}
+        log(f"[sass] {name}: {json.dumps(counts[name])}")
+    if not all(counts["flash_attention"].values()):
+        raise AssertionError(
+            f"flash attention SASS lacks wgmma or TMA: {counts['flash_attention']}")
+    return counts
+
+
 def phase1():
     from repro_torch.kernels import _build
 
@@ -179,6 +216,11 @@ def phase1():
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.3f} s")
     for name, out in _build.build_log.items():
         log(f"[build] {name}:\n{out}")
+    for name in SASS_MARKS:  # -Xptxas -v of the two redesigned kernels, entry by entry
+        for line in _build.build_log.get(name, "").splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[ptxas] {name}: {line.strip()}")
+    return sass_check(libs)
 
 
 def phase2(dev):
@@ -525,8 +567,8 @@ def time_pearson(X, Y, label, reps):
     nbytes = (f * m + t * m + f * t) * 4
     b_ms, b_by = bound(nbytes, 4 * f * m + 2 * f * m * t)
     rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=library_ms, library="torch.matmul of pre-standardised rows "
-               "(product only)", bytes=nbytes)
+               share_of_bound=b_ms / ms, library_ms=library_ms,
+               library="torch.matmul of pre-standardised rows (product only)", bytes=nbytes)
     log(f"[time] pearson_corr {label}: {json.dumps(rec)}")
     return rec
 
@@ -584,6 +626,31 @@ def phase5(dev, launches):
                  host_transform_block_s=transform_s), mrec, prec]
 
 
+def device_breakdown(fn, top=6):
+    """Time ``fn()`` once on the host clock, then once more under
+    ``torch.profiler``: the device-only activities (kernels, copies) by
+    name, their sum, and its share of the profiled call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.self_cpu_time_total == 0 and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in rows)
+    return dict(host_s=host_s, profiled_wall_ms=wall_ms, device_ms=device_ms,
+                device_busy_share=device_ms / wall_ms,
+                top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
+
+
 def phase6(dev, launches):
     from repro_torch import MRMRSelector, PearsonMIScore
     from repro_torch.data.synthetic import continuous_dataset_np
@@ -595,6 +662,9 @@ def phase6(dev, launches):
     log(f"[wide-pearson] data 10000x50000 float32 made and placed in "
         f"{time.perf_counter() - t0:.3f} s")
     kern, rec = run_path("wide_pearson", lambda: MRMRSelector(8).fit(Xd, yd), dev, launches)
+    # Where a warm fit's time goes: the correlation kernel against the rest.
+    rec["trace"] = device_breakdown(lambda: MRMRSelector(8).fit(Xd, yd))
+    log(f"[wide-pearson] warm fit, traced: {json.dumps(rec['trace'])}")
     if kern.plan_.encoding != "alternative" or not isinstance(kern.plan_.score, PearsonMIScore):
         raise AssertionError(f"wide continuous fit planned {kern.plan_}")
     plain, prec = run_path(
@@ -706,7 +776,8 @@ def time_flash(q, k, v, label):
     flops = 4 * b * h * d * visible_pairs(s, t, True)
     b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
     rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=library_ms, library="scaled_dot_product_attention(is_causal=True, "
+               share_of_bound=b_ms / ms, library_ms=library_ms,
+               library="scaled_dot_product_attention(is_causal=True, "
                "enable_gqa=True)", bytes=nbytes, flops=flops,
                tflops=flops / ms / 1e9)
     log(f"[time] flash_attention {label}: {json.dumps(rec)}")
@@ -928,7 +999,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase1()
+    sass = phase1()
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -984,7 +1055,7 @@ def main():
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
-    log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check)))
+    log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for Hopper
         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 The library lands in ``repro_torch/build/<name>-<hash>/`` (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing is built when a
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads at once. Nothing is built when a
 module is imported: :func:`load` builds at first use, and
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
 for them (what ``chip_smoke.py`` times). A failed build raises with the
@@ -53,7 +54,9 @@ SIGNATURES = {
         "bin_codes_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _I, _P, _P),
     },
     "pearson": {
-        "pearson_corr_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _P, _P, _P),
+        "pearson_corr_launch": (
+            _P, _I64, _I64, _I64, _P, _I, _I64, _P, _P, _I, _I, _I, _P,
+        ),
     },
     "flash_attention": {
         "flash_attention_launch": (
@@ -85,7 +88,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"{name}-{key}" / f"lib{name}.so"
 
 

@@ -3,19 +3,21 @@
 
 The kernel (``csrc/flash_attention.cu``) computes softmax attention of
 ``q (B, S, H, D)`` against ``k, v (B, T, KV, D)``, query head ``h`` reading
-KV head ``h // (H / KV)``, with an online softmax over 64-row KV tiles:
+KV head ``h // (H / KV)``, with an online softmax over KV tiles:
 float32 scores, softmax and accumulator, the output in q's dtype.  bfloat16
-inputs run both products on the tensor cores (P rounded to bf16 as the
-operand of P.V), float32 inputs on the CUDA cores in float32.  With
+inputs run both products on the tensor cores with ``wgmma``, fed by TMA
+loads into a ring of K/V tiles in shared memory (P rounded to bf16 as the
+operand of P.V); float32 inputs run on the CUDA cores in float32.  With
 ``causal`` query ``i`` sees keys ``<= i + T - S`` and the tiles above the
 diagonal are skipped.  Any ``S, T >= 1``; D of 32, 64 or 128.
 
 Strides: q, k and v are read in place through the strides of their first
 three axes (the ``(B, S, H, D)`` view of a ``(B, S, H*D)`` projection
 costs no copy).  A tensor is copied once, contiguous, only where the kernel
-cannot read it in place: a last axis that is not contiguous, or (bf16, read
-in 16-byte rows) a stride that is not a multiple of 8 elements or a
-misaligned start.  The output is a new contiguous ``(B, S, H, D)`` tensor.
+cannot read it in place: a last axis that is not contiguous, or, for bf16,
+what TMA cannot describe (:func:`tma_readable`).  The output is a new
+contiguous ``(B, S, H, D)`` tensor.  A tensor map the driver refuses to
+encode, like a refused launch, raises.
 
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 """
@@ -32,10 +34,21 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# A failed tensor-map encode returns this plus the driver's CUresult.
+_ENCODE_FAILED = 10000
+
+
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether TMA can load bf16 ``t`` (B, L, N, D) in place: a 16-byte-aligned
+    start and every stride of the first three axes a positive multiple of 16
+    bytes (8 elements), the rule of ``cuTensorMapEncodeTiled``."""
+    return t.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0 for st in t.stride()[:3])
+
+
 def _readable(t: torch.Tensor) -> torch.Tensor:
     ok = t.stride(-1) == 1
     if ok and t.dtype == torch.bfloat16:
-        ok = t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+        ok = tma_readable(t)
     return t if ok else t.clone(memory_format=torch.contiguous_format)  # a fresh, aligned copy
 
 
@@ -80,6 +93,9 @@ def flash_attention_cuda(
         b, s, t, h, kvh, d, ctypes.addressof(strides), float(d ** -0.5),
         int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError("flash_attention_launch: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ENCODE_FAILED})")
     _build.check(err, "flash_attention_launch")
     flash_attention_cuda.launches += 1
     return out

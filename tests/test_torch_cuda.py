@@ -38,7 +38,13 @@ from repro_torch.kernels.contingency import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mi_score import mi_scores_cuda
-from repro_torch.kernels.pearson import pearson_corr_cuda
+from repro_torch.kernels.pearson import (
+    REREAD,
+    STAGED,
+    STREAM,
+    pearson_corr_cuda,
+    pearson_plan,
+)
 from repro_torch.configs import smoke_config
 from repro_torch.models import build_model
 from repro_torch.serve import Request, ServeEngine
@@ -192,17 +198,29 @@ def _corr_rows(f, t, m, seed):
     rng = np.random.default_rng(seed)
     X = torch.as_tensor(rng.normal(size=(f, m)) * 2 + 3, dtype=torch.float32)
     Y = torch.as_tensor(rng.normal(size=(t, m)), dtype=torch.float32)
-    X[1] = 2.5  # constant row: correlation 0
+    if f > 1:
+        X[1] = 2.5  # constant row: correlation 0
     return X, Y
 
 
-@pytest.mark.parametrize("f,t,m", [(500, 1, 10000), (300, 4, 2000), (37, 9, 1031),
-                                   (20, 2, 20000)])
-def test_pearson_corr(cuda, f, t, m):
+@pytest.mark.parametrize("f,t,m,plan", [
+    (500, 1, 10000, (STREAM, 4, 1)),   # the wide fit's shape, Y in shared memory
+    (300, 4, 2000, (STREAM, 4, 4)),
+    (37, 9, 1031, (STAGED, 0, 0)),     # M not a multiple of 4 floats
+    (20, 2, 20000, (STREAM, 2, 0)),    # Y too large for shared memory beside the ring
+    (300, 1, 10001, (STAGED, 0, 0)),   # rows not 16-byte aligned
+    (30, 1, 30000, (REREAD, 0, 0)),    # M above the ring and the scalar stage
+    (200, 9, 10000, (STREAM, 2, 3)),   # T = 9: three Y rows shared, six from L2
+    (1, 1, 10000, (STREAM, 4, 1)),
+    (1, 3, 777, (STAGED, 0, 0)),
+])
+def test_pearson_corr(cuda, f, t, m, plan):
     X, Y = _corr_rows(f, t, m, seed=f)
-    got = pearson_corr_cuda(X.to(cuda), Y.to(cuda)).cpu()
+    Xd = X.to(cuda)
+    assert tuple(pearson_plan(Xd, t)) == plan
+    got = pearson_corr_cuda(Xd, Y.to(cuda)).cpu()
     np.testing.assert_allclose(got, ref.pearson_corr(X, Y), rtol=2e-4, atol=2e-5)
-    assert torch.all(got[1] == 0)
+    assert f == 1 or torch.all(got[1] == 0)
 
 
 def test_pearson_corr_transposed_view(cuda):
@@ -274,20 +292,30 @@ def _attn(b, s, t, h, kv, d, dtype, seed, device):
     return q, k, v
 
 
+# Shapes run in both dtypes: bf16 goes through the wgmma + TMA body, float32
+# through the CUDA-core body.
+_FLASH_BOTH = [
+    (2, 256, 256, 8, 8, 64, True),     # MHA
+    (2, 1, 1, 8, 4, 128, True),        # S = 1
+    (1, 1, 300, 8, 4, 128, True),      # one query, long context
+    (2, 1000, 1000, 8, 2, 64, True),   # ragged S
+    (2, 64, 256, 8, 2, 32, True),      # s < t, causal
+    (2, 200, 333, 8, 4, 128, False),   # non-causal
+    (1, 96, 40, 4, 2, 32, True),       # s > t: rows with no key
+    (2, 100, 100, 8, 2, 128, True),    # T within one KV tile
+    (2, 20, 90, 4, 4, 64, False),      # T within one KV tile, non-causal
+    (1, 129, 129, 8, 2, 128, True),    # one query row past a 128-row tile
+]
+
+
 @pytest.mark.parametrize(
     "b,s,t,h,kv,d,causal,dtype",
     [
         (4, 2048, 2048, 32, 4, 128, True, torch.bfloat16),  # the serve prefill
         (4, 1000, 1000, 32, 4, 128, True, torch.bfloat16),  # the ragged wave
         (1, 8192, 8192, 32, 4, 128, True, torch.bfloat16),  # a long prompt
-        (2, 256, 256, 8, 8, 64, True, torch.float32),       # MHA
-        (2, 1, 1, 8, 4, 128, True, torch.float32),          # S = 1
-        (1, 1, 300, 8, 4, 128, True, torch.float32),        # one query, long context
-        (2, 1000, 1000, 8, 2, 64, True, torch.float32),     # ragged S
-        (2, 64, 256, 8, 2, 32, True, torch.float32),        # s < t, causal
-        (2, 200, 333, 8, 4, 128, False, torch.float32),     # non-causal
-        (1, 96, 40, 4, 2, 32, True, torch.float32),         # s > t: rows with no key
-    ],
+    ]
+    + [case + (dtype,) for case in _FLASH_BOTH for dtype in (torch.float32, torch.bfloat16)],
 )
 def test_flash_attention(cuda, b, s, t, h, kv, d, causal, dtype):
     q, k, v = _attn(b, s, t, h, kv, d, dtype, seed=s + t, device=cuda)

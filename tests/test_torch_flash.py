@@ -20,7 +20,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import full_attention
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import _readable, flash_attention_cuda, tma_readable
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -104,3 +104,30 @@ def test_dispatch_on_cpu_runs_the_plain_version():
         flash_attention_cuda(q, k, v, causal=True)
     with pytest.raises(ValueError, match="use_kernel"):
         ops.flash_attention(q, k, v, causal=True, use_kernel="yes")
+
+
+def _bf16(*shape):
+    return torch.arange(int(np.prod(shape)), dtype=torch.float32).to(torch.bfloat16).view(shape)
+
+
+def test_tma_rule_decides_copy_or_read_in_place():
+    # The bf16 body loads q, k and v with TMA: a 16-byte-aligned start and
+    # strides that are positive multiples of 16 bytes, else one copy.
+    b, s, h, kv, d = 2, 12, 4, 2, 64
+    x = _bf16(b, s, (h + 2 * kv) * d)
+    q = x[..., : h * d].unflatten(-1, (h, d))  # the projection view: read in place
+    k = x[..., h * d:(h + kv) * d].unflatten(-1, (kv, d))
+    assert not q.is_contiguous() and tma_readable(q) and tma_readable(k)
+    assert _readable(q) is q and _readable(k) is k
+    odd_start = _bf16(b * s * h * d + 3)[3:].view(b, s, h, d)  # 6 bytes off
+    odd_stride = _bf16(b, s, h, d + 4)[..., :d]  # rows 136 bytes apart
+    broadcast = _bf16(1, s, kv, d).expand(b, s, kv, d)  # a zero batch stride
+    for t in (odd_start, odd_stride, broadcast):
+        assert not tma_readable(t)
+        c = _readable(t)
+        assert c is not t and tma_readable(c) and torch.equal(c, t)
+    strided = torch.zeros(b, s, h, d + 4)[..., :d]  # float32 reads any stride in place
+    assert _readable(strided) is strided
+    every_other = strided[..., ::2]
+    c = _readable(every_other)  # a strided last axis is copied
+    assert c is not every_other and c.is_contiguous() and torch.equal(c, every_other)

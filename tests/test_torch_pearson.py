@@ -39,6 +39,15 @@ from repro_torch import (
 from repro_torch.core.scores import standardize_rows
 from repro_torch.data.synthetic import continuous_dataset_np
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.pearson import (
+    REREAD,
+    RING_MAX_M,
+    SMEM_MAX,
+    STAGE_MAX,
+    STAGED,
+    STREAM,
+    pearson_plan,
+)
 
 RTOL, ATOL = 1e-4, 1e-5
 LEDGER = ("passes", "blocks_read", "bytes_read", "state_bytes")
@@ -104,6 +113,46 @@ class TestCorrelation:
             ops.pearson_corr(torch.from_numpy(X), torch.from_numpy(Y), use_kernel=True)
         with pytest.raises(ValueError, match="use_kernel"):
             PearsonMIScore(use_kernel="always")
+
+
+def _plan_case(name):
+    """(X view, T) for one geometry the kernel's path rule must sort."""
+    z = torch.zeros
+    return {
+        "contiguous T=1": (z(50, 10000), 1),
+        "contiguous T=4": (z(50, 10000), 4),  # Y no longer fits beside the ring
+        "small M, T=9": (z(50, 1000), 9),
+        "M not a multiple of 4": (z(50, 10001), 1),
+        "row stride not a multiple of 4": (z(50, 10002)[:, :10000], 1),
+        "misaligned start": (z(50, 10004)[:, 1:10001], 1),
+        "one row, odd stride": (z(3, 10002)[2:3, :10000], 1),  # starts 80,016 bytes in
+        "longest streamed row": (z(2, RING_MAX_M), 1),
+        "longest staged row, unaligned": (z(2, STAGE_MAX - 1), 1),
+        "past the stage, unaligned": (z(2, STAGE_MAX + 1), 1),
+        "past the ring": (z(2, RING_MAX_M + 4), 1),
+    }[name]
+
+
+@pytest.mark.parametrize("name,plan", [
+    ("contiguous T=1", (STREAM, 4, 1)), ("contiguous T=4", (STREAM, 2, 3)),
+    ("small M, T=9", (STREAM, 4, 9)), ("M not a multiple of 4", (STAGED, 0, 0)),
+    ("row stride not a multiple of 4", (STAGED, 0, 0)), ("misaligned start", (STAGED, 0, 0)),
+    ("one row, odd stride", (STREAM, 4, 1)), ("longest streamed row", (STREAM, 2, 0)),
+    ("longest staged row, unaligned", (STAGED, 0, 0)),
+    ("past the stage, unaligned", (REREAD, 0, 0)),
+    ("past the ring", (REREAD, 0, 0)),
+])
+def test_kernel_path_follows_the_bulk_copy_rule(name, plan):
+    # The streaming path moves each row with one bulk copy: a 16-byte-aligned
+    # source and a multiple of 16 bytes; two to four row buffers and the Y
+    # rows that fit share the block's 227 KB of shared memory.
+    X, t = _plan_case(name)
+    got = pearson_plan(X, t)
+    assert tuple(got) == plan
+    if got.path == STREAM:
+        m = X.shape[1]
+        assert X.data_ptr() % 16 == 0 and m % 4 == 0 and m <= RING_MAX_M
+        assert 4 * (got.stages + got.y_rows) * m + 4 * 16 * 6 + 8 * got.stages <= SMEM_MAX
 
 
 class TestInMemory:

@@ -29,19 +29,26 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# Every fault edits the bf16 (tensor-core) body, the one the serve path runs.
-LOOP = "for (int k0 = 0; k0 < kend; k0 += kBKV) {\n    __syncthreads();  // the previous tile"
+# Every fault edits the bf16 (wgmma) body, the one the serve path runs. None
+# of them stalls the K/V ring: a skipped tile is still waited for and
+# released, and a shorter loop shortens the producer's and the consumers'
+# loops alike.
+TILES = "const int ntiles = (kend + kWgBKV - 1) / kWgBKV;"
+FULL_WAIT = "mbar_wait(full_bar(st), (j / C::STAGES) & 1);\n"
 FAULTS = {
     "none": None,
     "causal boundary one key late": (
         "} else if (causal && kpos > qpos + offset) {",
         "} else if (causal && kpos > qpos + offset + 1) {"),
-    "diagonal KV tile skipped": (LOOP, LOOP.replace("k0 < kend;", "k0 < kend - kBKV;")),
+    "diagonal KV tile skipped": (TILES, TILES.replace("/ kWgBKV;", "/ kWgBKV - 1;")),
     "scores scaled 1% high": (
         "const float scale_log2 = scale * kLog2e;",
         "const float scale_log2 = scale * kLog2e * 1.01f;"),
     "first KV tile skipped for query rows >= 6144": (
-        LOOP, LOOP.replace("int k0 = 0;", "int k0 = q0 >= 6144 ? kBKV : 0;")),
+        FULL_WAIT,
+        FULL_WAIT + "      if (q0 >= 6144 && j == 0) {\n        __syncwarp();\n"
+        "        if (lane == 0) mbar_arrive(empty_bar(st));\n        continue;\n      }\n"),
+    "ragged last KV tile dropped": (TILES, "const int ntiles = kend / kWgBKV;"),
 }
 SHAPES = [  # label, b, s, h, kv, d: the serve waves and the long prompt
     ("B=4 S=T=2048", 4, 2048, 32, 4, 128),
