@@ -9,33 +9,44 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    No CUDA device -> exit 1.
 1. Build every CUDA source of the port with ``nvcc`` (one process per
    source, all started together); print the build time and ``-Xptxas -v``,
-   the flash-attention and correlation kernels' register and spill lines
-   apart, and, where ``cuobjdump`` sits next to ``nvcc``, the count of
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) in the flash-attention
-   library's SASS and of ``UBLKCP`` (bulk copies) and ``LDG.E.128`` in the
-   correlation library's; a flash library without ``HGMMA`` or ``UTMALDG``
-   fails ("not checked" where ``cuobjdump`` is missing).
+   the register and spill lines of the four redesigned kernels' entries
+   (flash attention, correlation, contingency, bin codes) apart, and, where
+   ``cuobjdump`` sits next to ``nvcc``, count ``SASS_MARKS`` in their
+   libraries: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) for flash
+   attention, ``UBLKCP`` (bulk copies) and ``LDG.E.128`` for the
+   correlation, ``LDG.E.128`` and ``LDG.E.64`` for the contingency count,
+   ``LDG.E.128`` for the bin codes; a missing mark fails ("not checked"
+   where ``cuobjdump`` is missing).
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes: contingency counts bitwise equal (int8/int16/int32, the
    class-fused conditional target, a ragged row count, injected negatives and
-   sentinels, int32 codes of 16 bins); MI within ``rtol=1e-5, atol=1e-6``
+   sentinels, int32 codes of 16 bins, timed at the binned fits' V*C = 32
+   and 256); every path ``contingency_plan`` and ``bin_codes_plan`` pick,
+   forced where the main path does not reach it (the scalar width, shared
+   tables, global atomics; 4, 2 or 1 features per lane, E > 64), bitwise
+   against the plain versions (five dtypes x both layouts x 4/8/32/256 cells,
+   unaligned views, 300,000 equal rows); MI within ``rtol=1e-5, atol=1e-6``
    (also at 16 values, and at every shape it is timed); bin codes bitwise equal
    to the plain version and to the host binner (``QuantileBinner.transform``)
    at 65,536 x 1000 and a ragged 65,499 rows, E of 15 and 63, values planted
    on edges; row correlations within ``rtol=2e-4, atol=2e-5`` at 50,000 x
    10,000 rows against T=1 and T=4, with a constant row and through the
-   ``X.T`` view.  Times with CUDA events: kernel, plain version, the
+   ``X.T`` view.  Times with CUDA events (and, for the contingency and
+   bin-code kernels, the kernel's own device time from ``torch.profiler``,
+   without the wrapper's memset and launch): kernel, plain version, the
    byte/operation bound and a library yardstick (contingency:
    ``torch.bincount`` on the fused index, also for the class-fused
    conditional count; bin codes: one ``torch.searchsorted`` on the
-   feature-major transpose; correlation: ``torch.matmul`` of pre-standardised
+   feature-major transpose, and beside it one device copy of the same
+   bytes, what reading and writing them takes on the card; correlation: ``torch.matmul`` of pre-standardised
    rows, the product only).
 3. Tall (the paper's Fig. 5/6 point): CorrAL 1,000,000 x 1000 int8, L=10,
    ``mid``.  The in-memory fit (plans ``conventional``), the streaming fit
    over ``ArraySource`` at ``block_obs=65536`` and the in-memory fit with the
    plain versions (``use_kernel=False``) must select the same features, the
    first nine being {0..8}; the streaming ledger must read 10 passes and 160
-   blocks.
+   blocks.  One more (warm) in-memory fit under ``torch.profiler``: device
+   time by kernel and the device's busy share (also in phase 4).
 4. Wide (the repo's scaled Fig. 7 point): CorrAL 10,000 x 50,000, L=10,
    plans ``alternative``; kernels and plain versions select the same.
 5. Tall continuous (the Fig. 5/6 point with continuous values):
@@ -111,8 +122,11 @@ import torch  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, the SMs'
 # 32-bit non-tensor rate for the integer compare-and-count and float work,
 # and the dense bf16 tensor-core rate (attention's products in bf16).
+# The float32 rate counts a fused multiply-add as two operations; work that
+# is one instruction per operation (a compare, an add) issues at half of it.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+SCALAR_INSTR_PER_S = SCALAR_OPS_PER_S / 2
 BF16_OPS_PER_S = 989e12
 RTOL, ATOL = 1e-5, 1e-6
 # Row correlations: float32 sums over M in another order (tests/test_kernels.py:83).
@@ -151,6 +165,29 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, name_part: str, reps: int = 5) -> float | None:
+    """The kernel's own device time per launch (ms) under ``torch.profiler``:
+    the self device time of activities whose name contains ``name_part``
+    over ``reps`` calls, divided by the launches the trace recorded (it can
+    miss one).  Unlike ``cuda_ms`` it leaves out the wrapper's memset, casts
+    and launch gaps.  None if the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace can come back empty; try again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if name_part in e.key and e.self_device_time_total > 0]
+        launches = sum(e.count for e in rows)
+        if launches:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+    return None
+
+
 def bound(nbytes: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over HBM rate vs
     operations over their peak rate, whichever is larger."""
@@ -183,13 +220,16 @@ def phase0() -> str:
 
 # SASS instructions that show each redesigned kernel is built as designed:
 # flash attention's wgmma (HGMMA) fed by TMA tile loads (UTMALDG); the
-# correlation kernel's bulk row copies (UBLKCP) and 128-bit global loads.
-SASS_MARKS = {"flash_attention": ("HGMMA", "UTMALDG"), "pearson": ("UBLKCP", "LDG.E.128")}
+# correlation kernel's bulk row copies (UBLKCP) and 128-bit global loads; the
+# contingency kernels' 128- and 64-bit loads (16-byte words, and 8-byte words
+# on 1000-byte rows); the bin-code kernels' 128-bit loads.
+SASS_MARKS = {"flash_attention": ("HGMMA", "UTMALDG"), "pearson": ("UBLKCP", "LDG.E.128"),
+              "contingency": ("LDG.E.128", "LDG.E.64"), "bin_codes": ("LDG.E.128",)}
 
 
 def sass_check(libs) -> dict:
     """Count SASS_MARKS in each library with ``cuobjdump`` (next to ``nvcc``);
-    fails if flash attention has no HGMMA or no UTMALDG."""
+    fails if any mark is missing."""
     from repro_torch.kernels import _build
 
     tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
@@ -202,9 +242,9 @@ def sass_check(libs) -> dict:
                               text=True, check=True).stdout
         counts[name] = {m: len(re.findall(rf"\b{re.escape(m)}", sass)) for m in marks}
         log(f"[sass] {name}: {json.dumps(counts[name])}")
-    if not all(counts["flash_attention"].values()):
-        raise AssertionError(
-            f"flash attention SASS lacks wgmma or TMA: {counts['flash_attention']}")
+    missing = {n: [m for m, k in c.items() if k == 0] for n, c in counts.items()}
+    if any(missing.values()):
+        raise AssertionError(f"SASS lacks the designed instructions: {missing}")
     return counts
 
 
@@ -216,7 +256,7 @@ def phase1():
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.3f} s")
     for name, out in _build.build_log.items():
         log(f"[build] {name}:\n{out}")
-    for name in SASS_MARKS:  # -Xptxas -v of the two redesigned kernels, entry by entry
+    for name in SASS_MARKS:  # -Xptxas -v of the redesigned kernels, entry by entry
         for line in _build.build_log.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
@@ -286,12 +326,135 @@ def time_contingency(X, y, v, c, label, reps=10):
                        contingency_tables_cuda(X, y, v, c)):
         raise AssertionError(f"bincount yardstick disagrees at {label}")
     library_ms = cuda_ms(lambda: bincount_tables(X, y, v, c), max(2, reps // 5), 1)
+    device_ms = kernel_device_ms(lambda: contingency_tables_cuda(X, y, v, c), "contingency")
     nbytes = X.numel() * X.element_size() + y.numel() * y.element_size() + f * v * c * 4
     b_ms, b_by = bound(nbytes, m * f)
-    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=library_ms, bytes=nbytes)
+    rec = dict(shape=label, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+               library_ms=library_ms, bytes=nbytes)
     log(f"[time] contingency {label}: {json.dumps(rec)}")
     return rec
+
+
+def contingency_paths(dev) -> list:
+    """Every path ``contingency_plan`` picks, forced where the main path does
+    not reach it (the scalar width, shared tables, global atomics), held
+    bitwise to the plain version: five dtypes x both layouts x 4, 8, 32 and
+    256 cells, out-of-range values and targets, a ragged row count, unaligned
+    and strided views, and a counter that would wrap if flushed late."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.contingency import (
+        GLOBAL, SHARED, _forced_plan, contingency_tables_cuda)
+
+    sms = _build.sm_count(dev)
+    rng = np.random.default_rng(7)
+    seen = set()
+
+    def check(X, y, v, c, label, want=None, **force):
+        plan = _forced_plan(X, v, c, sms, **force)
+        got = contingency_tables_cuda(X, y, v, c, plan=plan)
+        if want is None:
+            want = ref.contingency_tables(X, y, v, c)
+        if not torch.equal(got, want):
+            diff = (got.long() - want.long()).abs().max().item()
+            raise AssertionError(f"contingency {label} {force} {plan}: counts differ (max {diff})")
+        seen.add((plan.path, plan.lanes_on_rows, plan.vec > 1))
+
+    m, f = 70000, 1000  # ragged against every row range; 1000-byte int8 rows
+    for dtype in (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64):
+        for v, c in ((2, 2), (2, 4), (16, 2), (16, 16)):
+            Xd = torch.as_tensor(rng.integers(-1, v + 1, (m, f))).to(dtype).to(dev)
+            yd = torch.as_tensor(rng.integers(-1, c + 1, m)).to(torch.int32).to(dev)
+            if dtype == torch.int32:
+                Xd[::13, ::7] = 2**31 - 1
+                yd[::17] = 2**31 - 1
+            want = ref.contingency_tables(Xd, yd, v, c)
+            for layout, X in (("row-major", Xd), ("feature-major", Xd.T.contiguous().T)):
+                label = f"{str(dtype)[6:]} {layout} V={v} C={c}"
+                for force in ({}, {"vec": 1}, {"path": SHARED}, {"path": GLOBAL}):
+                    check(X, yd, v, c, label, want, **force)
+            del Xd
+        log(f"[contingency] {str(dtype)[6:]}: every plan path x both layouts x 4/8/32/256 "
+            f"cells bitwise equal")
+    X8 = torch.as_tensor(rng.integers(-1, 3, (4099, 1024))).to(torch.int8).to(dev)
+    y8 = torch.as_tensor(rng.integers(-1, 3, 4099)).to(torch.int32).to(dev)
+    check(X8, y8, 2, 2, "int8 1024-byte rows")  # 16-byte loads on row-major int8
+    check(X8[1:, 8:], y8[1:], 2, 2, "int8 rows 8 bytes in")
+    check(X8[:, 3:], y8, 2, 2, "int8 unaligned base")
+    check(X8[:, 3:200:2], y8, 2, 2, "int8 strided features")
+    check(X8[:, 5:6], y8, 2, 2, "int8 one column")
+    check(X8.T.contiguous()[:, 1:].T, y8[1:], 2, 2, "int8 feature-major, rows 1 byte in")
+    # A byte-lane counter not flushed in time wraps: 300,000 rows of one
+    # (value, class) in every feature.
+    Xo = torch.zeros((300_000, 64), dtype=torch.int8, device=dev)
+    yo = torch.zeros(300_000, dtype=torch.int32, device=dev)
+    for layout, X in (("row-major", Xo), ("feature-major", Xo.T.contiguous().T)):
+        for force in ({}, {"vec": 1}):
+            check(X, yo, 2, 2, f"300000 equal rows {layout}", **force)
+    want = {(0, False, True), (1, False, True), (1, False, False),
+            (1, True, True), (1, True, False), (2, False, False), (2, True, False)}
+    if not want <= seen:
+        raise AssertionError(f"paths never reached: {sorted(want - seen)}")
+    log(f"[contingency] plan paths reached (path, lanes_on_rows, vector): {sorted(seen)}")
+    return sorted(seen)
+
+
+def bin_codes_paths(dev) -> list:
+    """Every path ``bin_codes_plan`` picks (4 or 1 features per lane, the
+    E > 64 kernel), forced where the main path does not reach it, bitwise
+    against the plain version: E in {1, 15, 31, 63, 70}, a row slice with a
+    stride, and an unaligned base."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.binning import _scalar_plan, bin_codes_cuda, bin_codes_plan
+
+    sms = _build.sm_count(dev)
+    rng = np.random.default_rng(8)
+    seen = set()
+    for e in (1, 15, 31, 63, 70):
+        X, edges = planted_block(rng, 20011, 1000, e)
+        Xd, ed = torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+        for label, V in (("", Xd), ("rows 3::2", Xd[3:15000:2]), ("base +4 bytes", Xd[:, 1:])):
+            ev = ed[1:] if V.shape[1] == 999 else ed
+            for plan in (bin_codes_plan(V, e, sms), _scalar_plan(V, e, sms)):
+                got = bin_codes_cuda(V, ev, plan=plan)
+                if not torch.equal(got, ref.bin_codes(V, ev)):
+                    raise AssertionError(f"bin_codes E={e} {label} {plan}: codes differ")
+                seen.add(plan.fpl)
+    if seen != {0, 1, 4}:
+        raise AssertionError(f"bin_codes paths reached: {sorted(seen)}")
+    log(f"[bin_codes] every plan path (features per lane {sorted(seen)}) bitwise equal")
+    return sorted(seen)
+
+
+# Contingency counts on int32 bin codes (bins=16): the binned fits' shapes.
+# The streaming fit counts each 65,536-row block against the class (C=2,
+# relevance) and against a selected feature's codes (C=16, redundancy); the
+# in-memory fit counts the whole 1M x 1000 code matrix.
+CODE_SHAPES = [
+    ("65536x1000 int32 codes V=16 C=2 (binned streaming relevance)", 65536, 2, 40),
+    ("65536x1000 int32 codes V=16 C=16 (binned streaming redundancy)", 65536, 16, 40),
+    ("1000000x1000 int32 codes V=16 C=16 (binned in-memory redundancy)", 1_000_000, 16, 10),
+]
+
+
+def phase2_codes(dev):
+    """Contingency counts on int32 codes: bitwise against the plain version
+    and timed at CODE_SHAPES."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.contingency import contingency_tables_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    timings = []
+    for label, m, c, reps in CODE_SHAPES:
+        X = torch.randint(0, 16, (m, 1000), generator=gen, device=dev, dtype=torch.int32)
+        y = torch.randint(0, c, (m,), generator=gen, device=dev, dtype=torch.int32)
+        if not torch.equal(contingency_tables_cuda(X, y, 16, c), ref.contingency_tables(X, y, 16, c)):
+            raise AssertionError(f"contingency {label}: counts differ")
+        log(f"[contingency] {label}: bitwise equal")
+        timings.append(time_contingency(X, y, 16, c, label, reps))
+        del X, y
+        torch.cuda.empty_cache()
+    return timings
 
 
 def time_mi(counts, label, reps=50):
@@ -370,6 +533,9 @@ def phase3(dev, launches, timings):
 
     kern, rec = run_path("tall_conventional",
                          lambda: MRMRSelector(10).fit(Xd, yd), dev, launches)
+    # Where a warm in-memory fit's time goes: the count kernel against the rest.
+    rec["trace"] = device_breakdown(lambda: MRMRSelector(10).fit(Xd, yd))
+    log(f"[tall] warm in-memory fit, traced: {json.dumps(rec['trace'])}")
     if kern.plan_.encoding != "conventional":
         raise AssertionError(f"tall fit planned {kern.plan_.encoding}")
     stream, srec = run_path(
@@ -414,6 +580,8 @@ def phase4(dev, launches, timings):
 
     kern, rec = run_path("wide_alternative",
                          lambda: MRMRSelector(10).fit(Xd, yd), dev, launches)
+    rec["trace"] = device_breakdown(lambda: MRMRSelector(10).fit(Xd, yd))
+    log(f"[wide] warm in-memory fit, traced: {json.dumps(rec['trace'])}")
     if kern.plan_.encoding != "alternative":
         raise AssertionError(f"wide fit planned {kern.plan_.encoding}")
     plain, prec = run_path(
@@ -512,10 +680,17 @@ def time_bins(Xd, ed, label, reps):
     Xt = Xd.T.contiguous()  # the library call's own layout, made outside the timing
     library_ms = cuda_ms(lambda: torch.searchsorted(ed, Xt, right=True), max(2, reps // 5), 1)
     del Xt
+    device_ms = kernel_device_ms(lambda: bin_codes_cuda(Xd, ed), "bin_codes")
+    # What reading and writing the same bytes takes on this card: one copy.
+    out = torch.empty((b, n), dtype=torch.int32, device=Xd.device)
+    copy_ms = cuda_ms(lambda: out.copy_(Xd.view(torch.int32)), max(2, reps // 5), 1)
+    del out
     nbytes = 2 * b * n * 4 + n * e * 4
-    b_ms, b_by = bound(nbytes, 2 * b * n * e)
-    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=library_ms, library="torch.searchsorted(right=True) on the "
+    # A compare and an add per edge and element, one instruction each.
+    b_ms, b_by = bound(nbytes, 2 * b * n * e, SCALAR_INSTR_PER_S)
+    rec = dict(shape=label, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+               copy_ms=copy_ms, library_ms=library_ms, library="torch.searchsorted(right=True) on the "
                "(N, B) transpose", bytes=nbytes)
     log(f"[time] bin_codes {label}: {json.dumps(rec)}")
     return rec
@@ -1008,6 +1183,9 @@ def main():
         return out
 
     count_err, mi_err = phase("2 contingency+mi", phase2, dev)
+    plan_paths = dict(contingency=phase("2 contingency plan paths", contingency_paths, dev),
+                      bin_codes=phase("2 bin_codes plan paths", bin_codes_paths, dev))
+    code_times = phase("2 contingency int32 codes", phase2_codes, dev)
     bins_err, bin_times = phase("2 bin_codes", phase2_bins, dev)
     corr_err, corr_times = phase("2 pearson_corr", phase2_pearson, dev)
     flash_err, flash_times = phase("2 flash_attention", phase2_flash, dev)
@@ -1037,7 +1215,7 @@ def main():
         # the streaming block: the shape launched most often
         kernel_entry("contingency_tables", "src/repro_torch/csrc/contingency.cu",
                      "src/repro/kernels/contingency.py:59", mi_paths, launches,
-                     count_err, timings[1], timings),
+                     count_err, timings[1], timings + code_times),
         kernel_entry("mi_scores", "src/repro_torch/csrc/mi_score.cu",
                      "src/repro/kernels/mi_score.py:40", mi_paths, launches,
                      mi_err, mi_times[0], mi_times),
@@ -1055,7 +1233,8 @@ def main():
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
-    log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass)))
+    log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
+                        plan_paths=plan_paths)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,20 +11,28 @@
 // so NaN encodes to 0 where searchsorted gives E. The host binner rejects
 // non-finite values when it fits, so no fitted path meets NaN.
 //
-// Bound on this card: bytes. Each element is read once (4 bytes) and its
-// code written once (4 bytes) against E compares and adds, with E = bins-1 =
-// 15..63: 8 bytes against at most ~130 operations per element, so HBM, not
-// the SMs, sets the floor: 0.157 ms for a 65,536 x 1000 block and 2.39 ms
-// for 1,000,000 x 1000 at 3.35 TB/s.
+// Bound on this card: bytes at the main path's bins=16 (E = 15). Each
+// element is read once (4 bytes) and its code written once (4 bytes):
+// 0.157 ms for a 65,536 x 1000 block and 2.39 ms for 1,000,000 x 1000 at
+// 3.35 TB/s. The compare-sum costs about 2E issue slots per element (a
+// compare and an add), ~32 at E = 15 against ~36 the SMs can issue per
+// element at the byte bound; at E = 63 (~128) the operations, not the
+// bytes, set the floor.
 //
-// What the design does about it:
-//   * A warp's 32 lanes take 32 neighbouring features of one row, so every
-//     load and store is one coalesced 128-byte transaction; 8 row lanes per
-//     block walk a chunk of rows, four rows in flight per thread.
-//   * Each thread keeps its feature's E edges in registers (E <= 64, the
-//     common bins= 16..65), loaded once per block, so the inner loop is
-//     register compares only: no shared-memory or cache traffic per element.
-//     Larger E reads the edges through the read-only cache instead.
+// What the design does about it (the path is picked on the host, by
+// kernels/binning.py::bin_codes_plan):
+//   * At E <= 16 each lane owns FPL = 4 neighbouring features and moves
+//     them with one 16-byte load per row and one streaming store of their
+//     codes, where X's rows start 16-byte aligned; a warp covers 128
+//     features of a row. Other views, and E > 16, take one feature per lane
+//     (4-byte loads and stores, any row stride).
+//   * The lane's FPL x ECAP edges sit in registers (at most 64), loaded once
+//     per work item, so the inner loop is register compares only; slots
+//     past E hold NaN, which compares false. E > 64 reads the edges through
+//     the read-only cache.
+//   * Eight rows in flight per thread, and a persistent grid (SMs x resident
+//     blocks) walking (feature tile, row range) work items in place of one
+//     ragged wave.
 //   * X is read through a row stride, so a ragged or padded streaming block,
 //     or a row slice, needs no copy.
 //
@@ -35,17 +43,38 @@
 
 namespace {
 
-constexpr int kFeatLanes = 32;  // features per block: one warp wide
-constexpr int kRowLanes = 8;    // row lanes per block
-constexpr int kUnroll = 4;      // rows in flight per thread
+constexpr int kWarp = 32;
+constexpr int kRows = 8;  // rows in flight per thread
 
 struct Args {
   const float* x;
   int64_t rows, feats, ld_x;
   const float* edges;  // (feats, num_edges) row-major
   int num_edges;
-  int64_t rows_per_chunk;
+  int64_t rows_per_item;
+  int64_t feat_items;
+  int64_t items;
   int32_t* out;  // (rows, feats) row-major
+};
+
+template <int FPL>
+struct Vec;
+template <>
+struct Vec<4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  }
+  static __device__ __forceinline__ void store(int32_t* p, const int32_t (&c)[4]) {
+    __stcs(reinterpret_cast<int4*>(p), make_int4(c[0], c[1], c[2], c[3]));
+  }
+};
+template <>
+struct Vec<1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(int32_t* p, const int32_t (&c)[1]) {
+    __stcs(p, c[0]);
+  }
 };
 
 // Slots past the real edges hold NaN, which compares false against every
@@ -58,44 +87,64 @@ __device__ __forceinline__ int32_t count_le(const float (&e)[ECAP], float v) {
   return c;
 }
 
-template <int ECAP>
-__global__ void bin_codes_reg_kernel(Args a) {
-  const int64_t n = (int64_t)blockIdx.x * kFeatLanes + threadIdx.x;
-  if (n >= a.feats) return;
-  float e[ECAP];
+template <int FPL, int ECAP>
+__global__ void __launch_bounds__(256, 2) bin_codes_reg_kernel(Args a) {
+  constexpr int FT = kWarp * FPL;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int64_t item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int64_t ft = item % a.feat_items, rt = item / a.feat_items;
+    const int64_t n0 = ft * FT + (int64_t)lane * FPL;
+    if (n0 >= a.feats) continue;  // FPL divides feats: a lane's features are all in or all out
+    float e[FPL][ECAP];
 #pragma unroll
-  for (int k = 0; k < ECAP; ++k) {
-    e[k] = k < a.num_edges ? a.edges[n * a.num_edges + k] : __int_as_float(0x7fc00000);
-  }
+    for (int j = 0; j < FPL; ++j)
+#pragma unroll
+      for (int k = 0; k < ECAP; ++k)
+        e[j][k] = k < a.num_edges ? __ldg(a.edges + (n0 + j) * a.num_edges + k)
+                                  : __int_as_float(0x7fc00000);
 
-  const int64_t r0 = (int64_t)blockIdx.y * a.rows_per_chunk;
-  const int64_t r1 = r0 + a.rows_per_chunk < a.rows ? r0 + a.rows_per_chunk : a.rows;
-  int64_t r = r0 + threadIdx.y;
-  for (; r + (kUnroll - 1) * kRowLanes < r1; r += kUnroll * kRowLanes) {
-    float v[kUnroll];
+    const int64_t r0 = rt * a.rows_per_item;
+    const int64_t r1 = r0 + a.rows_per_item < a.rows ? r0 + a.rows_per_item : a.rows;
+    int64_t r = r0 + warp;
+    const int64_t step = nwarps;
+    for (; r + (kRows - 1) * step < r1; r += kRows * step) {
+      float v[kRows][FPL];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = __ldg(a.x + (r + u * kRowLanes) * a.ld_x + n);
+      for (int u = 0; u < kRows; ++u) Vec<FPL>::load(a.x + (r + u * step) * a.ld_x + n0, v[u]);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      a.out[(r + u * kRowLanes) * a.feats + n] = count_le<ECAP>(e, v[u]);
+      for (int u = 0; u < kRows; ++u) {
+        int32_t c[FPL];
+#pragma unroll
+        for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[u][j]);
+        Vec<FPL>::store(a.out + (r + u * step) * a.feats + n0, c);
+      }
     }
-  }
-  for (; r < r1; r += kRowLanes) {
-    a.out[r * a.feats + n] = count_le<ECAP>(e, __ldg(a.x + r * a.ld_x + n));
+    for (; r < r1; r += step) {
+      float v[FPL];
+      Vec<FPL>::load(a.x + r * a.ld_x + n0, v);
+      int32_t c[FPL];
+#pragma unroll
+      for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[j]);
+      Vec<FPL>::store(a.out + r * a.feats + n0, c);
+    }
   }
 }
 
-__global__ void bin_codes_any_kernel(Args a) {
-  const int64_t n = (int64_t)blockIdx.x * kFeatLanes + threadIdx.x;
-  if (n >= a.feats) return;
-  const float* e = a.edges + n * a.num_edges;
-  const int64_t r0 = (int64_t)blockIdx.y * a.rows_per_chunk;
-  const int64_t r1 = r0 + a.rows_per_chunk < a.rows ? r0 + a.rows_per_chunk : a.rows;
-  for (int64_t r = r0 + threadIdx.y; r < r1; r += kRowLanes) {
-    const float v = __ldg(a.x + r * a.ld_x + n);
-    int32_t c = 0;
-    for (int k = 0; k < a.num_edges; ++k) c += __ldg(e + k) <= v ? 1 : 0;
-    a.out[r * a.feats + n] = c;
+__global__ void __launch_bounds__(256) bin_codes_any_kernel(Args a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int64_t item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const int64_t ft = item % a.feat_items, rt = item / a.feat_items;
+    const int64_t n = ft * kWarp + lane;
+    if (n >= a.feats) continue;
+    const float* e = a.edges + n * a.num_edges;
+    const int64_t r0 = rt * a.rows_per_item;
+    const int64_t r1 = r0 + a.rows_per_item < a.rows ? r0 + a.rows_per_item : a.rows;
+    for (int64_t r = r0 + warp; r < r1; r += nwarps) {
+      const float v = __ldg(a.x + r * a.ld_x + n);
+      int32_t c = 0;
+      for (int k = 0; k < a.num_edges; ++k) c += __ldg(e + k) <= v ? 1 : 0;
+      __stcs(a.out + r * a.feats + n, c);
+    }
   }
 }
 
@@ -103,26 +152,30 @@ __global__ void bin_codes_any_kernel(Args a) {
 
 // x: (rows, feats) float32, features contiguous, rows `ld_x` elements apart.
 // edges: contiguous (feats, num_edges) float32, each row sorted ascending.
-// out: contiguous (rows, feats) int32. The grid is (feature tiles of 32,
-// row_chunks), each chunk `rows_per_chunk` rows.
-extern "C" int bin_codes_launch(const void* x, int64_t rows, int64_t feats,
-                                int64_t ld_x, const void* edges, int num_edges,
-                                int64_t rows_per_chunk, int row_chunks, void* out,
-                                void* stream) {
+// out: contiguous (rows, feats) int32. fpl (features per lane: 4 or 1;
+// 0 for the E > 64 kernel), threads and the work split come from
+// kernels/binning.py::bin_codes_plan; a work item is a tile of 32 * fpl
+// features x rows_per_item rows.
+extern "C" int bin_codes_launch(const void* x, int64_t rows, int64_t feats, int64_t ld_x,
+                                const void* edges, int num_edges, int fpl, int threads,
+                                int64_t rows_per_item, int64_t feat_items, int64_t items,
+                                int grid, void* out, void* stream) {
   const Args a{static_cast<const float*>(x), rows, feats, ld_x,
-               static_cast<const float*>(edges), num_edges, rows_per_chunk,
-               static_cast<int32_t*>(out)};
-  const dim3 grid((unsigned)((feats + kFeatLanes - 1) / kFeatLanes), (unsigned)row_chunks);
-  const dim3 block(kFeatLanes, kRowLanes);
+               static_cast<const float*>(edges), num_edges, rows_per_item, feat_items,
+               items, static_cast<int32_t*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_edges <= 16) {
-    bin_codes_reg_kernel<16><<<grid, block, 0, s>>>(a);
-  } else if (num_edges <= 32) {
-    bin_codes_reg_kernel<32><<<grid, block, 0, s>>>(a);
-  } else if (num_edges <= 64) {
-    bin_codes_reg_kernel<64><<<grid, block, 0, s>>>(a);
+  if (fpl == 4 && num_edges <= 16) {
+    bin_codes_reg_kernel<4, 16><<<grid, threads, 0, s>>>(a);
+  } else if (fpl == 1 && num_edges <= 16) {
+    bin_codes_reg_kernel<1, 16><<<grid, threads, 0, s>>>(a);
+  } else if (fpl == 1 && num_edges <= 32) {
+    bin_codes_reg_kernel<1, 32><<<grid, threads, 0, s>>>(a);
+  } else if (fpl == 1 && num_edges <= 64) {
+    bin_codes_reg_kernel<1, 64><<<grid, threads, 0, s>>>(a);
+  } else if (fpl == 0) {
+    bin_codes_any_kernel<<<grid, threads, 0, s>>>(a);
   } else {
-    bin_codes_any_kernel<<<grid, block, 0, s>>>(a);
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

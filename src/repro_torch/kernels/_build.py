@@ -43,15 +43,17 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "contingency": {
         "contingency_tables_launch": (
-            _P, _I, _I64, _I64, _I64, _I64, _P, _I, _I, _I, _I, _I, _I64,
-            _I, _I, _P, _P,
+            _P, _I, _I64, _I64, _I64, _I64, _P, _I, _I, _I, _I, _I, _I, _I,
+            _I64, _I64, _I64, _I, _I, _P, _P,
         ),
     },
     "mi_score": {
         "mi_scores_launch": (_P, _I, _I64, _I, _I, _P, _P),
     },
     "bin_codes": {
-        "bin_codes_launch": (_P, _I64, _I64, _I64, _P, _I, _I64, _I, _P, _P),
+        "bin_codes_launch": (
+            _P, _I64, _I64, _I64, _P, _I, _I, _I, _I64, _I64, _I64, _I, _P, _P,
+        ),
     },
     "pearson": {
         "pearson_corr_launch": (
@@ -144,6 +146,21 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _LOADED[name] = lib
     return lib
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA ``device``, read once per device
+    (the persistent kernels size their grids from it on every launch)."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def check(err: int, what: str) -> None:

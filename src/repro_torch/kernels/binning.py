@@ -9,37 +9,83 @@ encodes to 0 (``searchsorted`` would give ``E``); the binner rejects
 non-finite values when it fits.  X is read through its row stride, so a row
 slice or a padded streaming block is encoded in place.
 
+:func:`bin_codes_plan` picks the kernel's path on the host: 4 features per
+lane with 16-byte loads and stores at E <= 16 (the main path's ``bins=16``)
+on 16-byte aligned rows, one feature per lane for other views and up to
+E = 64 (edges in registers), and the E > 64 kernel, which reads its edges
+through the read-only cache.
+
 The plain version is :func:`repro_torch.kernels.ref.bin_codes`.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 
-_FEAT_LANES, _ROW_LANES = 32, 8
-# Blocks to aim for: a few waves over the card's SMs.
-_BLOCKS_PER_SM = 8
-# Fewest rows a row lane walks in one chunk.
-_MIN_ROWS_PER_LANE = 16
+_WARP, _ROWS_IN_FLIGHT = 32, 8
+# Resident blocks per SM: __launch_bounds__(256, 2) of the register kernels
+# (up to 128 registers a thread for 64 edges); the E > 64 kernel is small.
+_BLOCKS_PER_SM = {True: 2, False: 4}
+_REG_EDGES_MAX = 64  # edges a lane keeps in registers, over its features
 
 
-def _row_chunks(rows: int, feats: int, sms: int) -> tuple[int, int]:
-    """-> (rows_per_chunk, row_chunks) for a (feature tiles, chunks) grid."""
-    feat_tiles = -(-feats // _FEAT_LANES)
-    want = -(-sms * _BLOCKS_PER_SM // feat_tiles)
-    most = max(1, -(-rows // (_ROW_LANES * _MIN_ROWS_PER_LANE)))
-    chunks = max(1, min(want, most, 65535))
-    per_chunk = -(-rows // chunks)
-    return per_chunk, -(-rows // per_chunk)
+class BinCodesPlan(NamedTuple):
+    fpl: int  # features per lane: 4 (16-byte loads), 1; 0: E > 64
+    threads: int
+    rows_per_item: int
+    feat_items: int
+    items: int
+    grid: int
 
 
-def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+def bin_codes_plan(X: torch.Tensor, num_edges: int, sms: int = 132) -> BinCodesPlan:
+    """The kernel path and persistent grid for float32 ``X`` (B, N), features
+    contiguous, against ``num_edges`` edges per feature.
+
+    A lane takes 4 features (16-byte loads and stores) at E <= 16 where
+    every row starts 16-byte aligned and N is a multiple of 4; otherwise one
+    feature (any row stride).  Plans are memoised by geometry.
+    """
+    return _plan(*X.shape, X.stride(0), X.data_ptr() % 16, num_edges, sms, False)
+
+
+def _scalar_plan(X: torch.Tensor, num_edges: int, sms: int = 132) -> BinCodesPlan:
+    """:func:`bin_codes_plan` held to one feature per lane: the tests reach
+    the scalar width on aligned views with it."""
+    return _plan(*X.shape, X.stride(0), X.data_ptr() % 16, num_edges, sms, True)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B, N, ld_x, align, num_edges, sms, scalar):
+    wide = align == 0 and (B == 1 or ld_x % 4 == 0) and N % 4 == 0
+    if num_edges > _REG_EDGES_MAX:
+        lanes = 0
+    elif num_edges <= 16 and wide and not scalar:
+        lanes = 4
+    else:
+        lanes = 1
+    threads = 256
+    capacity = sms * _BLOCKS_PER_SM[lanes > 0]
+    feat_items = -(-N // (_WARP * max(lanes, 1)))
+    rows_min = (threads // _WARP) * _ROWS_IN_FLIGHT
+    row_items = max(1, min(capacity // feat_items, -(-B // rows_min)))
+    rows_per_item = -(-B // row_items)
+    items = feat_items * -(-B // rows_per_item)
+    return BinCodesPlan(lanes, threads, rows_per_item, feat_items, items, min(items, capacity))
+
+
+def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor,
+                   plan: BinCodesPlan | None = None) -> torch.Tensor:
     """(B, N) float on the card x (N, E) sorted edges -> (B, N) int32 codes.
 
     A non-float32 X, or one whose feature axis is not contiguous, is first
     copied to a float32 row-major tensor (as the Pallas wrapper casts).
+    ``plan`` overrides :func:`bin_codes_plan` (the card tests force paths).
     """
     if not X.is_cuda:
         raise ValueError("bin_codes_cuda needs a CUDA tensor")
@@ -58,13 +104,12 @@ def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, N), dtype=torch.int32, device=X.device)
     if B == 0 or N == 0:
         return out
-    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    per_chunk, chunks = _row_chunks(B, N, sms)
+    if plan is None:
+        plan = bin_codes_plan(X, edges.shape[1], _build.sm_count(X.device))
     lib = _build.load("bin_codes")
     err = lib.bin_codes_launch(
-        X.data_ptr(), B, N, X.stride(0), edges.data_ptr(), edges.shape[1],
-        per_chunk, chunks, out.data_ptr(),
-        torch.cuda.current_stream(X.device).cuda_stream,
+        X.data_ptr(), B, N, X.stride(0), edges.data_ptr(), edges.shape[1], *plan,
+        out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "bin_codes_launch")
     bin_codes_cuda.launches += 1

@@ -42,6 +42,7 @@ from repro_torch import (
 from repro_torch.data import binning as tbinning
 from repro_torch.data.synthetic import continuous_dataset_np, corral_dataset_np
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.binning import _scalar_plan, bin_codes_plan
 
 RTOL, ATOL = 1e-5, 1e-6
 LEDGER = ("passes", "blocks_read", "bytes_read", "state_bytes")
@@ -142,6 +143,63 @@ class TestCodes:
             ops.bin_codes(torch.zeros((2, 4)), edges, use_kernel=True)
         with pytest.raises(ValueError, match="use_kernel"):
             ops.bin_codes(torch.zeros((2, 4)), edges, use_kernel="yes")
+
+
+class _RowsGeom:
+    """A row-major float32 (b, n) block's geometry without its memory."""
+
+    def __init__(self, b, n):
+        self.shape = (b, n)
+
+    def stride(self, dim=None):
+        return (self.shape[1], 1) if dim is None else (self.shape[1], 1)[dim]
+
+    def data_ptr(self):
+        return 1 << 20
+
+
+class TestBinCodesPlan:
+    """The kernel's host-side plan (``kernels/binning.py::bin_codes_plan``);
+    the kernel itself runs on the card only (``tests/test_torch_cuda.py``)."""
+
+    @staticmethod
+    def _covers(plan, b, n):
+        lanes = max(plan.fpl, 1)
+        assert plan.threads % 32 == 0 and 1 <= plan.grid <= plan.items
+        assert plan.items % plan.feat_items == 0
+        assert plan.feat_items * 32 * lanes >= n > (plan.feat_items - 1) * 32 * lanes
+        row_items = plan.items // plan.feat_items
+        assert plan.rows_per_item * row_items >= b > plan.rows_per_item * (row_items - 1)
+
+    @pytest.mark.parametrize("b,n", [(65536, 1000), (1_000_000, 1000), (65499, 1000),
+                                     (1, 1), (7, 70), (300, 4096)])
+    @pytest.mark.parametrize("e", [1, 15, 31, 63, 70])
+    def test_covers_every_row_and_feature(self, b, n, e):
+        plan = bin_codes_plan(_RowsGeom(b, n), e, sms=132)
+        self._covers(plan, b, n)
+
+    @pytest.mark.parametrize("e,want", [(1, 4), (15, 4), (16, 4), (17, 1), (31, 1), (32, 1),
+                                        (33, 1), (63, 1), (64, 1), (65, 0), (70, 0)])
+    def test_path_by_edges(self, e, want):
+        assert bin_codes_plan(torch.empty((512, 1000)), e).fpl == want
+
+    def test_views_take_the_scalar_width(self):
+        X = torch.empty((2000, 50))
+        assert bin_codes_plan(X[3:1500:2], 15).fpl == 1  # 600 bytes in: 8-aligned only
+        assert bin_codes_plan(X[3:1500:2, 1:], 15).fpl == 1  # 604 bytes in
+        assert bin_codes_plan(X[:, 1:], 15).fpl == 1
+        Z = torch.empty((2000, 48))
+        assert bin_codes_plan(Z[4:1500:2], 15).fpl == 4  # 768 bytes in, 384-byte rows
+        assert bin_codes_plan(Z[:, 2:], 15).fpl == 1  # 8 bytes in
+        Y = torch.empty((64, 1000))
+        assert bin_codes_plan(Y[:, :998], 15).fpl == 1  # N a multiple of 2, not 4
+        assert bin_codes_plan(Y[::3], 15).fpl == 4  # a row stride, aligned
+        assert _scalar_plan(Y, 15).fpl == 1
+        assert _scalar_plan(Y, 70).fpl == 0  # no register path past 64 edges
+
+    def test_grid_is_persistent(self):
+        plan = bin_codes_plan(_RowsGeom(1_000_000, 1000), 15, sms=132)
+        assert plan.grid <= 132 * 2 and plan.items >= plan.grid
 
 
 class TestBinnedSource:

@@ -31,8 +31,11 @@ from repro_torch import (
 from repro_torch.core.contingency import OOR
 from repro_torch.data.synthetic import continuous_dataset_np
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.binning import bin_codes_cuda
+from repro_torch.kernels.binning import _scalar_plan, bin_codes_cuda, bin_codes_plan
 from repro_torch.kernels.contingency import (
+    GLOBAL,
+    SHARED,
+    _forced_plan,
     conditional_tables_cuda,
     contingency_tables_cuda,
 )
@@ -114,6 +117,72 @@ def test_contingency_large_table_global_atomics(cuda):
     assert torch.equal(got.cpu(), ref.contingency_tables(X, y, 32, 64))
 
 
+_CELLS = {4: (2, 2), 8: (2, 4), 32: (16, 2), 256: (16, 16), 512: (16, 32)}
+_FORCED = ({}, {"vec": 1}, {"path": SHARED}, {"path": GLOBAL})
+
+
+def _check_plans(X, y, v, c, want=None, forced=_FORCED):
+    """Every forced plan of X against the plain version; -> paths reached."""
+    want = ref.contingency_tables(X.cpu(), y.cpu(), v, c) if want is None else want
+    seen = set()
+    for force in forced:
+        plan = _forced_plan(X, v, c, torch.cuda.get_device_properties(X.device)
+                            .multi_processor_count, **force)
+        got = contingency_tables_cuda(X, y, v, c, plan=plan)
+        assert torch.equal(got.cpu(), want), (force, plan)
+        seen.add((plan.path, plan.vec > 1))
+    return seen
+
+
+@pytest.mark.parametrize(
+    "dtype", [torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64]
+)
+@pytest.mark.parametrize("layout", ["row-major", "feature-major"])
+@pytest.mark.parametrize("cells", sorted(_CELLS))
+def test_contingency_every_plan_path(cuda, dtype, layout, cells):
+    # 2080 rows x 1000 features: ragged against every row range; 1000-byte
+    # int8 rows are 8-byte aligned only.
+    v, c = _CELLS[cells]
+    X, y = _data(2080 + 19, 1000, v + 1, c + 1, dtype, seed=cells, dirty=dtype != torch.uint8)
+    Xd = X.to(cuda)
+    if layout == "feature-major":
+        Xd = Xd.T.contiguous().T
+    seen = _check_plans(Xd, y.to(cuda), v, c, ref.contingency_tables(X, y, v, c))
+    assert (GLOBAL, False) in seen and any(p == SHARED for p, _ in seen)
+
+
+@pytest.mark.parametrize("view", ["rows 8 bytes in", "base 3 bytes in", "strided features",
+                                  "one column", "feature-major 1 row in", "1024-byte rows"])
+def test_contingency_unaligned_views(cuda, view):
+    X, y = _data(4099, 1024, 3, 3, torch.int8, seed=9, dirty=True)
+    Xd, yd = X.to(cuda), y.to(cuda)
+    Xv, yv = {
+        "rows 8 bytes in": (Xd[1:, 8:], yd[1:]),
+        "base 3 bytes in": (Xd[:, 3:], yd),
+        "strided features": (Xd[:, 3:200:2], yd),
+        "one column": (Xd[:, 5:6], yd),
+        "feature-major 1 row in": (Xd.T.contiguous()[:, 1:].T, yd[1:]),
+        "1024-byte rows": (Xd, yd),
+    }[view]
+    _check_plans(Xv, yv, 2, 2, ref.contingency_tables(Xv.cpu(), yv.cpu(), 2, 2))
+
+
+@pytest.mark.parametrize("layout", ["row-major", "feature-major"])
+def test_contingency_counter_overflow(cuda, layout):
+    # 300,000 rows of one (value, class) in every feature: a byte or 16-bit
+    # counter that is not flushed in time wraps and shows as a wrong count.
+    X = torch.zeros((300_000, 40), dtype=torch.int8, device=cuda)
+    X[:, 7] = 1
+    y = torch.zeros(300_000, dtype=torch.int32, device=cuda)
+    if layout == "feature-major":
+        X = X.T.contiguous().T
+    want = torch.zeros((40, 2, 2), dtype=torch.int32)
+    want[:, 0, 0] = 300_000
+    want[7] = 0
+    want[7, 1, 0] = 300_000
+    _check_plans(X, y, 2, 2, want, forced=({}, {"vec": 1}, {"path": SHARED}))
+
+
 def test_int64_targets_past_int32_count_nothing(cuda):
     X, y = _data(2000, 9, 2, 2, torch.int8, seed=6)
     y64 = y.to(torch.int64)
@@ -192,6 +261,25 @@ def test_bin_codes_strided_rows(cuda):
     got = bin_codes_cuda(Xd, torch.from_numpy(edges).to(cuda))
     assert torch.equal(got.cpu(), ref.bin_codes(torch.from_numpy(X[3:1500:2]),
                                                 torch.from_numpy(edges)))
+
+
+@pytest.mark.parametrize("e", [1, 15, 63, 70])
+@pytest.mark.parametrize("view", ["rows", "strided rows", "base 4 bytes in"])
+def test_bin_codes_every_plan_path(cuda, e, view):
+    X, edges = _binned_block(3001, 1000, e, seed=e + 3)
+    Xd, ed = torch.from_numpy(X).to(cuda), torch.from_numpy(edges).to(cuda)
+    if view == "strided rows":
+        Xd = Xd[3:2900:2]
+    elif view == "base 4 bytes in":
+        Xd, ed = Xd[:, 1:], ed[1:]
+    want = ref.bin_codes(Xd.cpu(), ed.cpu())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    seen = set()
+    for plan in (bin_codes_plan(Xd, e, sms), _scalar_plan(Xd, e, sms)):
+        assert torch.equal(bin_codes_cuda(Xd, ed, plan=plan).cpu(), want), plan
+        seen.add(plan.fpl)
+    assert seen == ({0} if e > 64 else {1} if view == "base 4 bytes in" else
+                    {4, 1} if e <= 16 else {1})
 
 
 def _corr_rows(f, t, m, seed):

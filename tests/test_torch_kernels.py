@@ -25,8 +25,14 @@ from repro.kernels.mi_score import mi_scores_pallas
 from repro_torch.core.contingency import OOR
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.contingency import (
-    _launch_geometry,
+    GLOBAL,
+    SHARED,
+    SMEM_MAX,
+    SWAR,
+    _forced_plan,
+    swar_tile,
     conditional_tables_cuda,
+    contingency_plan,
     contingency_tables_cuda,
 )
 from repro_torch.kernels.mi_score import mi_scores_cuda
@@ -196,12 +202,120 @@ class TestBuildAndGeometry:
          (10_000, 50_000, 4, True), (37, 3, 2048, False), (1, 1, 4, True)],
     )
     def test_launch_geometry_covers_every_row_and_feature(self, m, f, cells, lanes_on_rows):
-        tf, tr, rows_per_chunk, row_chunks, use_smem = _launch_geometry(
-            m, f, cells, lanes_on_rows, sms=132
-        )
-        threads = tf * tr
-        assert 32 <= threads <= 256 and threads % 32 == 0
-        assert tr == (32 if lanes_on_rows else 1)
-        assert rows_per_chunk * row_chunks >= m > rows_per_chunk * (row_chunks - 1)
-        assert row_chunks <= 65535
-        assert use_smem == (cells * threads * 4 <= 48 * 1024)
+        v, c = {4: (2, 2), 8: (2, 4), 2048: (32, 64)}[cells]
+        dtype = torch.int16 if cells == 2048 else torch.int8
+        X = _geometry(m, f, dtype, "feature-major" if lanes_on_rows else "row-major")
+        plan = contingency_plan(X, v, c, sms=132)
+        _assert_covers(plan, m, f, v, c)
+        assert plan.lanes_on_rows == lanes_on_rows
+        assert plan.path == (GLOBAL if cells == 2048 else SHARED if lanes_on_rows else SWAR)
+
+
+class _Geom:
+    """Shape, strides, element size and address of a tensor, without its
+    memory: the plan reads nothing else."""
+
+    def __init__(self, shape, strides, itemsize, ptr=1 << 20):
+        self.shape, self._strides, self._itemsize, self._ptr = shape, strides, itemsize, ptr
+
+    def stride(self):
+        return self._strides
+
+    def element_size(self):
+        return self._itemsize
+
+    def data_ptr(self):
+        return self._ptr
+
+
+def _geometry(m, f, dtype, layout, offset=0):
+    size = torch.empty((), dtype=dtype).element_size()
+    strides = (f, 1) if layout == "row-major" else (1, m)
+    return _Geom((m, f), strides, size, (1 << 20) + offset * size)
+
+
+def _assert_covers(plan, m, f, v=2, c=2):
+    """Every row and feature lies in exactly one work item; the launch fits."""
+    assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+    assert 0 <= plan.smem <= SMEM_MAX
+    if plan.path == GLOBAL:
+        assert plan.grid >= 1 and plan.vec == 1
+        return
+    assert 1 <= plan.grid <= plan.items
+    assert plan.items % plan.feat_items == 0
+    row_items = plan.items // plan.feat_items
+    assert plan.rows_per_item * row_items >= m > plan.rows_per_item * (row_items - 1)
+    if plan.lanes_on_rows:  # one feature per warp, rows in 32 x vec chunks
+        warps = plan.threads // 32
+        assert plan.feat_items * warps >= f > (plan.feat_items - 1) * warps
+        assert plan.rows_per_item % (32 * plan.vec) == 0
+    else:  # feature tiles, rows in groups of 32
+        tile = swar_tile(v, c) if plan.path == SWAR else 32 * plan.vec
+        assert plan.feat_items * tile >= f > (plan.feat_items - 1) * tile
+        assert plan.rows_per_item % 32 == 0
+
+
+class TestContingencyPlan:
+    @pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16, torch.int32,
+                                       torch.int64])
+    @pytest.mark.parametrize("layout", ["row-major", "feature-major"])
+    @pytest.mark.parametrize("m,f,v,c", [(65536, 1000, 2, 2), (1_000_000, 1000, 16, 16),
+                                         (70001, 333, 2, 4), (10_000, 50_000, 16, 2),
+                                         (5, 7, 16, 32), (3, 1, 2, 2)])
+    def test_covers_every_row_and_feature(self, dtype, layout, m, f, v, c):
+        plan = contingency_plan(_geometry(m, f, dtype, layout), v, c, sms=132)
+        _assert_covers(plan, m, f, v, c)
+
+    @pytest.mark.parametrize("m,f,dtype,layout,v,c,want", [
+        # CorrAL's 1000-byte rows: 8-byte words; 1024-byte rows and columns: 16.
+        (1_000_000, 1000, torch.int8, "row-major", 2, 2, (SWAR, False, 8)),
+        (65536, 1024, torch.int8, "row-major", 2, 4, (SWAR, False, 16)),
+        (10_000, 50_000, torch.int8, "feature-major", 2, 2, (SHARED, True, 16)),
+        (10_000, 50_000, torch.uint8, "row-major", 4, 2, (SHARED, False, 16)),
+        # int32 bin codes: shared tables, 16-byte loads.
+        (65536, 1000, torch.int32, "row-major", 16, 2, (SHARED, False, 4)),
+        (1_000_000, 1000, torch.int32, "row-major", 16, 16, (SHARED, False, 4)),
+        (65536, 1000, torch.int64, "feature-major", 16, 2, (SHARED, True, 2)),
+        (65536, 1000, torch.int8, "row-major", 16, 2, (SHARED, False, 8)),
+        # Beyond shared memory: global atomics (a feature-major warp's own
+        # 2048-cell table still fits).
+        (5000, 20, torch.int16, "row-major", 32, 64, (GLOBAL, False, 1)),
+        (5000, 20, torch.int16, "feature-major", 32, 64, (SHARED, True, 8)),
+        (5000, 20, torch.int16, "feature-major", 64, 512, (GLOBAL, True, 1)),
+    ])
+    def test_paths(self, m, f, dtype, layout, v, c, want):
+        plan = contingency_plan(_geometry(m, f, dtype, layout), v, c, sms=132)
+        assert (plan.path, plan.lanes_on_rows, plan.vec) == want
+
+    def test_shared_tables_fit_and_keep_threads(self):
+        # 256 cells x 128 features: 128 KB, one block of 1024 threads per SM.
+        plan = contingency_plan(_geometry(65536, 1000, torch.int32, "row-major"), 16, 16)
+        assert plan.smem == 256 * 128 * 4 and plan.threads == 1024
+        # 512 cells keep a shared table by halving the load width.
+        plan = contingency_plan(_geometry(65536, 1000, torch.int32, "row-major"), 16, 32)
+        assert (plan.path, plan.vec, plan.smem) == (SHARED, 2, 512 * 64 * 4)
+        assert plan.smem <= SMEM_MAX
+
+    def test_unaligned_views_take_the_scalar_width(self):
+        X = torch.zeros((3000, 257), dtype=torch.int8)
+        for view in (X[:, 3:200:2], X[:, 1:], X[1:], X[:, 5:6]):
+            plan = contingency_plan(view, 2, 2)
+            assert plan.vec == 1 and plan.path == SHARED
+        Y = torch.zeros((300, 1000), dtype=torch.int8)
+        assert contingency_plan(Y[1:], 2, 2).vec in (8, 16)  # 1000-byte rows, 8-byte aligned
+        assert contingency_plan(Y[:, 1:], 2, 2).vec == 1
+
+    def test_forced_paths(self):
+        X = _geometry(65536, 1000, torch.int8, "row-major")
+        assert _forced_plan(X, 2, 2, vec=1)[:3] == (SHARED, False, 1)
+        assert _forced_plan(X, 2, 2, path=SHARED).path == SHARED
+        assert _forced_plan(X, 2, 2, path=GLOBAL).path == GLOBAL
+        with pytest.raises(ValueError, match="SWAR"):
+            _forced_plan(_geometry(64, 8, torch.int32, "row-major"), 2, 2, path=SWAR)
+        with pytest.raises(ValueError, match="SWAR"):
+            _forced_plan(_geometry(10_000, 50_000, torch.int8, "feature-major"), 2, 2, path=SWAR)
+
+    def test_grid_follows_the_card(self):
+        X = _geometry(1_000_000, 1000, torch.int8, "row-major")
+        small, large = contingency_plan(X, 2, 2, sms=66), contingency_plan(X, 2, 2, sms=132)
+        assert small.grid < large.grid and large.grid <= 132 * 3
