@@ -8,15 +8,16 @@ Phases (each failure raises; the script exits non-zero and prints no result):
 0. The card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name.
    No CUDA device -> exit 1.
 1. Build every CUDA source of the port with ``nvcc`` (one process per
-   source, all started together); print the build time and ``-Xptxas -v``,
-   the register and spill lines of the four redesigned kernels' entries
-   (flash attention, correlation, contingency, bin codes) apart, and, where
-   ``cuobjdump`` sits next to ``nvcc``, count ``SASS_MARKS`` in their
-   libraries: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) for flash
-   attention, ``UBLKCP`` (bulk copies) and ``LDG.E.128`` for the
-   correlation, ``LDG.E.128`` and ``LDG.E.64`` for the contingency count,
-   ``LDG.E.128`` for the bin codes; a missing mark fails ("not checked"
-   where ``cuobjdump`` is missing).
+   source, all started together, and one more for the MI kernel's
+   yardsticks in ``tools/mi_score_baseline.cu``: its former design and an
+   empty kernel); print the build time and ``-Xptxas -v``, the register and
+   spill lines of the five kernels' entries apart, and, where ``cuobjdump``
+   sits next to ``nvcc``, count ``SASS_MARKS`` in their libraries:
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) for flash attention,
+   ``UBLKCP`` (bulk copies) and ``LDG.E.128`` for the correlation,
+   ``LDG.E.128`` and ``LDG.E.64`` for the contingency count, ``LDG.E.128``
+   for the bin codes, ``SHFL.BFLY`` (a table reduced across its lanes) for
+   MI; a missing mark fails ("not checked" where ``cuobjdump`` is missing).
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes: contingency counts bitwise equal (int8/int16/int32, the
    class-fused conditional target, a ragged row count, injected negatives and
@@ -26,10 +27,14 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    tables, global atomics; 4, 2 or 1 features per lane, E > 64), bitwise
    against the plain versions (five dtypes x both layouts x 4/8/32/256 cells,
    unaligned views, 300,000 equal rows); MI within ``rtol=1e-5, atol=1e-6``
-   (also at 16 values, and at every shape it is timed); bin codes bitwise equal
+   at ``MI_SHAPES`` in int32 and float32 (the main path's tables, an odd
+   shape, V=300 and V=13,000) and through the strided class-major view of
+   conditional stacks, all-zero tables exactly 0, equal tables bit-equal;
+   bin codes bitwise equal
    to the plain version and to the host binner (``QuantileBinner.transform``)
    at 65,536 x 1000 and a ragged 65,499 rows, E of 15 and 63, values planted
-   on edges; row correlations within ``rtol=2e-4, atol=2e-5`` at 50,000 x
+   on edges, and NaN (code E), +-inf and -0.0 on every bin-code path; row
+   correlations within ``rtol=2e-4, atol=2e-5`` at 50,000 x
    10,000 rows against T=1 and T=4, with a constant row and through the
    ``X.T`` view.  Times with CUDA events (and, for the contingency and
    bin-code kernels, the kernel's own device time from ``torch.profiler``,
@@ -80,6 +85,14 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    top-2 margin is below twice the logits error; then the 2048-token wave in
    float32 (24 GB of weights), whose kernel and plain tokens must be equal.
 
+After phase 7 the MI kernel is timed at the five table shapes of the main
+paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
+1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack): CUDA
+events and its own device time, the former design's on the same inputs, an
+empty kernel launched through the same ctypes path (the launch floor), the
+plain version, the bound (bytes, or ~10 instructions a cell and a logarithm a
+nonzero cell at the SFU rate) and the shape's launches on the main paths.
+
 Phase 2 also holds the flash-attention kernel to its plain version at the
 serve shapes (B=4, S=T=2048 and the ragged 1000, H=32, KV=4, D=128, bf16),
 a long prompt (B=1, S=T=8192), MHA, S=1, a ragged S, S < T causal and
@@ -127,6 +140,9 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 SCALAR_INSTR_PER_S = SCALAR_OPS_PER_S / 2
+# Special-function results (a logarithm is priced as one): 16 per SM and
+# clock, 132 SMs at the 1.98 GHz the float32 peak above assumes.
+SFU_PER_S = 132 * 16 * 1.98e9
 BF16_OPS_PER_S = 989e12
 RTOL, ATOL = 1e-5, 1e-6
 # Row correlations: float32 sums over M in another order (tests/test_kernels.py:83).
@@ -222,9 +238,11 @@ def phase0() -> str:
 # flash attention's wgmma (HGMMA) fed by TMA tile loads (UTMALDG); the
 # correlation kernel's bulk row copies (UBLKCP) and 128-bit global loads; the
 # contingency kernels' 128- and 64-bit loads (16-byte words, and 8-byte words
-# on 1000-byte rows); the bin-code kernels' 128-bit loads.
+# on 1000-byte rows); the bin-code kernels' 128-bit loads; the MI kernel's
+# butterfly shuffles (a table reduced across its lanes).
 SASS_MARKS = {"flash_attention": ("HGMMA", "UTMALDG"), "pearson": ("UBLKCP", "LDG.E.128"),
-              "contingency": ("LDG.E.128", "LDG.E.64"), "bin_codes": ("LDG.E.128",)}
+              "contingency": ("LDG.E.128", "LDG.E.64"), "bin_codes": ("LDG.E.128",),
+              "mi_score": ("SHFL.BFLY",)}
 
 
 def sass_check(libs) -> dict:
@@ -248,26 +266,82 @@ def sass_check(libs) -> dict:
     return counts
 
 
+BASELINE_SRC = ROOT / "tools" / "mi_score_baseline.cu"
+
+
+class Baseline:
+    """The yardsticks of ``tools/mi_score_baseline.cu``: the MI kernel's
+    former design (one thread per table), called as its wrapper called it,
+    and an empty kernel launched through the same ctypes path."""
+
+    def __init__(self, path):
+        import ctypes
+
+        self.lib = ctypes.CDLL(str(path))
+        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        self.lib.mi_scores_baseline_launch.argtypes = [P, I, I64, I, I, P, P]
+        self.lib.empty_launch.argtypes = [P, P]
+        for fn in (self.lib.mi_scores_baseline_launch, self.lib.empty_launch):
+            fn.restype = ctypes.c_int
+
+    def mi(self, counts):
+        """The former wrapper: (..., V, C) int32 or float32 counts flattened
+        to a contiguous (F, V, C) stack (a copy for a strided view), then
+        one launch."""
+        from repro_torch.kernels import _build
+
+        *lead, v, c = counts.shape
+        flat = counts.reshape(-1, v, c).contiguous()
+        out = torch.empty((flat.shape[0],), dtype=torch.float32, device=counts.device)
+        err = self.lib.mi_scores_baseline_launch(
+            flat.data_ptr(), 0 if flat.dtype == torch.int32 else 1, flat.shape[0], v, c,
+            out.data_ptr(), torch.cuda.current_stream(counts.device).cuda_stream)
+        _build.check(err, "mi_scores_baseline_launch")
+        return out.view(lead)
+
+    def empty(self, n, dev):
+        """What a wrapper costs with no work: one allocation, one launch."""
+        from repro_torch.kernels import _build
+
+        out = torch.empty((n,), dtype=torch.float32, device=dev)
+        err = self.lib.empty_launch(out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "empty_launch")
+        return out
+
+
 def phase1():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.3f} s")
+    # The yardsticks build beside the port's sources, one more nvcc at once.
+    base_lib = _build.BUILD / "tools" / "libmi_score_baseline.so"
+    base_lib.parent.mkdir(parents=True, exist_ok=True)
+    base = subprocess.Popen([_build.nvcc(), *_build.FLAGS, "-o", str(base_lib), str(BASELINE_SRC)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        libs = _build.build_all()
+        base_out, _ = base.communicate()
+    finally:
+        if base.poll() is None:
+            base.kill()
+            base.wait()
+    if base.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {BASELINE_SRC.name}:\n{base_out}")
+    log(f"[build] {len(libs)} libraries and the MI yardsticks in "
+        f"{time.perf_counter() - t0:.3f} s")
     for name, out in _build.build_log.items():
         log(f"[build] {name}:\n{out}")
     for name in SASS_MARKS:  # -Xptxas -v of the redesigned kernels, entry by entry
         for line in _build.build_log.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[ptxas] {name}: {line.strip()}")
-    return sass_check(libs)
+    return sass_check(libs), Baseline(base_lib)
 
 
 def phase2(dev):
     from repro_torch.core.contingency import OOR
     from repro_torch.kernels import ref
     from repro_torch.kernels.contingency import contingency_tables_cuda
-    from repro_torch.kernels.mi_score import mi_scores_cuda
 
     rng = np.random.default_rng(0)
     M, F = 65536, 1000
@@ -299,20 +373,51 @@ def phase2(dev):
             raise AssertionError(f"contingency {label}: counts differ (max {diff})")
         log(f"[contingency] {label}: {m}x{F} bitwise equal")
 
-    mi_err = 0.0
-    for shape in [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2), (1000, 16, 2)]:
-        counts = torch.as_tensor(rng.integers(0, 30000, shape)).to(torch.int32).to(dev)
-        counts[::11] = 0  # all-zero rows
-        got = mi_scores_cuda(counts)
-        want = ref.mi_scores(counts)
+    return count_err, phase2_mi(dev, rng)
+
+
+# MI at the main path's table shapes (tall and wide passes, the binned fits'
+# relevance and redundancy), the conditional stack's class slices, an odd
+# shape, and tables whose marginals outgrow shared memory (global scratch).
+MI_SHAPES = [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2), (1000, 16, 2), (1000, 16, 16),
+             (300, 5, 7), (8, 300, 40), (3, 13000, 2)]
+
+
+def phase2_mi(dev, rng):
+    """MI within RTOL/ATOL of the plain version at MI_SHAPES and through the
+    strided class-major view of a conditional stack; all-zero tables give 0
+    and equal tables bit-equal MI."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mi_score import mi_scores_cuda
+
+    def check(counts, label):
+        got, want = mi_scores_cuda(counts), ref.mi_scores(counts)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        if not torch.all(got[::11] == 0):
-            raise AssertionError("MI of an all-zero table is not 0")
-        mi_err = max(mi_err, (got - want).abs().max().item())
-        log(f"[mi] {shape}: within rtol={RTOL} atol={ATOL}, "
-            f"max abs err {(got - want).abs().max().item():.3e}")
-    return count_err, mi_err
+        e = (got - want).abs().max().item()
+        log(f"[mi] {label}: within rtol={RTOL} atol={ATOL}, max abs err {e:.3e}")
+        return got, e
+
+    err = 0.0
+    for shape in MI_SHAPES:
+        counts = torch.as_tensor(rng.integers(0, 30000, shape)).to(torch.int32).to(dev)
+        counts[::11] = 0  # all-zero tables
+        counts[1::11] = counts[2]  # equal tables, wherever they sit
+        for dtype in (torch.int32, torch.float32):
+            got, e = check(counts.to(dtype), f"{shape} {str(dtype)[6:]}")
+            err = max(err, e)
+            if not torch.all(got[::11] == 0):
+                raise AssertionError(f"MI of an all-zero table is not 0 at {shape}")
+            if not torch.all(got[1::11] == got[2]):
+                raise AssertionError(f"equal tables give unequal MI at {shape}")
+    for shape in [(1000, 2, 2, 2), (300, 16, 16, 2)]:  # (F, V, W, C) conditional stacks
+        stack = torch.as_tensor(rng.integers(0, 30000, shape)).to(torch.int32).to(dev)
+        view = stack.movedim(-1, -3)  # what cmi_from_counts hands the kernel
+        got, e = check(view, f"class-major view of a {shape} stack")
+        err = max(err, e)
+        if not torch.equal(got, mi_scores_cuda(view.contiguous())):
+            raise AssertionError(f"the strided view and its copy differ at {shape}")
+    return err
 
 
 def time_contingency(X, y, v, c, label, reps=10):
@@ -423,6 +528,24 @@ def bin_codes_paths(dev) -> list:
     if seen != {0, 1, 4}:
         raise AssertionError(f"bin_codes paths reached: {sorted(seen)}")
     log(f"[bin_codes] every plan path (features per lane {sorted(seen)}) bitwise equal")
+    # NaN takes the top code E as searchsorted sorts it; +-inf, -0.0 against
+    # a 0.0 edge: the 4- and 1-feature register paths and the cache kernel.
+    for e, fpl in ((15, 4), (63, 1), (70, 0)):
+        X, edges = planted_block(rng, 4099, 1000, e)
+        edges[:, e // 2] = 0.0
+        edges.sort(axis=1)
+        X[5::9, 3::7], X[6::9, 2::5], X[7::9, 4::6], X[8::9, 1::3] = np.nan, np.inf, -np.inf, -0.0
+        Xd, ed = torch.from_numpy(X).to(dev), torch.from_numpy(edges).to(dev)
+        plan = bin_codes_plan(Xd, e, sms)
+        if plan.fpl != fpl:
+            raise AssertionError(f"bin_codes E={e}: plan {plan}, want {fpl} features a lane")
+        got = bin_codes_cuda(Xd, ed, plan=plan)
+        if not (torch.equal(got, ref.bin_codes(Xd, ed))
+                and torch.equal(got.cpu(), ref.bin_codes(Xd.cpu(), ed.cpu()))):
+            raise AssertionError(f"bin_codes E={e}: NaN / inf / -0.0 codes differ")
+        if not torch.all(got[torch.isnan(Xd)] == e):
+            raise AssertionError(f"bin_codes E={e}: NaN does not take code {e}")
+    log("[bin_codes] NaN (code E), +-inf and -0.0 bitwise equal at E = 15, 63, 70")
     return sorted(seen)
 
 
@@ -457,22 +580,66 @@ def phase2_codes(dev):
     return timings
 
 
-def time_mi(counts, label, reps=50):
+def time_mi(counts, label, base, mi_tally, reps=200):
+    """The MI kernel at one shape: CUDA-event and own device time, the former
+    design's (``base``) on the same inputs, an empty launch (the floor), the
+    plain version, the bound, and the launches of this shape on the main
+    paths (``mi_tally``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.mi_score import mi_scores_cuda
 
-    f, v, c = counts.shape
+    *lead, v, c = counts.shape
+    tables = int(np.prod(lead))
     got, want = mi_scores_cuda(counts), ref.mi_scores(counts)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(base.mi(counts), want, rtol=RTOL, atol=ATOL)
     err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: mi_scores_cuda(counts), reps)
-    plain_ms = cuda_ms(lambda: ref.mi_scores(counts), reps)
-    nbytes = counts.numel() * counts.element_size() + f * 4
-    b_ms, b_by = bound(nbytes, f * v * c * (v + 8))
-    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None, bytes=nbytes, max_abs_err=err)
+    # In turns (new, old, old, new): host work sets these times at small
+    # shapes, and the host's pace drifts within a run.
+    new_fn, old_fn = (lambda: mi_scores_cuda(counts)), (lambda: base.mi(counts))
+    turns = [cuda_ms(fn, reps, 10) for fn in (new_fn, old_fn, old_fn, new_fn)]
+    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    device_ms = kernel_device_ms(new_fn, "mi_tables_")
+    old_device_ms = kernel_device_ms(old_fn, "mi_rows_kernel")
+    empty_ms = cuda_ms(lambda: base.empty(tables, counts.device), reps, 10)
+    empty_device_ms = kernel_device_ms(lambda: base.empty(tables, counts.device), "empty_kernel")
+    plain_ms = cuda_ms(lambda: ref.mi_scores(counts), reps // 4)
+    nbytes = counts.numel() * counts.element_size() + tables * 4
+    # ~10 instructions a cell (convert, three sums, two divisions, product,
+    # clamps, multiply); one logarithm a nonzero cell, at the SFU rate.
+    logs = int((counts > 0).sum())
+    b_ms, b_by = max(bound(nbytes, 10 * counts.numel(), SCALAR_INSTR_PER_S),
+                     bound(nbytes, logs, SFU_PER_S))
+    rec = dict(shape=label, ms=ms, kernel_device_ms=device_ms, old_ms=old_ms,
+               old_kernel_device_ms=old_device_ms, empty_launch_ms=empty_ms,
+               empty_kernel_device_ms=empty_device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, bytes=nbytes, logs=logs, max_abs_err=err,
+               main_path_launches=mi_tally.get(tuple(counts.shape), 0))
     log(f"[time] mi {label}: {json.dumps(rec)}")
     return rec
+
+
+@contextlib.contextmanager
+def tally_mi_shapes(tally):
+    """While open, count the MI kernel's launches by table shape (into
+    ``tally``) at the dispatcher; the wrapper's own counter is untouched."""
+    from repro_torch.kernels import ops
+
+    inner = ops.mi_scores_cuda
+
+    def counted(counts):
+        tally[tuple(counts.shape)] = tally.get(tuple(counts.shape), 0) + 1
+        return inner(counts)
+
+    ops.mi_scores_cuda = counted
+    try:
+        yield
+    finally:
+        ops.mi_scores_cuda = inner
+
+
+# Launches of the MI kernel on the main paths, by table shape.
+MI_TALLY: dict = {}
 
 
 def run_path(name, fn, dev, launches):
@@ -484,8 +651,9 @@ def run_path(name, fn, dev, launches):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    res = fn()
-    torch.cuda.synchronize()
+    with tally_mi_shapes(MI_TALLY):
+        res = fn()
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
     launches[name] = counts
@@ -1174,7 +1342,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sass = phase1()
+    sass, base = phase1()
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -1202,11 +1370,19 @@ def main():
     fits += phase("6 wide pearson", phase6, dev, launches)
     serves, serve_check = phase("7 yi-6b serve", phase7, dev, launches)
     rng = np.random.default_rng(1)
-    mi_block = torch.as_tensor(rng.integers(0, 30000, (1000, 2, 2))).to(torch.int32).to(dev)
-    mi_times = [time_mi(mi_block, "1000x2x2 (tall pass)"),
-                time_mi(mi_block.repeat(50, 1, 1), "50000x2x2 (wide pass)"),
-                time_mi(torch.as_tensor(rng.integers(0, 30000, (1000, 16, 2)))
-                        .to(torch.int32).to(dev), "1000x16x2 (tall binned pass)")]
+
+    def tables(*shape):
+        return torch.as_tensor(rng.integers(0, 30000, shape)).to(torch.int32).to(dev)
+
+    mi_block = tables(1000, 2, 2)
+    mi_times = [time_mi(t, label, base, MI_TALLY) for t, label in [
+        (mi_block, "1000x2x2 (tall pass)"),
+        (mi_block.repeat(50, 1, 1), "50000x2x2 (wide pass)"),
+        (tables(1000, 16, 2), "1000x16x2 (binned relevance)"),
+        (tables(1000, 16, 16), "1000x16x16 (binned redundancy)"),
+        (tables(1000, 2, 2, 2).movedim(-1, -3),
+         "class-major view of a 1000x2x2x2 stack (jmi/cmim redundancy)")]]
+    log(f"[mi] main-path launches by table shape: {json.dumps({str(k): n for k, n in MI_TALLY.items()})}")
 
     mi_err = max([mi_err] + [r["max_abs_err"] for r in mi_times])
     mi_paths = ("tall_conventional", "tall_streaming", "wide_alternative",

@@ -32,7 +32,15 @@ through ``csrc/flash_attention.cu``:
 """
 
 from repro_torch.core.criteria import (
+    CIFECriterion,
+    CMIMCriterion,
     Criterion,
+    ICAPCriterion,
+    JMICriterion,
+    MIDCriterion,
+    MIFSCriterion,
+    MIQCriterion,
+    MaxRelCriterion,
     available_criteria,
     register_criterion,
     resolve_criterion,
@@ -55,6 +63,7 @@ from repro_torch.core.selector import (
     SelectionPlan,
     available_encodings,
     plan_selection,
+    register_engine,
 )
 from repro_torch.core.streaming import mrmr_streaming
 from repro_torch.data.binning import (
@@ -71,15 +80,26 @@ from repro_torch.data.sources import (
     as_source,
 )
 
+# The JAX package's version: the port follows its API.
+__version__ = "1.6.0"
+
 __all__ = [
     "ArraySource",
     "BinnedSource",
+    "CIFECriterion",
+    "CMIMCriterion",
     "CorralSource",
     "Criterion",
     "DataSource",
+    "ICAPCriterion",
+    "JMICriterion",
+    "MIDCriterion",
+    "MIFSCriterion",
+    "MIQCriterion",
     "MIScore",
     "MRMRResult",
     "MRMRSelector",
+    "MaxRelCriterion",
     "NpySource",
     "PearsonMIScore",
     "QuantileBinner",
@@ -98,5 +118,7 @@ __all__ = [
     "pearson_rows",
     "plan_selection",
     "register_criterion",
+    "register_engine",
     "resolve_criterion",
+    "__version__",
 ]

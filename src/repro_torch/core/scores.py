@@ -45,8 +45,9 @@ def mi_from_counts(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
       (...,) float32 MI. Zero cells contribute zero (lim p->0 of p log p).
     """
     lead, (v, c) = counts.shape[:-2], counts.shape[-2:]
-    flat = counts.reshape(-1, v, c)
-    return ops.mi_scores(flat, use_kernel).reshape(lead)
+    if counts.dim() not in (3, 4):  # the kernel reads one or two leading axes in place
+        counts = counts.reshape(-1, v, c)
+    return ops.mi_scores(counts, use_kernel).reshape(lead)
 
 
 def cmi_from_counts(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
@@ -62,7 +63,9 @@ def cmi_from_counts(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
     Returns:
       (...,) float32 conditional MI in nats.
     """
-    per_class = mi_from_counts(counts.movedim(-1, -3), use_kernel)  # (..., C)
+    # (..., C) per-class MI of the class-major view, which the kernel reads
+    # in place.
+    per_class = mi_from_counts(counts.movedim(-1, -3), use_kernel)
     cls_mass = counts.sum(dim=(-3, -2)).to(torch.float32)  # (..., C)
     total = torch.clamp_min(cls_mass.sum(dim=-1, keepdim=True), 1.0)
     return (per_class * cls_mass / total).sum(dim=-1)

@@ -69,21 +69,55 @@ class SelectionPlan:
                                       # feature (None = data used as given)
 
 
+def _axes(axes) -> tuple:
+    """Mesh axis names as a tuple (a bare string names one axis)."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _check_single_device(devices=None, obs_axes=("data",), feat_axes=("model",)) -> None:
+    """Refuse the JAX package's mesh knobs beyond one device: ``devices`` of
+    ``None`` or 1 and the default axis names plan what one device runs; any
+    other value raises ``NotImplementedError`` naming the knob (the mesh
+    engines are not yet ported)."""
+    unported = dict(
+        devices=devices not in (None, 1),
+        obs_axes=_axes(obs_axes) != ("data",),
+        feat_axes=_axes(feat_axes) != ("model",),
+    )
+    for knob, is_set in unported.items():
+        if is_set:
+            raise NotImplementedError(
+                f"{knob}=... beyond one device is not yet ported to repro_torch"
+            )
+
+
 def plan_selection(
     shape: tuple,
+    devices=None,
     score: ScoreFn | None = None,
     *,
+    obs_axes=("data",),
+    feat_axes=("model",),
     incremental: bool = True,
+    block: int = 64,
     criterion: Criterion | str = "mid",
     device="cuda",
 ) -> SelectionPlan:
     """Pick the encoding for a dataset shape (paper §III, one device).
 
+    The signature is the JAX package's, with the port's ``device`` last.
+
     Args:
       shape: (observations, features) of the conventional-orientation input.
+      devices: the device budget; ``None`` or 1 (one device) only.
       score: the score spec.  Non-MI scores force the alternative encoding
         (the only layout that supports arbitrary scores, §IV.D).
+      obs_axes, feat_axes: mesh axis names; only the defaults (no mesh).
+      block: accepted for the JAX signature; the kernels pick their own
+        tiling (the plain count's block is ``MIScore.block``).
+      device: where the plan runs.
     """
+    _check_single_device(devices, obs_axes, feat_axes)
     criterion = resolve_criterion(criterion)
     m, n = int(shape[0]), int(shape[1])
     mi_ok = score is None or isinstance(score, MIScore)
@@ -162,6 +196,21 @@ def _fit_alternative(X, y, *, num_select, plan) -> MRMRResult:
 # the selector
 # ---------------------------------------------------------------------------
 
+def _resolve_hosts(hosts) -> int:
+    """The process count a fit spans: ``None``/1 one process, ``"auto"``
+    the ``torch.distributed`` world size (1 when no process group is up),
+    an int as given."""
+    if hosts in (None, 1):
+        return 1
+    if hosts == "auto":
+        dist = torch.distributed
+        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    h = int(hosts)
+    if h < 1:
+        raise ValueError(f"hosts must be >= 1 or 'auto', got {hosts!r}")
+    return h
+
+
 @dataclasses.dataclass
 class MRMRSelector:
     """mRMR feature selection, scikit-learn style, on one device.
@@ -172,6 +221,9 @@ class MRMRSelector:
     features).  A :class:`~repro_torch.data.sources.DataSource` passed
     alone runs the ``"streaming"`` engine block by block.
 
+    The fields are the JAX package's, in its order (a positional call
+    means the same in both), with the port's ``device`` after them.
+
     Args:
       num_select: L, number of features to pick (``1 <= L <= features``).
       score: a ``ScoreFn``; None resolves exact MI with cardinalities
@@ -180,36 +232,47 @@ class MRMRSelector:
       encoding: "auto" (paper §III rule) or one of ``available_encodings()``.
       incremental: False reproduces the paper's per-iteration redundancy
         recomputation; True carries the criterion's running fold state.
+      block: accepted for the JAX signature; the kernels pick their own
+        tiling (the plain count's block is ``MIScore.block``).
       block_obs: observations per streaming block.
       prefetch: streaming host blocks staged ahead ("auto": 2 on CUDA).
       criterion: the greedy objective — a registered name or a Criterion.
-      batch_candidates: streaming redundancy vectors speculated per pass.
-      device: where the fit runs; "cuda" (the default) raises without a
-        card, "cpu" runs the plain PyTorch versions.
       bins: discretise continuous features into this many equal-frequency
         bins (one streaming quantile-sketch pass on the host, memoised by
         the data's fingerprint) and select with exact discrete MI.  Ignored
         for discrete data and for an explicit non-MI score; the resolved
         ``plan_.bins`` records what ran.  Streaming fits encode each block
         on the card; in-memory fits encode the whole matrix on the card once.
-      mesh, hosts, spill_dir, readahead: not yet ported; setting one
-        raises ``NotImplementedError``.
+      batch_candidates: streaming redundancy vectors speculated per pass.
+      hosts: ``None``, 1 or ``"auto"`` (the ``torch.distributed`` world
+        size, 1 on one process); more than one process is not yet ported.
+      device: where the fit runs; "cuda" (the default) raises without a
+        card, "cpu" runs the plain PyTorch versions.
+      mesh, spill_dir, spill_budget_bytes, readahead: not yet ported; and
+        ``devices``, ``obs_axes``, ``feat_axes`` only as one device (None or
+        1, the default axes).  Any other value raises
+        ``NotImplementedError`` naming the knob.
     """
 
     num_select: int
     score: ScoreFn | None = None
     encoding: str = "auto"
+    mesh: object = None
+    devices: object = None
+    obs_axes: tuple | str = ("data",)
+    feat_axes: tuple | str = ("model",)
     incremental: bool = True
+    block: int = 64
     block_obs: int = 65536
     prefetch: int | str = "auto"
     criterion: Criterion | str = "mid"
-    batch_candidates: int = 1
-    device: str = "cuda"
-    mesh: object = None
-    hosts: object = None
     bins: int | None = None
+    batch_candidates: int = 1
     spill_dir: str | None = None
+    spill_budget_bytes: int | None = None
     readahead: int = 0
+    hosts: int | str | None = None
+    device: str = "cuda"
 
     selected_: np.ndarray | None = None
     gains_: np.ndarray | None = None
@@ -220,10 +283,12 @@ class MRMRSelector:
     plan_: SelectionPlan | None = None
 
     def __post_init__(self):
+        _check_single_device(self.devices, self.obs_axes, self.feat_axes)
         unported = dict(
             mesh=self.mesh is not None,
-            hosts=self.hosts not in (None, 1),
+            hosts=_resolve_hosts(self.hosts) > 1,
             spill_dir=self.spill_dir is not None,
+            spill_budget_bytes=self.spill_budget_bytes is not None,
             readahead=bool(self.readahead),
         )
         for knob, is_set in unported.items():
@@ -337,6 +402,14 @@ class MRMRSelector:
 
     def _finish_fit(self, res: MRMRResult, plan: SelectionPlan,
                     n_features: int) -> "MRMRSelector":
+        # An engine registered from outside may leave its provenance empty:
+        # fill both names in from the plan that drove the fit.
+        if not res.engine:
+            res = dataclasses.replace(res, engine=plan.encoding)
+        if not res.criterion:
+            res = dataclasses.replace(
+                res, criterion=resolve_criterion(plan.criterion).name
+            )
         self.selected_ = res.selected.cpu().numpy()
         self.gains_ = res.gains.cpu().numpy()
         self.scores_ = None if res.relevance is None else res.relevance.cpu().numpy()
@@ -429,7 +502,7 @@ class MRMRSelector:
         mrmr_mod.check_conditional_support(score, crit)
         if self.encoding == "auto":
             plan = plan_selection(
-                X.shape, score, incremental=self.incremental,
+                X.shape, score=score, incremental=self.incremental,
                 criterion=crit, device=self._device,
             )
         else:

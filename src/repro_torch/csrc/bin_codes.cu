@@ -6,10 +6,12 @@
 // in-memory binned fit, which encodes the whole matrix once.
 //
 // The compare-sum equals searchsorted(edges[n], x, side="right") for every
-// finite x, ties included (x equal to an edge goes to the upper bin, and
-// -0.0 compares equal to 0.0). It differs for NaN: every compare is false,
-// so NaN encodes to 0 where searchsorted gives E. The host binner rejects
-// non-finite values when it fits, so no fitted path meets NaN.
+// x, ties included (x equal to an edge goes to the upper bin, -0.0 compares
+// equal to 0.0, +inf passes every edge, -inf none). NaN compares false
+// against every edge, where searchsorted sorts it past them all: one select
+// after the compare-sum gives it E, as the host binner and the plain
+// version do. A fitted binner handed to BinnedSource meets NaN without the
+// sketch pass that would refuse it, so NaN does reach this kernel.
 //
 // Bound on this card: bytes at the main path's bins=16 (E = 15). Each
 // element is read once (4 bytes) and its code written once (4 bytes):
@@ -78,13 +80,15 @@ struct Vec<1> {
 };
 
 // Slots past the real edges hold NaN, which compares false against every
-// value (+inf and NaN included), so the count needs no bound check.
+// value (+inf and NaN included), so the count needs no bound check. A NaN
+// value counts no edge either and takes the top code, E, after the sum
+// (counting !(v < edge) instead would count every NaN slot too).
 template <int ECAP>
-__device__ __forceinline__ int32_t count_le(const float (&e)[ECAP], float v) {
+__device__ __forceinline__ int32_t count_le(const float (&e)[ECAP], float v, int num_edges) {
   int32_t c = 0;
 #pragma unroll
   for (int k = 0; k < ECAP; ++k) c += e[k] <= v ? 1 : 0;
-  return c;
+  return v != v ? num_edges : c;
 }
 
 template <int FPL, int ECAP>
@@ -115,7 +119,7 @@ __global__ void __launch_bounds__(256, 2) bin_codes_reg_kernel(Args a) {
       for (int u = 0; u < kRows; ++u) {
         int32_t c[FPL];
 #pragma unroll
-        for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[u][j]);
+        for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[u][j], a.num_edges);
         Vec<FPL>::store(a.out + (r + u * step) * a.feats + n0, c);
       }
     }
@@ -124,7 +128,7 @@ __global__ void __launch_bounds__(256, 2) bin_codes_reg_kernel(Args a) {
       Vec<FPL>::load(a.x + r * a.ld_x + n0, v);
       int32_t c[FPL];
 #pragma unroll
-      for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[j]);
+      for (int j = 0; j < FPL; ++j) c[j] = count_le<ECAP>(e[j], v[j], a.num_edges);
       Vec<FPL>::store(a.out + r * a.feats + n0, c);
     }
   }
@@ -143,7 +147,7 @@ __global__ void __launch_bounds__(256) bin_codes_any_kernel(Args a) {
       const float v = __ldg(a.x + r * a.ld_x + n);
       int32_t c = 0;
       for (int k = 0; k < a.num_edges; ++k) c += __ldg(e + k) <= v ? 1 : 0;
-      __stcs(a.out + r * a.feats + n, c);
+      __stcs(a.out + r * a.feats + n, v != v ? a.num_edges : c);
     }
   }
 }

@@ -48,7 +48,10 @@ SIGNATURES = {
         ),
     },
     "mi_score": {
-        "mi_scores_launch": (_P, _I, _I64, _I, _I, _P, _P),
+        "mi_scores_launch": (
+            _P, _I, _I64, _I64, _I64, _I64, _I64, _I64, _I, _I, _I, _I, _I, _I,
+            _P, _P, _P,
+        ),
     },
     "bin_codes": {
         "bin_codes_launch": (

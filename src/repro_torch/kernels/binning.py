@@ -4,9 +4,9 @@
 The kernel (``csrc/bin_codes.cu``) maps a float32 block ``X (B, N)`` against
 per-feature sorted edges ``(N, E)`` to int32 codes, ``code[b, n] = #{k :
 edges[n, k] <= X[b, n]}`` — ``searchsorted(side="right")``, bitwise equal to
-the host binner (``QuantileBinner.transform``) for every finite value.  NaN
-encodes to 0 (``searchsorted`` would give ``E``); the binner rejects
-non-finite values when it fits.  X is read through its row stride, so a row
+the host binner (``QuantileBinner.transform``) for every value: ties go
+up, ``-0.0`` equals ``0.0``, and NaN takes the top code ``E`` as
+``searchsorted`` sorts it.  X is read through its row stride, so a row
 slice or a padded streaming block is encoded in place.
 
 :func:`bin_codes_plan` picks the kernel's path on the host: 4 features per

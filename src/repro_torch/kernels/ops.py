@@ -67,7 +67,7 @@ def conditional_tables(
 
 
 def mi_scores(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
-    """(F, V, C) counts -> (F,) float32 MI (nats)."""
+    """(F, V, C) or (A, B, V, C) counts -> (F,) or (A, B) float32 MI (nats)."""
     if _decide(use_kernel, counts):
         return mi_scores_cuda(counts)
     return ref.mi_scores(counts)

@@ -38,7 +38,7 @@ def conditional_tables(
 
 
 def mi_scores(counts: torch.Tensor) -> torch.Tensor:
-    """(F, V, C) counts -> (F,) float32 mutual information in nats.
+    """(..., V, C) counts -> (...) float32 mutual information in nats.
 
     The total is clamped to at least 1 and zero cells add 0; the sums run
     over the class axis first, then over the value axis.

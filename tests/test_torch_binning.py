@@ -311,6 +311,34 @@ class TestBinnedStreaming:
         np.testing.assert_allclose(a.gains_, b.gains_, rtol=RTOL, atol=ATOL)
 
 
+def test_nan_rows_of_a_fitted_binner_take_the_top_code_like_jax(cont):
+    """A fitted binner handed to BinnedSource skips the sketch and its
+    finiteness check, so NaN reaches the encode: it takes code E (the top
+    bin, as searchsorted sorts it) in the port's plain codes, the host
+    binner and the JAX package, and the port's streamed and in-memory fits
+    select what the JAX fit selects, relevance and gains included."""
+    X, y = cont
+    binner = QuantileBinner(8).fit(ArraySource(X, y))
+    jbinner = jbinning.QuantileBinner(8).fit(jsources.ArraySource(X, y))
+    Xn = X.copy()
+    Xn[::3, 1] = np.nan  # a third of one relevant column
+    codes = ops.bin_codes(torch.from_numpy(Xn), torch.from_numpy(binner.edges_))
+    jcodes, jlabels = jbinning.BinnedSource(
+        jsources.ArraySource(Xn, y), binner=jbinner).materialize(700)
+    np.testing.assert_array_equal(codes.numpy(), jcodes)
+    np.testing.assert_array_equal(codes.numpy(), binner.transform(Xn))
+    assert np.all(codes.numpy()[::3, 1] == 7)
+    j = JSelector(5, devices=1).fit(
+        jbinning.BinnedSource(jsources.ArraySource(Xn, y), binner=jbinner))
+    streamed = MRMRSelector(5, block_obs=700, device="cpu").fit(
+        BinnedSource(ArraySource(Xn, y), binner=binner))
+    in_memory = MRMRSelector(5, device="cpu").fit(codes, torch.from_numpy(jlabels))
+    for t in (streamed, in_memory):
+        np.testing.assert_array_equal(t.selected_, j.selected_)
+        np.testing.assert_allclose(t.scores_, j.scores_, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(t.gains_, j.gains_, rtol=RTOL, atol=ATOL)
+
+
 class TestSelectorGuards:
     def test_explicit_score_num_values_guard(self, cont):
         X, y = cont

@@ -5,8 +5,10 @@ where torch sees no CUDA device.  On a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Contingency counts and bin codes must equal the plain versions bitwise; MI
-agrees within ``rtol=1e-5, atol=1e-6`` (only ``logf`` rounding differs);
+Contingency counts and bin codes (NaN, +-inf and -0.0 included) must equal
+the plain versions bitwise; MI agrees within ``rtol=1e-5, atol=1e-6`` (sums
+in another order), equal tables give bit-equal MI and a strided view is
+read in place;
 row correlations within ``rtol=2e-4, atol=2e-5`` (float32 sums over M in
 another order, the JAX kernel test's own tolerance); flash attention within
 ``rtol=2e-5, atol=2e-5`` in float32 and ``rtol=3e-2, atol=3e-2`` in bfloat16
@@ -198,7 +200,12 @@ def test_conditional_bitwise(cuda):
     assert torch.equal(got.cpu(), ref.conditional_tables(X, xj, y, 2, 2))
 
 
-@pytest.mark.parametrize("shape", [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2), (300, 5, 7)])
+# The main path's tables (tall and wide passes, the binned relevance and
+# redundancy passes), odd shapes, V=300 (a warp a table, marginals in shared
+# memory) and V=13,000 (marginals in global scratch).
+@pytest.mark.parametrize("shape", [(1000, 2, 2), (1000, 2, 4), (50000, 2, 2), (300, 5, 7),
+                                   (1000, 16, 2), (1000, 16, 16), (8, 300, 40),
+                                   (3, 13000, 2), (40, 1, 1), (33, 3, 11)])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 def test_mi_scores(cuda, shape, dtype):
     rng = np.random.default_rng(4)
@@ -207,6 +214,35 @@ def test_mi_scores(cuda, shape, dtype):
     got = mi_scores_cuda(counts.to(cuda)).cpu()
     np.testing.assert_allclose(got, ref.mi_scores(counts), rtol=1e-5, atol=1e-6)
     assert torch.all(got[::7] == 0)
+
+
+@pytest.mark.parametrize("shape", [(1000, 2, 2, 2), (300, 16, 16, 2), (50, 3, 5, 4)])
+def test_mi_scores_read_the_conditional_view_in_place(cuda, shape):
+    rng = np.random.default_rng(5)
+    stack = torch.as_tensor(rng.integers(0, 5000, shape)).to(torch.int32).to(cuda)
+    view = stack.movedim(-1, -3)  # (F, C, V, W): what cmi_from_counts hands over
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = mi_scores_cuda(view)
+    torch.cuda.synchronize()
+    # One allocation, the output: no copy of the (F, V, W, C) stack.
+    assert torch.cuda.max_memory_allocated(cuda) - before <= -(-got.numel() * 4 // 512) * 512
+    assert got.shape == view.shape[:2]
+    assert torch.equal(got, mi_scores_cuda(view.contiguous()))
+    np.testing.assert_allclose(got.cpu(), ref.mi_scores(view.cpu()), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(999, 2, 2), (200, 16, 16), (60, 5, 7)])
+def test_mi_scores_equal_tables_bit_equal(cuda, shape):
+    rng = np.random.default_rng(6)
+    counts = torch.as_tensor(rng.integers(0, 5000, shape)).to(torch.int32)
+    counts[3::10] = counts[1]  # one table at many places in the grid
+    got = mi_scores_cuda(counts.to(cuda)).cpu()
+    assert torch.all(got[3::10] == got[1])
+    assert torch.equal(mi_scores_cuda(counts[1:2].to(cuda)).cpu(), got[1:2])
+    zero = mi_scores_cuda(torch.zeros(shape, dtype=torch.int32, device=cuda))
+    assert torch.all(zero == 0)
 
 
 def test_dispatch_counts_launches(cuda):
@@ -261,6 +297,22 @@ def test_bin_codes_strided_rows(cuda):
     got = bin_codes_cuda(Xd, torch.from_numpy(edges).to(cuda))
     assert torch.equal(got.cpu(), ref.bin_codes(torch.from_numpy(X[3:1500:2]),
                                                 torch.from_numpy(edges)))
+
+
+@pytest.mark.parametrize("e,fpl", [(15, 4), (63, 1), (70, 0)])
+def test_bin_codes_nan_takes_the_top_code(cuda, e, fpl):
+    X, edges = _binned_block(2003, 1000, e, seed=e + 11)
+    edges[:, e // 2] = 0.0  # -0.0 and 0.0 against a 0.0 edge
+    edges.sort(axis=1)
+    X[5::9, 3::7], X[6::9, 2::5], X[7::9, 4::6], X[8::9, 1::3] = np.nan, np.inf, -np.inf, -0.0
+    X[9::9, 6::5] = 0.0
+    Xd, ed = torch.from_numpy(X).to(cuda), torch.from_numpy(edges).to(cuda)
+    plan = bin_codes_plan(Xd, e, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.fpl == fpl  # the 4- and 1-feature register paths, the cache kernel
+    got = bin_codes_cuda(Xd, ed, plan=plan)
+    assert torch.equal(got, ref.bin_codes(Xd, ed))
+    assert torch.equal(got.cpu(), ref.bin_codes(torch.from_numpy(X), torch.from_numpy(edges)))
+    assert torch.all(got[torch.isnan(Xd)] == e)
 
 
 @pytest.mark.parametrize("e", [1, 15, 63, 70])

@@ -22,6 +22,7 @@ from repro.kernels.contingency import (
 )
 from repro.kernels.mi_score import mi_scores_pallas
 
+from repro_torch.core import scores as tscores
 from repro_torch.core.contingency import OOR
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.contingency import (
@@ -35,7 +36,7 @@ from repro_torch.kernels.contingency import (
     contingency_plan,
     contingency_tables_cuda,
 )
-from repro_torch.kernels.mi_score import mi_scores_cuda
+from repro_torch.kernels.mi_score import mi_plan, mi_scores_cuda
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -111,7 +112,10 @@ class TestContingency:
 
 
 class TestMIScores:
-    @pytest.mark.parametrize("shape", [(1, 2, 2), (37, 3, 4), (300, 2, 2), (64, 5, 3)])
+    # (1000, 16, 16): the binned fits' redundancy tables; (2000, 2, 2): the
+    # class slices of a (1000, 2, 2, 2) conditional stack.
+    @pytest.mark.parametrize("shape", [(1, 2, 2), (37, 3, 4), (300, 2, 2), (64, 5, 3),
+                                       (1000, 16, 16), (2000, 2, 2)])
     def test_matches_pallas_and_mi_from_counts(self, shape):
         rng = np.random.default_rng(sum(shape))
         counts = rng.integers(0, 50, shape).astype(np.int32)
@@ -124,6 +128,22 @@ class TestMIScores:
         np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=RTOL, atol=ATOL)
         assert np.all(got.numpy()[::5] == 0)
+
+    @pytest.mark.parametrize("shape", [(1000, 2, 2, 2), (60, 16, 16, 2)])
+    def test_conditional_view_matches_pallas_and_cmi(self, shape):
+        rng = np.random.default_rng(sum(shape))
+        stack = rng.integers(0, 50, shape).astype(np.int32)
+        stack[::9] = 0
+        view = torch.from_numpy(stack).movedim(-1, -3)  # what the kernel reads in place
+        got = ops.mi_scores(view)
+        assert got.shape == view.shape[:2]
+        slices = np.ascontiguousarray(np.moveaxis(stack, -1, -3)).reshape(-1, *shape[1:3])
+        pallas = mi_scores_pallas(jnp.asarray(slices, jnp.float32), interpret=True)
+        np.testing.assert_allclose(got.reshape(-1).numpy(), np.asarray(pallas),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tscores.cmi_from_counts(torch.from_numpy(stack)).numpy(),
+                                   np.asarray(jscores.cmi_from_counts(jnp.asarray(stack))),
+                                   rtol=RTOL, atol=ATOL)
 
     def test_float_counts(self):
         counts = np.random.default_rng(0).integers(0, 9, (20, 2, 3)).astype(np.float32)
@@ -319,3 +339,34 @@ class TestContingencyPlan:
         X = _geometry(1_000_000, 1000, torch.int8, "row-major")
         small, large = contingency_plan(X, 2, 2, sms=66), contingency_plan(X, 2, 2, sms=132)
         assert small.grid < large.grid and large.grid <= 132 * 3
+
+
+class TestMIPlan:
+    @pytest.mark.parametrize("tables,v,c", [
+        (1000, 2, 2), (50000, 2, 2), (1000, 16, 2), (1000, 16, 16), (2000, 2, 2),
+        (300, 5, 7), (8, 300, 40), (3, 13000, 2), (40, 1, 1), (5, 0, 2), (33, 3, 11),
+        (7, 20000, 20000),
+    ])
+    def test_every_table_has_lanes_and_marginals_fit(self, tables, v, c):
+        plan = mi_plan(tables, v, c, sms=132)
+        assert plan.threads % 32 == 0 and plan.threads <= 256
+        if v * c <= 32:  # a group of lanes a table, a power of two >= V*C
+            g = plan.group
+            assert g & (g - 1) == 0 and v * c <= g <= 32 and 32 % g == 0
+            assert plan.grid * plan.threads >= tables * g
+            assert (plan.smem_bytes, plan.scratch) == (0, 0)
+        else:  # a warp a table; V + C floats of marginals a warp
+            warps = plan.threads // 32
+            assert plan.group == 0
+            if plan.scratch == 0:
+                assert plan.grid * warps >= tables
+                assert plan.smem_bytes == warps * 4 * (v + c) <= 48 * 1024
+            else:  # past shared memory: global scratch, a grid walking the tables
+                assert 4 * (v + c) > 48 * 1024 and plan.smem_bytes == 0
+                assert plan.scratch == plan.grid * warps * (v + c) and plan.grid <= 132
+
+    def test_main_path_shapes(self):
+        assert mi_plan(1000, 2, 2).group == 4  # 8 tables a warp, one 128-byte load
+        assert mi_plan(1000, 16, 2).group == 32
+        assert mi_plan(1000, 16, 16)[:4] == (0, 256, 125, 8 * 4 * 32)
+

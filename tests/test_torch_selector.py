@@ -6,6 +6,7 @@ exact, gains and relevance within ``rtol=1e-5, atol=1e-6``.  The JAX side
 runs without a mesh on one device.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -15,12 +16,29 @@ import numpy as np
 import pytest
 import torch
 
+import repro
+from repro.core import selector as jselector
+from repro.core.mrmr import MRMRResult as JMRMRResult
 from repro.core.scores import MIScore as JMIScore
+from repro.core.scores import PearsonMIScore as JPearsonMIScore
 from repro.core.selector import MRMRSelector as JSelector
+from repro.core.selector import plan_selection as jplan_selection
+from repro.core.selector import register_engine as jregister_engine
+from repro.data.sources import ArraySource as JArraySource
 from repro.data.sources import CorralSource as JCorralSource
 
-from repro_torch import MIScore, MRMRSelector, available_criteria, plan_selection
-from repro_torch.core.selector import available_encodings, check_num_select
+import repro_torch
+from repro_torch import (
+    ArraySource,
+    MIScore,
+    MRMRResult,
+    MRMRSelector,
+    PearsonMIScore,
+    available_criteria,
+    plan_selection,
+)
+from repro_torch.core import selector as tselector
+from repro_torch.core.selector import available_encodings, check_num_select, register_engine
 
 RTOL, ATOL = 1e-5, 1e-6
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,12 +120,91 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize(
-    "knob", [dict(mesh=object()), dict(hosts=2), dict(hosts="auto"),
-             dict(spill_dir="spill"), dict(readahead=2)],
+    "knob", [dict(mesh=object()), dict(hosts=2), dict(devices=2),
+             dict(spill_dir="spill"), dict(readahead=2), dict(spill_budget_bytes=1 << 20),
+             dict(obs_axes=("rows",)), dict(feat_axes="cols"), dict(devices=[0, 1])],
 )
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    (name,) = knob
+    with pytest.raises(NotImplementedError, match=rf"{name}=.*not yet ported"):
         MRMRSelector(3, device="cpu", **knob)
+
+
+def test_one_device_knobs_fit_like_jax(corral):
+    X, y = corral
+    kw = dict(devices=1, obs_axes="data", feat_axes=("model",), block=16)
+    t = MRMRSelector(4, device="cpu", spill_budget_bytes=None, **kw).fit(X, y)
+    j = JSelector(4, **kw).fit(X, y)
+    np.testing.assert_array_equal(t.selected_, j.selected_)
+
+
+def test_hosts_auto_fits_on_one_process(corral):
+    X, y = corral
+    for hosts in ("auto", 1, None):
+        t = MRMRSelector(4, hosts=hosts, device="cpu").fit(X, y)
+        j = JSelector(4, hosts=hosts, devices=1).fit(X, y)
+        np.testing.assert_array_equal(t.selected_, j.selected_)
+    t = MRMRSelector(4, hosts="auto", device="cpu").fit(ArraySource(X, y))
+    j = JSelector(4, hosts="auto", devices=1).fit(JArraySource(X, y))
+    np.testing.assert_array_equal(t.selected_, j.selected_)
+    with pytest.raises(ValueError, match="hosts"):
+        MRMRSelector(4, hosts=0, device="cpu")
+
+
+def test_registered_engine_gets_provenance_from_the_plan(corral):
+    """An engine registered from outside that names neither itself nor its
+    criterion gets both from the plan, in both packages."""
+    X, y = corral
+
+    def probe(X, y, *, num_select, plan):
+        return MRMRResult(torch.arange(num_select, dtype=torch.int32),
+                          torch.zeros(num_select))
+
+    def jprobe(X, y, *, num_select, plan, mesh):
+        return JMRMRResult(np.arange(num_select, dtype=np.int32),
+                           np.zeros(num_select, np.float32))
+
+    register_engine("probe")(probe)
+    jregister_engine("probe")(jprobe)
+    try:
+        t = MRMRSelector(3, encoding="probe", device="cpu").fit(X, y)
+        j = JSelector(3, encoding="probe", devices=1).fit(X, y)
+    finally:
+        tselector._ENGINES.pop("probe")
+        jselector._ENGINES.pop("probe")
+    assert (t.result_.engine, t.result_.criterion) == ("probe", "mid")
+    assert (j.result_.engine, j.result_.criterion) == ("probe", "mid")
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+# Names of repro.__all__ that come with later modules of the port (ROADMAP §1).
+NOT_YET_PORTED = {
+    "CustomScore": "ROADMAP §1 item 2 (CustomScore and mrmr_custom_score)",
+    "FeatureSelector": "ROADMAP §1 item 5 (core/selection.py)",
+    "mrmr_select": "ROADMAP §1 item 5 (core/selection.py)",
+}
+
+
+def test_signatures_and_exports_match_jax():
+    jknobs = _params(JSelector)[: [n for n, _, _ in _params(JSelector)].index("hosts") + 1]
+    tparams = _params(MRMRSelector)
+    assert tparams[: len(jknobs)] == jknobs  # names, order, kinds, defaults
+    assert tparams[len(jknobs)][0] == "device"
+    tplan = _params(plan_selection)
+    assert tplan[:-1] == _params(jplan_selection)
+    assert tplan[-1][:2] == ("device", inspect.Parameter.KEYWORD_ONLY)
+    for shape in ((1500, 24), (24, 1500)):  # positional devices, then score
+        for score, jscore in ((None, None), (PearsonMIScore(), JPearsonMIScore())):
+            assert (plan_selection(shape, 1, score, device="cpu").encoding
+                    == jplan_selection(shape, 1, jscore).encoding)
+    assert set(repro.__all__) - set(NOT_YET_PORTED) <= set(repro_torch.__all__)
+    assert not set(NOT_YET_PORTED) & set(repro_torch.__all__)
+    assert repro_torch.__version__ == repro.__version__
+    for name in repro_torch.__all__:
+        assert hasattr(repro_torch, name), name
 
 
 class TestGuards:
