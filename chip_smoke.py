@@ -85,7 +85,40 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    top-2 margin is below twice the logits error; then the 2048-token wave in
    float32 (24 GB of weights), whose kernel and plain tokens must be equal.
 
-After phase 7 the MI kernel is timed at the five table shapes of the main
+8. Out of core (the I/O knobs, the file sources and the service), every
+   temporary file and spill directory under one directory removed at the
+   end: (a) the tall fit of phase 3 as ``MRMRSelector(10, score=MIScore(2,
+   2), block_obs=65536, spill_dir=..., readahead=4).fit(ArraySource(X, y))``:
+   the same selection as phase 3's streaming fit, 10 passes and 160 blocks,
+   one parse and nine replay passes, 160 contingency launches (all int8,
+   V=2, C=2) and MI launches; the same fit again parses nothing (ten
+   replays), and once more under ``torch.profiler`` (the device's busy
+   share).  (b) phase 5's continuous data with ``bins=16`` and
+   ``spill_dir``: the staging pass encodes on the host and spills int8
+   codes, the replays count them: the same selection as phase 5's streaming
+   fit, 0 bin-code launches, 160 contingency launches on int8 codes (V=16,
+   C=2 and 16), the spilled bytes; one replayed 65,536 x 1000 code block
+   read back as a replay (a memmap, one replay pass and no parse), counted
+   bitwise against the plain version and timed at C=2 and 16.  (c) the
+   tall data written as CSV with numpy byte operations (all 1,000,000
+   rows, about 2 GB of text) and fitted through ``CSVSource(dtype=int8,
+   target_dtype=int8)`` with ``spill_dir`` and ``readahead=4``: the
+   selection of (a), one parse pass and nine replays, each pass's seconds.
+   (d) ``SelectionService(workers=2, device="cuda")`` over
+   ``corral:1000000x1000`` with ``spill_dir``: two identical requests at
+   once run the engine once (one coalesces; (10 + 5) x 16 contingency
+   launches with the distinct request), a distinct request (L=5) runs in
+   the other worker meanwhile, a third identical request is a cache hit
+   that launches nothing; the results equal direct streamed fits of a fresh
+   source with no spill cache.  (e) ``mrmr_custom_score(MIScore(2, 2))`` on
+   CorrAL 10,000 x 5,000, the alternative encoding, ``get_result`` vmapped
+   over candidate chunks: one contingency and one MI launch a chunk for the
+   relevance and as many for the redundancy, every pick; the selection of
+   ``MIScore`` and of the same score in plain torch, one pick's scores
+   against the plain version's, a NaN relevance.
+   Each fit logs its seconds and each streamed pass's seconds.
+
+After phase 8 the MI kernel is timed at the five table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack): CUDA
 events and its own device time, the former design's on the same inputs, an
@@ -111,7 +144,10 @@ streaming fit 160 (10 passes x 16 blocks), and every fit launches the MI
 kernel; the streaming binned fit encodes each of its 160 blocks once, the
 in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
-launches the flash-attention kernel 64 times (2 waves x 32 layers).  The
+launches the flash-attention kernel 64 times (2 waves x 32 layers); each
+spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
+the service run counts its blocks once per engine run, and the custom-score
+fit launches each of the contingency and MI kernels twice a chunk a pick.  The
 second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
@@ -122,8 +158,11 @@ import contextlib
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -685,7 +724,7 @@ def check_finite(sel, n):
         raise AssertionError("gains are not finite")
 
 
-def phase3(dev, launches, timings):
+def phase3(dev, launches, timings, keep):
     from repro_torch import ArraySource, MIScore, MRMRSelector
     from repro_torch.data.synthetic import corral_dataset_np
 
@@ -731,6 +770,7 @@ def phase3(dev, launches, timings):
         if (launches[path]["mi_scores"] > 0) != (n > 0):
             raise AssertionError(f"{path}: MI launches {launches[path]}")
     del Xd, yd
+    keep["tall"] = (X, y)  # phase 8 streams the same data out of core
     return [rec, srec, prec]
 
 
@@ -916,7 +956,7 @@ def time_pearson(X, Y, label, reps):
     return rec
 
 
-def phase5(dev, launches):
+def phase5(dev, launches, keep):
     from repro_torch import ArraySource, MIScore, MRMRSelector, fit_binned
     from repro_torch.data.synthetic import continuous_dataset_np
 
@@ -965,6 +1005,7 @@ def phase5(dev, launches):
         raise AssertionError(f"binned in-memory launches {b}")
     if any(c.values()):
         raise AssertionError(f"plain-version binned fit launched kernels: {c}")
+    keep["binned_src"] = src  # fingerprint and fitted binner memoised
     return [dict(srec, fingerprint_s=fp_s, sketch_s=sketch_s,
                  host_transform_block_s=transform_s), mrec, prec]
 
@@ -1327,6 +1368,411 @@ def phase7(dev, launches):
                       layer_abs_err=layer_abs_err, layer_row_err=layer_row_err)
 
 
+# -- phase 8: the out-of-core surfaces ---------------------------------------
+
+OOC_BLOCK = 65536  # block_obs of every phase-8 fit, as in phases 3 and 5
+SERVICE_REF = "corral:1000000x1000"
+CUSTOM_SHAPE = (10_000, 5_000)
+OOC_PATHS = ("ooc_tall_spill", "ooc_tall_replay", "ooc_binned_spill", "ooc_csv",
+             "ooc_service", "ooc_custom")
+
+
+@contextlib.contextmanager
+def pass_clock(passes):
+    """While open, append each streamed pass's wall seconds, as the fit
+    consumes it (read, place, count, finalize), to ``passes``."""
+    from repro_torch.core import streaming
+
+    inner = streaming._score_pass
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        passes.append(time.perf_counter() - t0)
+        return out
+
+    streaming._score_pass = timed
+    try:
+        yield
+    finally:
+        streaming._score_pass = inner
+
+
+@contextlib.contextmanager
+def tally_count_inputs(tally):
+    """While open, count the contingency kernel's launches by (X dtype, V, C)
+    at the dispatcher; the wrapper's own counter is untouched."""
+    from repro_torch.kernels import ops
+
+    inner = ops.contingency_tables_cuda
+
+    def counted(X, y, v, c):
+        key = f"{str(X.dtype).removeprefix('torch.')} V={v} C={c}"
+        tally[key] = tally.get(key, 0) + 1
+        return inner(X, y, v, c)
+
+    ops.contingency_tables_cuda = counted
+    try:
+        yield
+    finally:
+        ops.contingency_tables_cuda = inner
+
+
+def spill_fit(name, fit, dev, launches):
+    """``run_path`` with the per-pass clock and the count-input tally open:
+    (result, record) with ``pass_s`` (the first a parse pass when the
+    cache staged), ``count_inputs`` and the spill counters."""
+    passes, inputs = [], {}
+    with pass_clock(passes), tally_count_inputs(inputs):
+        res, rec = run_path(name, fit, dev, launches)
+    rec.update(pass_s=passes, count_inputs=inputs)
+    log(f"[ooc] {name}: passes {json.dumps(passes)}; contingency launches by input "
+        f"{json.dumps(inputs)}")
+    return res, rec
+
+
+def check_io(res, what, passes, blocks, parse, replay):
+    io = res.result_.io
+    cache = io.get("cache", {})
+    got = (io["passes"], io["blocks_read"], cache.get("parse_passes"), cache.get("replay_passes"))
+    if got != (passes, blocks, parse, replay):
+        raise AssertionError(f"{what}: io {io}, want passes/blocks/parse/replay "
+                             f"{(passes, blocks, parse, replay)}")
+
+
+def check_against_record(res, rec, what):
+    """Same selection as an earlier phase's recorded fit, gains in tolerance."""
+    if res.selected_.tolist() != rec["selected"]:
+        raise AssertionError(f"{what}: selected {res.selected_.tolist()} vs {rec['selected']}")
+    np.testing.assert_allclose(res.gains_, rec["gains"], rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def write_csv(path, X, y, chunk=65536):
+    """CorrAL rows as CSV text, built with numpy byte operations: one digit a
+    field (the values are 0/1), the label last, no header."""
+    if X.min() < 0 or X.max() > 9 or y.min() < 0 or y.max() > 9:
+        raise ValueError("write_csv writes single-digit values only")
+    with open(path, "wb") as f:
+        for lo in range(0, len(X), chunk):
+            blk = np.concatenate([X[lo:lo + chunk], y[lo:lo + chunk, None]], axis=1)
+            buf = np.empty((blk.shape[0], 2 * blk.shape[1]), np.uint8)
+            buf[:, 0::2] = blk.astype(np.uint8) + ord("0")
+            buf[:, 1::2] = ord(",")
+            buf[:, -1] = ord("\n")
+            f.write(buf.tobytes())
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*") if p.is_file())
+
+
+def phase8(dev, launches, fits, keep):
+    """The out-of-core and service surfaces on the card; every temporary
+    file and spill directory lives under one directory, removed at the end."""
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ooc_"))
+    try:
+        recs = {r["path"]: r for r in fits}
+        out = dict(tall=phase8_tall(dev, launches, recs, keep, tmp))
+        out["binned"], code_times = phase8_binned(dev, launches, recs, keep, tmp)
+        out["csv"] = phase8_csv(dev, launches, out["tall"], keep, tmp)
+        out["service"] = phase8_service(dev, launches, tmp)
+        out["custom"], custom_times = phase8_custom(dev, launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if tmp.exists():
+        raise AssertionError(f"phase 8 left {tmp} behind")
+    return out, code_times + custom_times
+
+
+def phase8_tall(dev, launches, recs, keep, tmp):
+    """(a) The tall CorrAL fit streamed through the spill cache with
+    read-ahead: pass 1 parses and spills, passes 2..10 replay; then a second
+    fit on the same directory parses nothing."""
+    from repro_torch import ArraySource, MIScore, MRMRSelector
+
+    X, y = keep["tall"]
+    src = ArraySource(X, y)
+    t0 = time.perf_counter()
+    src.fingerprint()  # the spill entry's key: a content hash of 1 GB (set-up)
+    fp_s = time.perf_counter() - t0
+    spill = tmp / "spill_tall"
+
+    blocks = -(-len(X) // OOC_BLOCK)  # 16 at 1,000,000 rows
+
+    def fit():
+        return MRMRSelector(10, score=MIScore(2, 2), block_obs=OOC_BLOCK, spill_dir=str(spill),
+                            readahead=4).fit(src)
+
+    a, arec = spill_fit("ooc_tall_spill", fit, dev, launches)
+    check_against_record(a, recs["tall_streaming"], "spilled tall fit vs tall_streaming")
+    check_io(a, "spilled tall fit", 10, 10 * blocks, 1, 9)
+    counts = launches["ooc_tall_spill"]
+    if counts["contingency_tables"] != 10 * blocks or counts["mi_scores"] == 0:
+        raise AssertionError(f"spilled tall fit launches {counts}")
+    if set(arec["count_inputs"]) != {"int8 V=2 C=2"}:
+        raise AssertionError(f"spilled tall fit counted {arec['count_inputs']}")
+    r, rrec = spill_fit("ooc_tall_replay", fit, dev, launches)
+    check_against_record(r, recs["tall_streaming"], "replayed tall fit vs tall_streaming")
+    check_io(r, "replayed tall fit", 10, 10 * blocks, 0, 10)
+    if launches["ooc_tall_replay"]["contingency_tables"] != 10 * blocks:
+        raise AssertionError(f"replayed tall fit launches {launches['ooc_tall_replay']}")
+    # Where a replayed fit's time goes: the device's busy share.
+    trace = device_breakdown(fit)
+    log(f"[ooc] replayed tall fit, traced: {json.dumps(trace)}")
+    spilled = dir_bytes(spill)
+    log(f"[ooc] tall: fingerprint {fp_s:.3f} s; spill {spilled} bytes on disk; "
+        f"fit {arec['seconds']:.3f} s (parse + 9 replays), {rrec['seconds']:.3f} s (10 replays)")
+    return dict(spill=str(spill), fingerprint_s=fp_s, spilled_bytes=spilled,
+                fit=arec, replay_fit=rrec, replay_trace=trace, selected=a.selected_.tolist(),
+                gains=[float(g) for g in a.gains_])
+
+
+def phase8_binned(dev, launches, recs, keep, tmp):
+    """(b) The tall continuous bins=16 fit through the spill cache: the
+    staging pass encodes on the host and spills int8 codes, the nine replay
+    passes count them; the bin-code kernel does not run.  Then the replayed
+    int8 code block's counts, bitwise against the plain version and timed."""
+    from repro_torch import BinnedSource, MRMRSelector
+    from repro_torch.data.block_cache import BlockCacheSource
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.contingency import contingency_tables_cuda
+
+    src = keep["binned_src"]
+    spill = tmp / "spill_binned"
+    blocks = -(-src.num_obs // OOC_BLOCK)
+    res, rec = spill_fit(
+        "ooc_binned_spill",
+        lambda: MRMRSelector(10, bins=16, block_obs=OOC_BLOCK, spill_dir=str(spill)).fit(src),
+        dev, launches)
+    check_against_record(res, recs["tall_binned_streaming"],
+                         "spilled binned fit vs tall_binned_streaming")
+    check_io(res, "spilled binned fit", 10, 10 * blocks, 1, 9)
+    counts = launches["ooc_binned_spill"]
+    if counts["bin_codes"] != 0:
+        raise AssertionError(f"spilled binned fit ran the bin-code kernel: {counts}")
+    if counts["contingency_tables"] != 10 * blocks or counts["mi_scores"] == 0:
+        raise AssertionError(f"spilled binned fit launches {counts}")
+    if set(rec["count_inputs"]) != {"int8 V=16 C=2", "int8 V=16 C=16"}:
+        raise AssertionError(f"spilled binned fit counted {rec['count_inputs']}")
+    cache = res.result_.io["cache"]
+    spilled = dir_bytes(spill)
+    log(f"[ooc] binned: spilled {cache['parsed_bytes']} bytes of int8 codes and labels "
+        f"({spilled} on disk) for {src.X.nbytes + src.y.nbytes} bytes of float32 blocks; "
+        f"replayed {cache['replayed_bytes']} bytes")
+
+    # One replayed block, as the replay passes read it (memmapped int8): a
+    # hit on the fit's spill entry, not a block staged anew.
+    cached = BlockCacheSource(BinnedSource(src, 16, fit_block_obs=OOC_BLOCK), str(spill))
+    it = cached.iter_blocks(OOC_BLOCK)
+    Xr, yr = next(it)
+    it.close()
+    if Xr.dtype != np.int8 or Xr.shape != (min(OOC_BLOCK, src.num_obs), src.num_features):
+        raise AssertionError(f"replayed codes {Xr.dtype} {Xr.shape}")
+    hit = (cached.counters["parse_passes"], cached.counters["replay_passes"])
+    if not isinstance(Xr, np.memmap) or hit != (0, 1):
+        raise AssertionError(f"the code block is not a replay of the fit's spill: "
+                             f"{type(Xr).__name__}, counters {cached.counters}")
+    Xd = torch.from_numpy(np.array(Xr)).to(dev)
+    code_times = []
+    shape = "x".join(map(str, Xr.shape))
+    for label, tgt, c in ((f"{shape} int8 codes V=16 C=2 (spilled binned relevance)",
+                           torch.from_numpy(np.array(yr)).to(dev, torch.int32), 2),
+                          (f"{shape} int8 codes V=16 C=16 (spilled binned redundancy)",
+                           Xd[:, 3].to(torch.int32), 16)):
+        if not torch.equal(contingency_tables_cuda(Xd, tgt, 16, c),
+                           ref.contingency_tables(Xd, tgt, 16, c)):
+            raise AssertionError(f"contingency {label}: counts differ")
+        log(f"[contingency] {label}: bitwise equal")
+        code_times.append(time_contingency(Xd, tgt, 16, c, label, reps=40))
+    return dict(fit=rec, parsed_bytes=cache["parsed_bytes"], spilled_bytes=spilled,
+                float_bytes=int(src.X.nbytes + src.y.nbytes)), code_times
+
+
+def phase8_csv(dev, launches, tall, keep, tmp):
+    """(c) The tall CorrAL data (all 1,000,000 rows, about 2 GB of text)
+    written to CSV and fitted through CSVSource with the spill cache and
+    read-ahead: one parse pass, nine replays; the same selection as (a)."""
+    from repro_torch import MIScore, MRMRSelector
+    from repro_torch.data.sources import CSVSource
+
+    X, y = keep["tall"]
+    rows = len(X)
+    path = tmp / "corral.csv"
+    t0 = time.perf_counter()
+    write_csv(path, X, y)
+    write_s = time.perf_counter() - t0
+    res, rec = spill_fit(
+        "ooc_csv",
+        lambda: MRMRSelector(10, score=MIScore(2, 2), block_obs=OOC_BLOCK,
+                             spill_dir=str(tmp / "spill_csv"), readahead=4).fit(
+            CSVSource(str(path), dtype=np.int8, target_dtype=np.int8)),
+        dev, launches)
+    blocks = -(-rows // OOC_BLOCK)
+    check_io(res, "CSV fit", 10, 10 * blocks, 1, 9)
+    check_against_record(res, tall, "CSV fit vs (a)")
+    counts = launches["ooc_csv"]
+    if counts["contingency_tables"] != 10 * blocks or counts["mi_scores"] == 0:
+        raise AssertionError(f"CSV fit launches {counts}")
+    parse_s, replay_s = rec["pass_s"][0], rec["pass_s"][1:]
+    log(f"[ooc] csv: {rows} rows, {path.stat().st_size} bytes written in {write_s:.3f} s; "
+        f"fit {rec['seconds']:.3f} s; parse pass {parse_s:.3f} s; replay passes "
+        f"{json.dumps(replay_s)}")
+    return dict(rows=rows, csv_bytes=path.stat().st_size, write_s=write_s,
+                parse_pass_s=parse_s, replay_pass_s=replay_s, fit=rec)
+
+
+def phase8_service(dev, launches, tmp):
+    """(d) SelectionService(workers=2) on the card over ``corral:1000000x1000``
+    with the spill cache: two identical requests at once run the engine once,
+    a distinct one (L=5) runs in the other worker meanwhile, a third identical
+    request is a cache hit that launches nothing.  The results equal direct
+    streamed fits of the same source with no spill cache, so a fault in the
+    service's staging cannot agree with itself.  (The ref names CorralSource's generator, seeded
+    by chunk: other rows than phase 3's arrays, so (a)'s fit is repeated on
+    them here.)"""
+    from repro_torch import CorralSource, MIScore, MRMRSelector
+    from repro_torch.serve.selection import SelectionService
+
+    ref, spill = SERVICE_REF, str(tmp / "spill_service")
+    knobs = dict(score=MIScore(2, 2), block_obs=OOC_BLOCK, spill_dir=spill)
+    rows, cols = (int(v) for v in ref.split(":")[1].split("x"))
+    blocks = -(-rows // OOC_BLOCK)
+    ids = {}
+    barrier = threading.Barrier(2)
+
+    def stampede(svc, i):
+        barrier.wait()
+        ids[i] = svc.submit(ref, num_select=10, **knobs)
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with SelectionService(workers=2, device="cuda") as svc:
+        threads = [threading.Thread(target=stampede, args=(svc, i)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        if len(ids) != 2:
+            raise AssertionError("the stampede's submissions did not return")
+        ids["distinct"] = svc.submit(ref, num_select=5, **knobs)
+        res = {k: svc.result(ids[k], timeout=900) for k in (0, 1, "distinct")}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        info = {k: svc.poll(ids[k]).to_dict() for k in (0, 1, "distinct")}
+        third = svc.submit(ref, num_select=10, **knobs)
+        hit = svc.poll(third).to_dict()
+        third_res = svc.result(third, timeout=10)
+        stats = svc.stats()
+    launches["ooc_service"] = counts
+    after = {k: w.launches for k, w in wrappers.items()}
+    log(f"[ooc] service: {seconds:.3f} s; launches {json.dumps(counts)}; jobs "
+        f"{json.dumps(info)}; third {json.dumps(hit)}; stats {json.dumps(stats)}")
+    # Two identical requests, one engine run: (10 + 5) passes of the blocks.
+    if counts["contingency_tables"] != (10 + 5) * blocks:
+        raise AssertionError(f"service launches {counts}: the stampede ran twice?")
+    if stats["coalesced"] != 1 or sum(info[k]["coalesced_into"] is not None for k in (0, 1)) != 1:
+        raise AssertionError(f"service coalescing {stats} {info}")
+    if not hit["cache_hit"] or hit["attempts"] != 0 or after != counts:
+        raise AssertionError(f"third request: {hit}, launches {after} after {counts}")
+    primary = 0 if info[0]["coalesced_into"] is None else 1
+    d, p = info["distinct"], info[primary]
+    overlap = d["started_at"] < p["finished_at"] and p["started_at"] < d["finished_at"]
+    if not overlap:
+        raise AssertionError(f"the distinct request did not run beside the first: {info}")
+    # The results against direct fits of a fresh source: every pass parses
+    # (generates) the rows anew; nothing is read from the service's spill.
+    t0 = time.perf_counter()
+    direct = {L: MRMRSelector(L, score=MIScore(2, 2), block_obs=OOC_BLOCK).fit(
+        CorralSource(rows, cols)) for L in (10, 5)}
+    direct_s = time.perf_counter() - t0
+    for L, fit in direct.items():
+        if fit.result_.io.get("cache") is not None or fit.result_.io["passes"] != L:
+            raise AssertionError(f"direct L={L} fit io {fit.result_.io}")
+    for k, L in ((0, 10), (1, 10), ("distinct", 5)):
+        r = res[k]
+        if r.selected.tolist() != direct[L].selected_.tolist():
+            raise AssertionError(f"service result {k}: {r.selected.tolist()} vs "
+                                 f"{direct[L].selected_.tolist()}")
+        np.testing.assert_allclose(r.gains.numpy(), direct[L].gains_, rtol=RTOL, atol=ATOL)
+    if third_res.selected.tolist() != res[0].selected.tolist():
+        raise AssertionError("the cache hit's result differs")
+    if set(direct[10].selected_[:9].tolist()) != set(range(9)):
+        raise AssertionError(f"service source's first nine picks {direct[10].selected_[:9]}")
+    log(f"[ooc] service: direct unspilled fits (L=10, L=5) {direct_s:.3f} s, equal")
+    return dict(seconds=seconds, launches=counts, jobs=info, third=hit, stats=stats,
+                direct_s=direct_s, selected={str(k): res[k].selected.tolist() for k in res})
+
+
+def phase8_custom(dev, launches):
+    """(e) The paper's custom-score path (Listing 7) on the card: CorrAL
+    10,000 x 5,000, mrmr_custom_score(MIScore) on the alternative encoding,
+    recomputed every pick.  ``get_result`` is vmapped over candidate chunks
+    and each chunk's relevance and redundancy are one launch each of the
+    contingency and MI kernels; the fit selects what MIScore selects, with
+    what the same vmapped score selects in plain torch (``use_kernel=False``)
+    on the same tensors, and reports a NaN relevance."""
+    from repro_torch import MIScore, MRMRSelector, mrmr_custom_score
+    from repro_torch.core import scores
+    from repro_torch.data.synthetic import corral_dataset_np
+
+    X, y = corral_dataset_np(*CUSTOM_SHAPE, seed=0)
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    L = 5
+    custom, rec = run_path(
+        "ooc_custom",
+        lambda: MRMRSelector(L, score=mrmr_custom_score(MIScore(2, 2)),
+                             encoding="alternative").fit(Xd, yd),
+        dev, launches)
+    m, n = CUSTOM_SHAPE
+    chunk = max(1, scores._CUSTOM_CHUNK_ELEMS // (m * (L + 1)))  # candidates a call
+    chunks = -(-n // chunk)
+    counts = launches["ooc_custom"]
+    want = 2 * L * chunks  # a relevance and a redundancy launch a chunk a pick
+    if (counts["contingency_tables"], counts["mi_scores"]) != (want, want):
+        raise AssertionError(f"custom fit launches {counts}, want {want} of each "
+                             f"({chunks} chunks a pick)")
+    builtin = MRMRSelector(L, score=MIScore(2, 2), encoding="alternative").fit(Xd, yd)
+    check_same_selection(custom, builtin, "CustomScore vs MIScore")
+    t0 = time.perf_counter()
+    plain = MRMRSelector(L, score=mrmr_custom_score(MIScore(2, 2, use_kernel=False)),
+                         encoding="alternative").fit(Xd, yd)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check_same_selection(custom, plain, "CustomScore through the kernels vs plain")
+    if not np.isnan(custom.scores_).all() or custom.scores_.shape != (n,):
+        raise AssertionError("a CustomScore fit's relevance is not all NaN")
+    # One pick's full scores, kernels against the plain version.
+    Xr = Xd.T.contiguous()
+    sel = torch.zeros((L, m), dtype=torch.float32, device=dev)
+    sel[:2] = Xr[custom.selected_[:2].tolist()].to(torch.float32)
+    got = mrmr_custom_score(MIScore(2, 2)).full_score(Xr, yd, sel, 2)
+    ref_scores = mrmr_custom_score(MIScore(2, 2, use_kernel=False)).full_score(Xr, yd, sel, 2)
+    np.testing.assert_allclose(got.cpu(), ref_scores.cpu(), rtol=RTOL, atol=ATOL,
+                               err_msg="custom full_score, kernels vs plain")
+    err = float((got - ref_scores).abs().max())
+    log(f"[ooc] custom: {m}x{n}, L={L}, recompute path: {rec['seconds']:.3f} s, peak "
+        f"{rec['peak_mem_bytes']} bytes; {chunks} chunks a pick, launches "
+        f"{json.dumps(counts)}; the plain vmapped fit {plain_s:.3f} s; one pick's "
+        f"scores max abs err {err:.3g}")
+    # The count inputs of one chunk, as the vmap rule hands them to the
+    # kernel: the candidates' feature-major view against the class, and
+    # the selected rows' values fused with each candidate's (x * 2 + v,
+    # int32) against one class.
+    b = min(chunk, n)
+    cands = Xr[:b].T
+    fused = (sel.T.to(torch.int32)[:, None, :] * 2 + cands.to(torch.int32)[:, :, None]).flatten(1)
+    zero = torch.zeros((m,), dtype=torch.int32, device=dev)
+    times = [time_contingency(cands, yd.to(torch.int32), 2, 2,
+                              f"{m}x{b} int8 feature-major view (custom relevance chunk)", reps=40),
+             time_contingency(fused, zero, 4, 1,
+                              f"{m}x{b * L} int32 fused codes, V=4 C=1 (custom redundancy chunk)",
+                              reps=40)]
+    return dict(rec, plain_s=plain_s, chunks=chunks, max_abs_err=err), times
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -1359,16 +1805,20 @@ def main():
     flash_err, flash_times = phase("2 flash_attention", phase2_flash, dev)
     launches: dict = {}
     timings: list = []
-    fits = phase("3 tall", phase3, dev, launches, timings)
+    keep: dict = {}
+    fits = phase("3 tall", phase3, dev, launches, timings, keep)
     fits += phase("4 wide", phase4, dev, launches, timings)
     gen = torch.Generator(device=dev).manual_seed(4)
     Xc = (torch.rand((65536, 1000), generator=gen, device=dev) < 0.5).to(torch.int8)
     timings.append(time_conditional(Xc, Xc[:, 3].clone(), Xc[:, 5].to(torch.int32),
                                     "65536x1000 int8 VC=4 (conditional)"))
     del Xc
-    fits += phase("5 tall binned", phase5, dev, launches)
+    fits += phase("5 tall binned", phase5, dev, launches, keep)
     fits += phase("6 wide pearson", phase6, dev, launches)
     serves, serve_check = phase("7 yi-6b serve", phase7, dev, launches)
+    ooc, spilled_code_times = phase("8 out-of-core", phase8, dev, launches, fits, keep)
+    code_times += spilled_code_times
+    del keep
     rng = np.random.default_rng(1)
 
     def tables(*shape):
@@ -1386,7 +1836,7 @@ def main():
 
     mi_err = max([mi_err] + [r["max_abs_err"] for r in mi_times])
     mi_paths = ("tall_conventional", "tall_streaming", "wide_alternative",
-                "tall_binned_streaming", "tall_binned_in_memory")
+                "tall_binned_streaming", "tall_binned_in_memory", *OOC_PATHS)
     kernels = [
         # the streaming block: the shape launched most often
         kernel_entry("contingency_tables", "src/repro_torch/csrc/contingency.cu",
@@ -1410,7 +1860,7 @@ def main():
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
-                        plan_paths=plan_paths)))
+                        plan_paths=plan_paths, out_of_core=ooc)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,18 @@ encoding, or quantile bins and exact MI:
     >>> MRMRSelector(num_select=10).fit(X_float, y)           # PearsonMIScore
     >>> MRMRSelector(num_select=10, bins=16).fit(X_float, y)  # binned MI
 
+Out-of-core fits stream a ``DataSource`` (memmapped ``.npy``, CSV, Parquet,
+Arrow, the CorrAL generator) block by block; ``spill_dir=`` spills the
+parsed or encoded blocks once and replays them on later passes, and
+``readahead=`` reads the next pass while the current one drains:
+
+    >>> MRMRSelector(10, spill_dir="/tmp/spill", readahead=2).fit(CSVSource("d.csv"))
+
+The paper's custom-score interface (Listing 7) is ``CustomScore``;
+``repro_torch.serve.selection.SelectionService`` runs fits as managed jobs
+behind a result cache, and ``repro_torch.interop.sklearn.MRMRTransformer``
+is the scikit-learn face.
+
 Contingency counting, MI finalization, bin encoding and row correlation run
 through ``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``,
 ``csrc/bin_codes.cu``, ``csrc/pearson.cu``), built with ``nvcc`` for
@@ -52,12 +64,15 @@ from repro_torch.core.mrmr import (
     mrmr_reference,
 )
 from repro_torch.core.scores import (
+    CustomScore,
     MIScore,
     PearsonMIScore,
     ScoreFn,
     cor2mi,
+    mrmr_custom_score,
     pearson_rows,
 )
+from repro_torch.core.selection import FeatureSelector, mrmr_select
 from repro_torch.core.selector import (
     MRMRSelector,
     SelectionPlan,
@@ -90,7 +105,9 @@ __all__ = [
     "CMIMCriterion",
     "CorralSource",
     "Criterion",
+    "CustomScore",
     "DataSource",
+    "FeatureSelector",
     "ICAPCriterion",
     "JMICriterion",
     "MIDCriterion",
@@ -113,7 +130,9 @@ __all__ = [
     "fit_binned",
     "mrmr_alternative",
     "mrmr_conventional",
+    "mrmr_custom_score",
     "mrmr_reference",
+    "mrmr_select",
     "mrmr_streaming",
     "pearson_rows",
     "plan_selection",

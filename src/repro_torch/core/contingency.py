@@ -58,14 +58,17 @@ def batched_counts(
       (F, vx, vy) int32 counts.
     """
     M, F = X.shape
+    if F == 0:
+        return torch.zeros((0, vx, vy), dtype=torch.int32, device=X.device)
     dt = _acc_dtype(M)
     y_oh = _onehot(y, vy, dt)  # (M, vy)
-    out = torch.empty((F, vx, vy), dtype=torch.int32, device=X.device)
-    for lo in range(0, F, block):
-        x_oh = _onehot(X[:, lo : lo + block], vx, dt)  # (M, b, vx)
-        tab = torch.einsum("mfv,mc->fvc", x_oh, y_oh)
-        out[lo : lo + block] = tab.round().to(torch.int32)
-    return out
+    # Blocks joined with cat, not written into a preallocated output, so
+    # the count also runs under torch.func.vmap.
+    return torch.cat([
+        torch.einsum("mfv,mc->fvc", _onehot(X[:, lo : lo + block], vx, dt), y_oh)
+        .round().to(torch.int32)
+        for lo in range(0, F, block)
+    ])
 
 
 def fuse_targets(

@@ -13,7 +13,9 @@ Both run here unsharded on one device, as a host loop over the greedy
 picks with the selected set kept as a mask.  ``incremental=True`` carries
 the criterion's running fold state (each pick scores candidates against
 only the newly selected feature — O(N·L) pair scores);
-``incremental=False`` is the paper-faithful recomputation (O(N·L²)).  The
+``incremental=False`` is the paper-faithful recomputation (O(N·L²)); a
+:class:`~repro_torch.core.scores.CustomScore` always recomputes, on the
+reference and alternative engines, and reports a NaN relevance.  The
 incremental loop skips the fold after the last pick, whose result no pick
 would read, so a fit of L features counts L contingency passes
 (1 relevance + L-1 redundancy).
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.core import contingency
 from repro_torch.core.criteria import Criterion, resolve_criterion
-from repro_torch.core.scores import MIScore, ScoreFn
+from repro_torch.core.scores import CustomScore, MIScore, ScoreFn
 
 _NEG_INF = float("-inf")
 
@@ -123,6 +125,42 @@ def check_conditional_support(score: ScoreFn, crit: Criterion) -> None:
         )
 
 
+def _check_custom_criterion(score: ScoreFn, crit: Criterion) -> None:
+    """A CustomScore computes the complete objective itself (Listing 7), so
+    it bypasses the criterion fold; any other criterion than the default
+    would be silently ignored — fail instead."""
+    if isinstance(score, CustomScore) and crit.name != "mid":
+        raise ValueError(
+            f"criterion {crit.name!r} cannot be combined with CustomScore: "
+            "a custom get_result computes the complete objective itself "
+            "(paper Listing 7); use the default 'mid' criterion"
+        )
+
+
+def _custom_greedy(X_rows, y, num_select, score: CustomScore):
+    """The paper's recompute loop for a CustomScore: every pick scores all
+    candidates with ``full_score`` against the class and the float32 rows
+    of the features picked so far.  Returns ``(selected, gains, relevance)``
+    with a NaN relevance (a custom score has no relevance/redundancy
+    split)."""
+    n, m = X_rows.shape
+    dev = X_rows.device
+    sel_rows = torch.zeros((num_select, m), dtype=torch.float32, device=dev)
+    mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+    gains = torch.zeros((num_select,), dtype=torch.float32, device=dev)
+    selected: list = []
+    for l in range(num_select):
+        g = score.full_score(X_rows, y, sel_rows, l)
+        g = torch.where(mask, _NEG_INF, g)
+        k = int(torch.argmax(g))
+        mask[k] = True
+        gains[l] = g[k]
+        selected.append(k)
+        sel_rows[l] = X_rows[k].to(torch.float32)
+    rel = torch.full((n,), float("nan"), dtype=torch.float32, device=dev)
+    return torch.tensor(selected, dtype=torch.int32, device=dev), gains, rel
+
+
 def _greedy(rel, num_select, crit: Criterion, incremental: bool, terms_of):
     """The greedy loop every in-memory engine shares.
 
@@ -157,6 +195,10 @@ def _greedy(rel, num_select, crit: Criterion, incremental: bool, terms_of):
 
 
 def _feature_major(X_rows, y, num_select, score, crit, incremental):
+    _check_custom_criterion(score, crit)
+    check_conditional_support(score, crit)
+    if isinstance(score, CustomScore):
+        return _custom_greedy(X_rows, y, num_select, score)
     cond = crit.needs_redundancy and crit.needs_conditional_redundancy
 
     def terms_of(k):
@@ -182,7 +224,6 @@ def mrmr_reference(
 ) -> MRMRResult:
     """mRMR on one device. ``X_rows`` is feature-major (N, M)."""
     crit = resolve_criterion(criterion)
-    check_conditional_support(score, crit)
     sel, gains, rel = _feature_major(X_rows, y, num_select, score, crit, incremental)
     return MRMRResult(sel, gains, relevance=rel, criterion=crit.name,
                       engine="reference")
@@ -248,7 +289,6 @@ def mrmr_alternative(
     transposed view of a conventional matrix: the kernel reads it in
     place."""
     crit = resolve_criterion(criterion)
-    check_conditional_support(score, crit)
     sel, gains, rel = _feature_major(X_rows, y, num_select, score, crit, incremental)
     return MRMRResult(sel, gains, relevance=rel, criterion=crit.name,
                       engine="alternative")

@@ -15,12 +15,17 @@ Every MI value here is finalized by the MI kernel
 version on the CPU; every contingency count by the contingency kernel; and
 every in-memory Pearson correlation by the correlation kernel
 (:mod:`repro_torch.kernels.pearson`).
+
+:class:`CustomScore` is the paper's Listing-7 interface: a user
+``get_result`` scores one candidate completely, vmapped over candidates
+(a chunk of them one launch of each kernel it reaches), and the engines
+recompute it at every pick.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Union
+from typing import Callable, Literal, Union
 
 import torch
 
@@ -368,7 +373,79 @@ class PearsonMIScore(ScoreFn):
         return cor2mi(torch.clamp(corr, -1.0, 1.0))
 
 
+# Candidates a vmapped ``get_result`` call scores at once are chosen so that
+# a chunk holds about this many elements of the (candidates, selected rows,
+# observations) product: a vmapped redundancy count fuses each candidate's
+# values with the selected rows into a tensor of that size, never one for
+# all candidates.
+_CUSTOM_CHUNK_ELEMS = 1 << 24
+
+
+@dataclasses.dataclass(frozen=True)
+class CustomScore(ScoreFn):
+    """Adapter for the paper's Listing-7 ``getResult`` interface.
+
+    ``get_result(variable (M,), class (M,), selected (L, M), n_selected)``
+    must return the *complete* feature score for one candidate (``selected``
+    float32, its first ``n_selected`` rows filled; ``n_selected`` a 0-d
+    int32 tensor).  An arbitrary user score need not decompose into
+    relevance and redundancy, so this takes the paper's recompute-every-pick
+    path on the reference and alternative engines, and it cannot stream.
+
+    As in the JAX package (which ``vmap``s it), ``get_result`` is written
+    for one candidate and mapped over all of them: here with
+    ``torch.func.vmap``, a chunk of candidates per call (about
+    ``_CUSTOM_CHUNK_ELEMS`` elements of candidates x rows x observations),
+    so it must be built from vmappable torch operations (no ``.item()``, no
+    data-dependent shapes).  The scores' ``relevance`` / ``redundancy`` are:
+    their contingency, MI and correlation calls batch a chunk into one
+    kernel launch (:mod:`repro_torch.kernels.ops`).
+    """
+
+    get_result: Callable
+
+    incremental_safe = False
+
+    def __post_init__(self):
+        # Fail here, not as an opaque TypeError inside the vmapped call.
+        if not callable(self.get_result):
+            raise TypeError(
+                "CustomScore requires a callable get_result(variable, cls, "
+                f"selected, n_selected); got {self.get_result!r}"
+            )
+
+    def full_score(
+        self, cands: torch.Tensor, cls: torch.Tensor, selected: torch.Tensor,
+        n_selected,
+    ) -> torch.Tensor:
+        """(F, M), (M,), (L, M), () -> (F,) float32 full scores."""
+        f, m = cands.shape
+        n_sel = torch.as_tensor(n_selected, dtype=torch.int32, device=cands.device)
+        per_cand = max(1, m * (selected.shape[0] + 1))
+        chunk = max(1, _CUSTOM_CHUNK_ELEMS // per_cand)
+        fn = torch.func.vmap(self.get_result, in_dims=(0, None, None, None))
+        return torch.cat([
+            fn(cands[i:i + chunk], cls, selected, n_sel).to(torch.float32)
+            for i in range(0, f, chunk)
+        ])
+
+
+def mrmr_custom_score(score: ScoreFn) -> CustomScore:
+    """Express a relevance/redundancy score through the Listing-7 interface
+    (used to validate the custom path against the built-in path)."""
+
+    def get_result(v, cls, selected, n_selected):
+        rel = score.relevance(v[None], cls)[0]
+        red = score.redundancy(selected, v)  # (L,) scores vs each selected row
+        mask = torch.arange(selected.shape[0], device=selected.device) < n_selected
+        red_sum = torch.where(mask, red, 0.0).sum()
+        return rel - red_sum / torch.clamp_min(n_selected, 1).to(torch.float32)
+
+    return CustomScore(get_result=get_result)
+
+
 __all__ = [
+    "CustomScore",
     "MIScore",
     "PearsonMIScore",
     "ScoreFn",
@@ -376,6 +453,7 @@ __all__ = [
     "cor2mi",
     "entropy_from_counts",
     "mi_from_counts",
+    "mrmr_custom_score",
     "pearson_rows",
     "standardize_rows",
 ]

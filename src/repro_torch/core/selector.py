@@ -67,6 +67,11 @@ class SelectionPlan:
     device: str = "cuda"              # where the engine runs
     bins: int | None = None           # quantile-binned fit: codes per
                                       # feature (None = data used as given)
+    spill_dir: str | None = None      # streaming: encoded-block spill cache
+                                      # directory (None = off)
+    spill_budget_bytes: int | None = None  # LRU byte budget for spill_dir
+    readahead: int = 0                # streaming: raw blocks read across
+                                      # pass boundaries (0 = off)
 
 
 def _axes(axes) -> tuple:
@@ -244,14 +249,21 @@ class MRMRSelector:
         ``plan_.bins`` records what ran.  Streaming fits encode each block
         on the card; in-memory fits encode the whole matrix on the card once.
       batch_candidates: streaming redundancy vectors speculated per pass.
+      spill_dir: streaming fits only — directory of the encoded-block
+        spill cache (:class:`repro_torch.data.block_cache.BlockCacheSource`):
+        pass 1 spills each parsed or encoded block as ``.npy`` chunks,
+        passes 2..L replay them memmapped (a binned source spills its int
+        codes).  ``spill_budget_bytes`` bounds the directory (LRU).
+      readahead: streaming fits only — raw blocks a reader thread holds
+        ahead across pass boundaries (0 = off; positive replaces
+        ``prefetch``).
       hosts: ``None``, 1 or ``"auto"`` (the ``torch.distributed`` world
         size, 1 on one process); more than one process is not yet ported.
       device: where the fit runs; "cuda" (the default) raises without a
         card, "cpu" runs the plain PyTorch versions.
-      mesh, spill_dir, spill_budget_bytes, readahead: not yet ported; and
-        ``devices``, ``obs_axes``, ``feat_axes`` only as one device (None or
-        1, the default axes).  Any other value raises
-        ``NotImplementedError`` naming the knob.
+      mesh: not yet ported; and ``devices``, ``obs_axes``, ``feat_axes``
+        only as one device (None or 1, the default axes).  Any other value
+        raises ``NotImplementedError`` naming the knob.
     """
 
     num_select: int
@@ -287,9 +299,6 @@ class MRMRSelector:
         unported = dict(
             mesh=self.mesh is not None,
             hosts=_resolve_hosts(self.hosts) > 1,
-            spill_dir=self.spill_dir is not None,
-            spill_budget_bytes=self.spill_budget_bytes is not None,
-            readahead=bool(self.readahead),
         )
         for knob, is_set in unported.items():
             if is_set:
@@ -450,6 +459,8 @@ class MRMRSelector:
         q = int(self.batch_candidates)
         if q < 1:
             raise ValueError(f"batch_candidates must be >= 1, got {q}")
+        if int(self.readahead) < 0:
+            raise ValueError(f"readahead must be >= 0, got {self.readahead}")
         plan = SelectionPlan(
             encoding="streaming",
             block_obs=effective_block_obs(self.block_obs),
@@ -457,6 +468,9 @@ class MRMRSelector:
             score=score, criterion=crit, batch_candidates=q,
             device=str(self._device),
             bins=source.bins if isinstance(source, BinnedSource) else None,
+            spill_dir=self.spill_dir,
+            spill_budget_bytes=self.spill_budget_bytes,
+            readahead=int(self.readahead),
         )
         res = get_engine("streaming")(
             source, None, num_select=self.num_select, plan=plan

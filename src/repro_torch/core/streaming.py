@@ -35,9 +35,23 @@ counted in the ledger.  Any other score on a binned source streams the
 wrapper's host-encoded blocks.  Scores with a dict state
 (``PearsonMIScore``'s running moments) stream the same way.
 
+Two knobs cut the cost of the L passes over the source, with the JAX
+engine's semantics:
+
+* ``spill_dir=`` wraps the source in a
+  :class:`~repro_torch.data.block_cache.BlockCacheSource` after parse and
+  encode: pass 1 spills each block as ``.npy`` chunks, passes 2..L replay
+  them memmapped.  A spilled ``BinnedSource`` spills its int codes (int8 for
+  ``bins <= 128``), so it streams codes, not floats, and the bin-code kernel
+  does not run: the staging pass encodes on the host, once.
+* ``readahead=`` runs a :class:`~repro_torch.dist.streaming.CrossPassReader`
+  that reads the next pass's blocks while the current pass drains (which
+  blocks a pass reads never depends on the pick).
+
 Every fit reports its I/O on the result: ``MRMRResult.io`` carries
 ``passes`` / ``blocks_read`` / ``bytes_read`` / ``state_bytes``, counted
-exactly as the JAX package's streaming engine counts them.
+exactly as the JAX package's streaming engine counts them, and, for a
+spilled fit, ``cache``: the spill's parse and replay passes and bytes.
 """
 
 from __future__ import annotations
@@ -50,9 +64,15 @@ from repro_torch.core.mrmr import MRMRResult, check_conditional_support
 from repro_torch.core.scores import MIScore, ScoreFn
 from repro_torch.core.selector import check_num_select, register_engine
 from repro_torch.data.binning import BinnedSource, _as_class_labels
+from repro_torch.data.block_cache import BlockCacheSource
 from repro_torch.data.sources import as_source
 from repro_torch.device import resolve_device
-from repro_torch.dist.streaming import BlockPlacer, PrefetchPlacer, resolve_prefetch
+from repro_torch.dist.streaming import (
+    BlockPlacer,
+    CrossPassReader,
+    PrefetchPlacer,
+    resolve_prefetch,
+)
 from repro_torch.kernels import ops
 
 _NEG_INF = float("-inf")
@@ -249,6 +269,9 @@ def mrmr_streaming(
     prefetch="auto",
     criterion: Criterion | str = "mid",
     batch_candidates: int = 1,
+    spill_dir: str | None = None,
+    spill_budget_bytes: int | None = None,
+    readahead: int = 0,
 ) -> MRMRResult:
     """Greedy mRMR over a :class:`~repro_torch.data.sources.DataSource`.
 
@@ -262,6 +285,14 @@ def mrmr_streaming(
         ``"auto"`` = 2 on a CUDA device, 0 on the CPU).
       criterion: greedy objective, a registered name or a Criterion.
       batch_candidates: redundancy vectors speculated per pass (``q``).
+      spill_dir: directory of the encoded-block spill cache
+        (:class:`~repro_torch.data.block_cache.BlockCacheSource`): pass 1
+        writes the parsed and encoded blocks, passes 2..L replay them
+        memmapped.  ``spill_budget_bytes`` bounds the directory, least
+        recently used entries first.
+      readahead: raw blocks a reader thread holds ahead of the consumer,
+        across pass boundaries (0 = off); when positive it takes the place
+        of ``prefetch``.
     """
     crit = resolve_criterion(criterion)
     device = resolve_device(device)
@@ -280,6 +311,19 @@ def mrmr_streaming(
     q = int(batch_candidates)
     if q < 1:
         raise ValueError(f"batch_candidates must be >= 1, got {q}")
+    if readahead < 0:
+        raise ValueError(f"readahead must be >= 0, got {readahead}")
+
+    # A caller-wrapped BlockCacheSource reports its counters like one the
+    # engine wraps.  The cache sits after parse and encode: a spilled
+    # BinnedSource spills its codes, so the replay passes skip the encode
+    # too, and the fused device encode below does not run (the codes are
+    # encoded once, on the host, in the staging pass).
+    spill = source if isinstance(source, BlockCacheSource) else None
+    if spill_dir is not None:
+        spill = source = BlockCacheSource(
+            source, spill_dir, budget_bytes=spill_budget_bytes
+        )
 
     placer = BlockPlacer(block_obs, device, num_features=n)
     # A BinnedSource scoring discrete MI streams FUSED: the base's raw float
@@ -292,23 +336,43 @@ def mrmr_streaming(
         edges = placer.place_edges(binner.edges_)
         block_src = source.base
     io = _PassIO()
+    reader = None
+    if readahead > 0:
+        # At most one pass per pick; close() stops the thread wherever the
+        # fit ends (batched speculation needs fewer passes).
+        reader = CrossPassReader(
+            lambda: block_src.iter_blocks(placer.block_obs),
+            depth=readahead,
+            max_passes=num_select if crit.needs_redundancy else 1,
+        )
+        next_raw = reader.next_pass
+        prefetch = 0  # the reader thread is the producer; stage at consume
+    else:
+        def next_raw():
+            return block_src.iter_blocks(placer.block_obs)
 
     def run_pass(target_cols, batch=None):
         return _score_pass(
-            block_src.iter_blocks(placer.block_obs), score, placer,
-            target_cols, prefetch, io, batch,
+            next_raw(), score, placer, target_cols, prefetch, io, batch,
             conditional=needs_cond and target_cols is not None,
             binner=binner, edges=edges,
         )
 
-    rel, selected, gains = _greedy_select(run_pass, crit, n, num_select, q)
+    try:
+        rel, selected, gains = _greedy_select(run_pass, crit, n, num_select, q)
+    finally:
+        if reader is not None:
+            reader.close()
+    io_report = io.as_dict()
+    if spill is not None:
+        io_report["cache"] = dict(spill.counters)
     return MRMRResult(
         selected=torch.from_numpy(selected),
         gains=torch.from_numpy(gains),
         relevance=torch.from_numpy(rel),
         criterion=crit.name,
         engine="streaming",
-        io=io.as_dict(),
+        io=io_report,
     )
 
 
@@ -324,6 +388,9 @@ def _fit_streaming(source, y, *, num_select, plan) -> MRMRResult:
         prefetch=plan.prefetch,
         criterion=plan.criterion,
         batch_candidates=plan.batch_candidates,
+        spill_dir=plan.spill_dir,
+        spill_budget_bytes=plan.spill_budget_bytes,
+        readahead=plan.readahead,
     )
 
 

@@ -10,15 +10,19 @@ per-score sufficient statistics on the device, so peak device memory is
 bounded by the block size, never by ``num_obs``.
 
 Sources here: in-memory arrays (:class:`ArraySource`), memmapped ``.npy``
-files (:class:`NpySource`) and the paper's synthetic generator
-(:class:`CorralSource`).  Blocks are bitwise those of the JAX package's
-sources (``repro.data.sources``) for the same data and any ``block_obs``.
+files (:class:`NpySource`), CSV files (:class:`CSVSource`), Parquet files
+and in-memory Arrow tables (:class:`ParquetSource` / :class:`ArrowSource`,
+which need pyarrow, imported only when one is built) and the paper's
+synthetic generator (:class:`CorralSource`).  Blocks are bitwise those of
+the JAX package's sources (``repro.data.sources``) for the same data and
+any ``block_obs``, and so are the fingerprints.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import io
 import os
 import threading
 from collections import OrderedDict
@@ -268,6 +272,284 @@ class NpySource(ArraySource):
         _stat_fingerprint(h, self.x_path, self.y_path)
 
 
+class CSVSource(DataSource):
+    """Streaming CSV reader: parses ``block_obs`` lines at a time.
+
+    Args:
+      path: CSV file; a non-numeric first line is treated as a header.
+      target_col: column index of the target (default: last column).
+      dtype: feature dtype (use an integer dtype for discrete/MI data).
+      target_dtype: target dtype (default: ``dtype``).
+      delimiter: field separator.
+    """
+
+    def __init__(
+        self,
+        path: str,
+        *,
+        target_col: int = -1,
+        dtype=np.float32,
+        target_dtype=None,
+        delimiter: str = ",",
+    ):
+        self.path = path
+        self.target_col = target_col
+        self.dtype = np.dtype(dtype)
+        self.target_dtype = np.dtype(target_dtype or dtype)
+        self.delimiter = delimiter
+        with open(path) as f:
+            first = f.readline()
+        if not first:
+            raise ValueError(f"empty CSV {path!r}")
+        fields = first.strip().split(delimiter)
+        self._has_header = not _all_numeric(fields)
+        self._num_cols = len(fields)
+        self._num_obs: int | None = None
+
+    @property
+    def num_obs(self) -> int:
+        if self._num_obs is None:  # one cheap line-count pass, cached
+            with open(self.path) as f:
+                n = sum(1 for line in f if line.strip())
+            self._num_obs = n - int(self._has_header)
+        return self._num_obs
+
+    @property
+    def num_features(self) -> int:
+        return self._num_cols - 1
+
+    @property
+    def feature_dtype(self) -> np.dtype:
+        return self.dtype
+
+    def _parse(self, lines: list) -> Block:
+        tgt = self.target_col % self._num_cols
+        keep = [c for c in range(self._num_cols) if c != tgt]
+        rows = np.loadtxt(
+            io.StringIO("".join(lines)),
+            delimiter=self.delimiter,
+            ndmin=2,
+            dtype=np.float64,
+        )
+        return rows[:, keep].astype(self.dtype), rows[:, tgt].astype(
+            self.target_dtype
+        )
+
+    def _fingerprint_update(self, h) -> None:
+        # Parse knobs are part of the identity: the same file read with a
+        # different target column or dtype is a different dataset.
+        _stat_fingerprint(h, self.path)
+        h.update(
+            repr(
+                (self.target_col, str(self.dtype), str(self.target_dtype),
+                 self.delimiter)
+            ).encode()
+        )
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        with open(self.path) as f:
+            if self._has_header:
+                f.readline()
+            lines: list = []
+            # Count only non-blank lines toward the block, so blank runs of
+            # any length never truncate the stream.
+            for line in f:
+                if not line.strip():
+                    continue
+                lines.append(line)
+                if len(lines) == block_obs:
+                    yield self._parse(lines)
+                    lines = []
+            if lines:
+                yield self._parse(lines)
+
+
+def _pyarrow(what: str):
+    """Soft-import pyarrow: columnar sources are optional, and the error
+    should say what to install rather than NameError deep in a fit."""
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        raise ImportError(
+            f"{what} requires pyarrow; install it (pip install pyarrow) "
+            "or convert the data to .npy/.csv for the built-in readers"
+        ) from None
+    return pa, pq
+
+
+def _arrow_numpy_dtype(fields) -> np.dtype:
+    """Schema -> block dtype: all-integral (incl. bool) columns stream as
+    int32 (exact-MI territory), anything else as float32 — the same
+    discrete-vs-continuous split :meth:`DataSource.stats` applies."""
+    import pyarrow.types as pt
+
+    integral = all(
+        pt.is_integer(f.type) or pt.is_boolean(f.type) for f in fields
+    )
+    return np.dtype(np.int32 if integral else np.float32)
+
+
+class _ColumnarSource(DataSource):
+    """Shared column-wise block extraction for Arrow-layout sources.
+
+    Subclasses provide ``_batches(block_obs)`` — an iterator of
+    RecordBatch/Table slices in row order — plus resolved feature/target
+    column names and dtypes; this base turns each slice into the
+    protocol's ``(X (B, N), y (B,))`` numpy block.
+    """
+
+    def _resolve_columns(self, names, target_col):
+        if isinstance(target_col, str):
+            if target_col not in names:
+                raise ValueError(
+                    f"target column {target_col!r} not in schema {names}"
+                )
+            tgt = target_col
+        else:
+            tgt = names[int(target_col) % len(names)]
+        self._tgt_name = tgt
+        self._feat_names = [n for n in names if n != tgt]
+        if not self._feat_names:
+            raise ValueError("schema holds only the target column")
+
+    def _block_of(self, batch) -> Block:
+        def col(name):
+            idx = batch.schema.get_field_index(name)
+            return batch.column(idx).to_numpy(zero_copy_only=False)
+
+        X = np.column_stack(
+            [col(n).astype(self.dtype, copy=False) for n in self._feat_names]
+        )
+        y = col(self._tgt_name).astype(self.target_dtype, copy=False)
+        return np.ascontiguousarray(X), np.ascontiguousarray(y)
+
+    @property
+    def num_features(self) -> int:
+        return len(self._feat_names)
+
+    @property
+    def feature_dtype(self) -> np.dtype:
+        return self.dtype
+
+
+class ParquetSource(_ColumnarSource):
+    """Streaming Parquet reader (pyarrow) — column-chunked row batches.
+
+    ``pq.ParquetFile.iter_batches`` decodes ``block_obs`` rows at a time
+    straight from the file's row groups, so peak host memory is one block
+    regardless of file size; row order is file order, independent of the
+    requested block size.  Geometry (``num_obs``) comes from the Parquet
+    footer metadata — no data pages are read until ``iter_blocks``.
+
+    Args:
+      path: ``.parquet`` file.
+      target_col: target column name, or index into the schema (default:
+        last column).
+      dtype / target_dtype: numpy dtypes for the emitted blocks; default
+        derives from the schema (all-integral columns -> int32 for exact
+        MI, otherwise float32 — pair with ``bins=`` on the selector).
+
+    Composes like every other source: wrap in ``BinnedSource`` for
+    on-the-fly quantile discretisation or ``BlockCacheSource`` to spill
+    decoded blocks across selection passes.
+    """
+
+    def __init__(
+        self, path: str, *, target_col=-1, dtype=None, target_dtype=None
+    ):
+        _, pq = _pyarrow("ParquetSource")
+        self.path = path
+        self.target_col = target_col
+        meta = pq.ParquetFile(path)
+        try:
+            schema = meta.schema_arrow
+            self._resolve_columns(list(schema.names), target_col)
+            self._num_obs = int(meta.metadata.num_rows)
+            fields = {f.name: f for f in schema}
+        finally:
+            meta.close()
+        self.dtype = (
+            np.dtype(dtype)
+            if dtype is not None
+            else _arrow_numpy_dtype([fields[n] for n in self._feat_names])
+        )
+        self.target_dtype = (
+            np.dtype(target_dtype)
+            if target_dtype is not None
+            else _arrow_numpy_dtype([fields[self._tgt_name]])
+        )
+
+    @property
+    def num_obs(self) -> int:
+        return self._num_obs
+
+    def _fingerprint_update(self, h) -> None:
+        # (path, size, mtime_ns) like NpySource — never a content pass —
+        # plus the parse knobs: same file, different target column or
+        # dtype is a different dataset.
+        _stat_fingerprint(h, self.path)
+        h.update(
+            repr(
+                (self.target_col, str(self.dtype), str(self.target_dtype))
+            ).encode()
+        )
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        _, pq = _pyarrow("ParquetSource")
+        pf = pq.ParquetFile(self.path)
+        try:
+            cols = self._feat_names + [self._tgt_name]
+            for batch in pf.iter_batches(batch_size=block_obs, columns=cols):
+                yield self._block_of(batch)
+        finally:
+            pf.close()
+
+
+class ArrowSource(_ColumnarSource):
+    """An in-memory ``pyarrow.Table`` (or RecordBatch) as a source.
+
+    The zero-copy handoff for data already in Arrow memory — a Flight
+    fetch, a DuckDB/Polars result — sliced into observation blocks
+    without ever round-tripping through a file.
+    """
+
+    def __init__(self, table, *, target_col=-1, dtype=None, target_dtype=None):
+        pa, _ = _pyarrow("ArrowSource")
+        if isinstance(table, pa.RecordBatch):
+            table = pa.Table.from_batches([table])
+        self.table = table
+        self.target_col = target_col
+        self._resolve_columns(list(table.schema.names), target_col)
+        fields = {f.name: f for f in table.schema}
+        self.dtype = (
+            np.dtype(dtype)
+            if dtype is not None
+            else _arrow_numpy_dtype([fields[n] for n in self._feat_names])
+        )
+        self.target_dtype = (
+            np.dtype(target_dtype)
+            if target_dtype is not None
+            else _arrow_numpy_dtype([fields[self._tgt_name]])
+        )
+
+    @property
+    def num_obs(self) -> int:
+        return int(self.table.num_rows)
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        for lo in range(0, self.num_obs, block_obs):
+            yield self._block_of(self.table.slice(lo, block_obs))
+
+
+def _all_numeric(fields) -> bool:
+    try:
+        [float(v) for v in fields]
+        return True
+    except ValueError:
+        return False
+
+
 def _stat_fingerprint(h, *paths: str) -> None:
     """Feed ``(abspath, size, mtime_ns)`` of each file into the hash."""
     for p in paths:
@@ -339,9 +621,12 @@ class CorralSource(DataSource):
 
 __all__ = [
     "ArraySource",
+    "ArrowSource",
+    "CSVSource",
     "CorralSource",
     "DataSource",
     "NpySource",
+    "ParquetSource",
     "SourceStats",
     "as_source",
     "clear_stats_memo",

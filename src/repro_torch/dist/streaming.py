@@ -9,6 +9,10 @@ while the host moves on; on the CPU as a view of the numpy block.
 ``PrefetchPlacer`` is the double-buffered face of the same placement: a
 bounded host thread reads and pads block ``i+1`` while the consumer places
 block ``i`` and the device counts it.
+
+``CrossPassReader`` reads raw blocks ahead across pass boundaries, so the
+next pass's first blocks are in hand while the current pass finishes and
+the host picks the next feature.
 """
 
 from __future__ import annotations
@@ -20,8 +24,9 @@ import threading
 import numpy as np
 import torch
 
-# End-of-stream sentinel for the prefetch queue.
+# End-of-stream sentinels for the prefetch and read-ahead queues.
 _DONE = object()
+_PASS_END = object()
 
 
 def resolve_prefetch(prefetch, device) -> int:
@@ -175,3 +180,85 @@ class PrefetchPlacer:
                 except queue.Empty:
                     pass
                 worker.join(timeout=0.01)
+
+
+class CrossPassReader:
+    """Read blocks ahead *across pass boundaries* on one reader thread.
+
+    The streaming engine's pass loop has a structural bubble: while the
+    device finalizes pass ``l`` and the host folds/argmaxes, nobody is
+    reading pass ``l+1`` — yet which blocks a pass reads never depends on
+    the pick (only the target-column *extraction* does, and the engine
+    extracts at consume time).  This reader keeps one thread iterating
+    ``make_pass()`` — a fresh raw ``(X, y)`` host-block iterator per call
+    — pass after pass, up to ``depth`` blocks ahead through a bounded
+    queue, so the tail of pass ``l`` overlaps the head of pass ``l+1``.
+
+    The consumer pulls whole passes in order via :meth:`next_pass` and
+    must call :meth:`close` (or exhaust ``max_passes``) to stop the
+    thread.  Read/parse exceptions re-raise in the consumer at the block
+    they correspond to.
+    """
+
+    def __init__(self, make_pass, depth: int = 2, max_passes: int | None = None):
+        if depth < 1:
+            raise ValueError(f"read-ahead depth must be >= 1, got {depth}")
+        if max_passes is not None and max_passes < 1:
+            raise ValueError(f"max_passes must be >= 1, got {max_passes}")
+        self._make_pass = make_pass
+        self._max_passes = max_passes
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._passes_started = 0
+        self._worker = threading.Thread(
+            target=self._produce, name="cross-pass-readahead", daemon=True
+        )
+        self._worker.start()
+
+    def _produce(self):
+        try:
+            p = 0
+            while self._max_passes is None or p < self._max_passes:
+                self._passes_started += 1
+                for blk in self._make_pass():
+                    if self._stop.is_set():
+                        return
+                    self._q.put((blk, None))
+                self._q.put((_PASS_END, None))
+                if self._stop.is_set():
+                    return
+                p += 1
+            self._q.put((_DONE, None))
+        except BaseException as exc:  # re-raised by the consumer
+            self._q.put((None, exc))
+
+    def next_pass(self):
+        """Iterator over the next pass's raw ``(X, y)`` host blocks."""
+        while True:
+            item, exc = self._q.get()
+            if exc is not None:
+                raise exc
+            if item is _PASS_END:
+                return
+            if item is _DONE:
+                raise RuntimeError(
+                    "CrossPassReader exhausted: next_pass() called after "
+                    f"max_passes={self._max_passes} passes were consumed"
+                )
+            yield item
+
+    def close(self):
+        """Stop the reader thread and drop any read-ahead blocks."""
+        self._stop.set()
+        while self._worker.is_alive():
+            try:  # unblock a producer waiting on a full queue
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._worker.join(timeout=0.01)
+
+    def __enter__(self) -> "CrossPassReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

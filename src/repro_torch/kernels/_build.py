@@ -12,8 +12,9 @@ The library lands in ``repro_torch/build/<name>-<hash>/`` (listed in
 unchanged one loads at once. Nothing is built when a
 module is imported: :func:`load` builds at first use, and
 :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
-for them (what ``chip_smoke.py`` times). A failed build raises with the
-compiler's output.
+for them (what ``chip_smoke.py`` times). Both hold one lock, so threads
+that first launch kernels at the same time build each source once. A
+failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -164,6 +165,17 @@ def sm_count(device) -> int:
     if n is None:
         n = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return n
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a read, add and store) under a lock:
+    worker threads of the selection service launch kernels at once, and an
+    unlocked ``+=`` can lose a count between threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, what: str) -> None:

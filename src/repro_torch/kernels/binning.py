@@ -112,7 +112,7 @@ def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor,
         out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "bin_codes_launch")
-    bin_codes_cuda.launches += 1
+    _build.count_launch(bin_codes_cuda)
     return out
 
 

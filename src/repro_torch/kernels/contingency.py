@@ -214,7 +214,7 @@ def contingency_tables_cuda(
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "contingency_tables_launch")
-    contingency_tables_cuda.launches += 1
+    _build.count_launch(contingency_tables_cuda)
     return out
 
 

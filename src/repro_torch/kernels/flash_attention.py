@@ -97,7 +97,7 @@ def flash_attention_cuda(
         raise RuntimeError("flash_attention_launch: cuTensorMapEncodeTiled failed "
                            f"(CUresult {err - _ENCODE_FAILED})")
     _build.check(err, "flash_attention_launch")
-    flash_attention_cuda.launches += 1
+    _build.count_launch(flash_attention_cuda)
     return out
 
 

@@ -84,7 +84,7 @@ def mi_scores_cuda(counts: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
     _build.check(err, "mi_scores_launch")
-    mi_scores_cuda.launches += 1
+    _build.count_launch(mi_scores_cuda)
     return out
 
 

@@ -104,7 +104,7 @@ def pearson_corr_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "pearson_corr_launch")
-    pearson_corr_cuda.launches += 1
+    _build.count_launch(pearson_corr_cuda)
     return out
 
 

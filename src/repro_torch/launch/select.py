@@ -19,8 +19,21 @@
         --input X.npy --target y.npy --bins 16
     PYTHONPATH=src python -m repro_torch.launch.select --score pearson
 
+    # The L-pass I/O knobs of a streamed fit (CSV, Parquet or .npy input):
+    # speculate 8 redundancy candidates per pass, spill parsed blocks so
+    # passes 2..L replay memmapped chunks, read the next pass ahead
+    PYTHONPATH=src python -m repro_torch.launch.select \
+        --input data.csv --select 32 --batch-candidates 8 \
+        --spill-dir /tmp/spill --readahead 2 --output result.json
+
+Inputs: ``--input data.npz`` (arrays ``X``, ``y``) fits in memory;
+``--input X.npy --target y.npy`` memmaps and streams; ``--input data.csv``
+streams a CSV and ``--input data.parquet`` Parquet row batches (pyarrow),
+target = last column; default is the paper's CorrAL generator.
+
 Prints one JSON line: the plan, the device it ran on, the picks and gains
-(and the streaming engine's I/O ledger, and the bins of a binned fit).
+(and the streaming engine's I/O ledger, and the bins of a binned fit);
+``--output`` also writes the full ``MRMRResult`` as JSON.
 """
 
 from __future__ import annotations
@@ -35,17 +48,44 @@ import torch
 from repro_torch.core.criteria import available_criteria, resolve_criterion
 from repro_torch.core.scores import MIScore, PearsonMIScore
 from repro_torch.core.selector import MRMRSelector, check_num_select
-from repro_torch.data.sources import NpySource
+from repro_torch.data.sources import CSVSource, NpySource
 from repro_torch.data.synthetic import corral_dataset_np
 from repro_torch.device import device_name
+
+
+def _load_input(args) -> tuple:
+    """``(X, y)`` arrays for an in-memory fit, or ``(source,)`` to stream."""
+    path = args.input
+    if path is None:
+        return corral_dataset_np(args.rows, args.cols, seed=args.seed)
+    if path.endswith(".npz"):
+        data = np.load(path)
+        return data["X"], data["y"]
+    if path.endswith(".npy"):
+        if not args.target:
+            raise SystemExit("--target <y.npy> is required with a .npy input")
+        return (NpySource(path, args.target),)
+    if path.endswith(".csv"):
+        # Binned fits read float columns (the sketch pass discretises);
+        # plain MI expects integer categories.
+        dtype = np.int32 if args.score == "mi" and not args.bins else np.float32
+        return (CSVSource(path, dtype=dtype),)
+    if path.endswith(".parquet"):
+        from repro_torch.data.sources import ParquetSource
+
+        try:  # block dtypes from the file's schema; target = last column
+            return (ParquetSource(path),)
+        except ImportError as e:
+            raise SystemExit(str(e)) from None
+    raise SystemExit(f"unsupported --input {path!r} (.npz, .npy, .csv or .parquet)")
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--input", default=None,
-                    help=".npy feature matrix (observations x features)")
+                    help=".npz with X, y | .npy matrix (see --target) | .csv | .parquet")
     ap.add_argument("--target", default=None,
-                    help="target-vector .npy for --input")
+                    help="target-vector .npy for a .npy --input")
     ap.add_argument("--rows", type=int, default=100_000)
     ap.add_argument("--cols", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
@@ -61,8 +101,33 @@ def main(argv=None) -> dict:
                          "select with exact discrete MI; 0 = off")
     ap.add_argument("--num-values", type=int, default=2)
     ap.add_argument("--num-classes", type=int, default=2)
+    ap.add_argument("--incremental", type=int, default=1,
+                    help="1: running criterion fold; 0: the paper's "
+                         "per-pick recomputation (in-memory engines)")
+    ap.add_argument("--block", type=int, default=64,
+                    help="accepted for the JAX command line; the kernels "
+                         "pick their own tiling")
     ap.add_argument("--block-obs", type=int, default=65536,
-                    help="observations per streamed block (.npy inputs)")
+                    help="observations per streamed block (file inputs)")
+    ap.add_argument("--prefetch", default="auto",
+                    help="streamed blocks staged ahead of the device "
+                         "(0 = synchronous; 'auto' = 2 on the card, 0 on the CPU)")
+    ap.add_argument("--batch-candidates", type=int, default=1,
+                    help="redundancy vectors speculated per streamed pass "
+                         "(q): L-1 redundancy passes drop toward "
+                         "ceil((L-1)/q); selections are identical")
+    ap.add_argument("--spill-dir", default=None,
+                    help="encoded-block spill cache directory: pass 1 "
+                         "spills parsed/encoded blocks as .npy chunks, "
+                         "passes 2..L replay them memmapped")
+    ap.add_argument("--spill-budget-mb", type=int, default=0,
+                    help="LRU byte budget for --spill-dir in MiB (0 = unbounded)")
+    ap.add_argument("--readahead", type=int, default=0,
+                    help="raw blocks read ahead across pass boundaries "
+                         "(0 = off; replaces --prefetch)")
+    ap.add_argument("--output", default=None,
+                    help="write the full MRMRResult (selected, gains, "
+                         "relevance, provenance, io) as JSON to this path")
     ap.add_argument("--encoding", default="auto",
                     choices=("auto", "conventional", "alternative", "streaming"))
     ap.add_argument("--device", default="cuda")
@@ -76,15 +141,8 @@ def main(argv=None) -> dict:
             f"available: {', '.join(available_criteria())}"
         ) from None
 
-    if args.input is not None:
-        if not args.target:
-            raise SystemExit("--target <y.npy> is required with --input")
-        data = (NpySource(args.input, args.target),)
-        n_features = data[0].num_features
-    else:
-        X, y = corral_dataset_np(args.rows, args.cols, seed=args.seed)
-        data = (X, y)
-        n_features = X.shape[1]
+    data = _load_input(args)
+    n_features = data[0].num_features if len(data) == 1 else data[0].shape[1]
     try:
         check_num_select(args.select, n_features)
     except ValueError as e:
@@ -98,13 +156,19 @@ def main(argv=None) -> dict:
         score = MIScore(num_values=args.num_values, num_classes=args.num_classes)
     else:
         score = PearsonMIScore()
-    if (args.bins or args.score == "pearson") and args.input is None:
+    if (args.bins or args.score == "pearson") and len(data) == 2:
         data = (data[0].astype(np.float32), data[1])  # as the JAX CLI casts
 
     sel = MRMRSelector(
         num_select=args.select, score=score,
         criterion=args.criterion, encoding=args.encoding,
-        block_obs=args.block_obs, device=args.device, bins=args.bins or None,
+        incremental=bool(args.incremental), block=args.block,
+        block_obs=args.block_obs,
+        prefetch=args.prefetch if args.prefetch == "auto" else int(args.prefetch),
+        bins=args.bins or None, batch_candidates=args.batch_candidates,
+        spill_dir=args.spill_dir,
+        spill_budget_bytes=args.spill_budget_mb * 2**20 or None,
+        readahead=args.readahead, device=args.device,
     )
     t0 = time.perf_counter()
     sel.fit(*data)
@@ -119,11 +183,24 @@ def main(argv=None) -> dict:
         "gains": [float(g) for g in sel.gains_],
         "seconds": seconds,
     }
-    if sel.result_.io is not None:
-        out["block_obs"] = sel.plan_.block_obs
+    plan = sel.plan_
+    if plan.encoding == "streaming":
+        out["block_obs"] = plan.block_obs
+        out["prefetch"] = plan.prefetch  # resolved ("auto" -> int)
+        if plan.batch_candidates > 1:
+            out["batch_candidates"] = plan.batch_candidates
+        if plan.spill_dir is not None:
+            out["spill_dir"] = plan.spill_dir
+        if plan.readahead:
+            out["readahead"] = plan.readahead
         out["io"] = sel.result_.io
-    if sel.plan_.bins is not None:
-        out["bins"] = sel.plan_.bins
+    if plan.bins is not None:
+        out["bins"] = plan.bins
+    if args.output:
+        # MRMRResult.to_json, the payload the service's result cache keeps.
+        with open(args.output, "w") as f:
+            f.write(sel.result_.to_json())
+        out["output"] = args.output
     print(json.dumps(out))
     return out
 

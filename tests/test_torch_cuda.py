@@ -505,3 +505,121 @@ def test_smoke_model_prefill_through_the_kernel(cuda):
         torch.testing.assert_close(c["v"], w["v"], rtol=1e-4, atol=1e-4)
     reqs = [Request(tokens[i, : 20 + 10 * i].tolist(), 6) for i in range(3)]
     assert ServeEngine(model).serve(reqs) == ServeEngine(model, use_kernel=False).serve(reqs)
+
+
+# -- the out-of-core path: spilled int8 bin codes, and kernels first launched
+#    from two threads at once (the selection service's workers) ------------
+
+@pytest.fixture(scope="module")
+def spilled_codes(tmp_path_factory):
+    """One 65,536 x 1000 block of bins=16 codes as the spill cache replays
+    it: a float32 base memmapped from .npy, binned, spilled at int8 on the
+    first pass and read back memmapped on the second."""
+    from repro_torch import BinnedSource, NpySource
+    from repro_torch.data.block_cache import BlockCacheSource
+
+    d = tmp_path_factory.mktemp("spill")
+    X, y = continuous_dataset_np(65536, 1000, seed=9)
+    np.save(d / "X.npy", X)
+    np.save(d / "y.npy", y)
+    base = NpySource(str(d / "X.npy"), str(d / "y.npy"))
+    cache = BlockCacheSource(BinnedSource(base, 16), str(d / "cache"))
+    (staged,) = list(cache.iter_blocks(65536))
+    (replayed,) = list(cache.iter_blocks(65536))
+    assert cache.counters["parse_passes"] == cache.counters["replay_passes"] == 1
+    return staged, replayed
+
+
+@pytest.mark.parametrize("c", [2, 16])
+def test_spilled_int8_codes_count_bitwise(cuda, spilled_codes, c):
+    from repro_torch.dist.streaming import BlockPlacer
+
+    staged, (Xr, yr) = spilled_codes
+    assert isinstance(Xr, np.memmap) and Xr.dtype == np.int8 and Xr.shape == (65536, 1000)
+    np.testing.assert_array_equal(Xr, staged[0])
+    tgt = yr if c == 2 else np.ascontiguousarray(Xr[:, 7])  # relevance / redundancy
+    # Placed as the streaming engine places it: a read-only memmap copied
+    # once into pinned memory, then to the card.
+    Xd, td, valid = BlockPlacer(65536, cuda, num_features=1000)(Xr, tgt)
+    assert Xd.dtype == torch.int8 and bool(valid.all())
+    before = contingency_tables_cuda.launches
+    got = contingency_tables_cuda(Xd, td.to(torch.int32), 16, c)
+    assert contingency_tables_cuda.launches == before + 1
+    want = ref.contingency_tables(torch.from_numpy(np.array(Xr)),
+                                  torch.from_numpy(np.array(tgt)).to(torch.int32), 16, c)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_first_launches_from_two_threads_build_once(cuda, tmp_path, monkeypatch):
+    import threading
+
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")  # nothing built yet
+    monkeypatch.setattr(_build, "_LOADED", {})
+    started = []
+    real_start = _build._start
+
+    def counting_start(name, lib):
+        started.append(name)
+        return real_start(name, lib)
+
+    monkeypatch.setattr(_build, "_start", counting_start)
+    X, y = _data(20000, 300, 2, 2, torch.int8)
+    Xd, yd = X.to(cuda), y.to(cuda)
+    want = ref.contingency_tables(X, y, 2, 2)
+    reps, errors = 50, []
+    before = contingency_tables_cuda.launches, mi_scores_cuda.launches
+    barrier = threading.Barrier(2)
+
+    def work():
+        try:
+            barrier.wait()
+            for _ in range(reps):
+                counts = contingency_tables_cuda(Xd, yd, 2, 2)
+                mi = mi_scores_cuda(counts)
+            torch.cuda.synchronize()
+            assert torch.equal(counts.cpu(), want)
+            np.testing.assert_allclose(mi.cpu(), ref.mi_scores(want), rtol=1e-5, atol=1e-6)
+        except BaseException as exc:  # re-raised below, in the test's thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert sorted(started) == ["contingency", "mi_score"]  # each source built once
+    assert (contingency_tables_cuda.launches - before[0],
+            mi_scores_cuda.launches - before[1]) == (2 * reps, 2 * reps)
+
+
+@pytest.mark.parametrize("score", ["mi", "pearson"])
+def test_custom_score_batches_into_one_launch_a_chunk(cuda, monkeypatch, score):
+    """``mrmr_custom_score`` vmapped over candidate chunks on the card: each
+    chunk's relevance and redundancy are one launch of each kernel they
+    reach, and the scores equal the plain version's on the same tensors.
+    The class is float32, as the engines hand it to a custom score."""
+    from repro_torch.core import scores
+    from repro_torch.core.scores import mrmr_custom_score
+
+    g = torch.Generator().manual_seed(8)
+    M, F, L, chunk = 3000, 70, 4, 16
+    X = torch.randint(0, 2, (F, M), generator=g, dtype=torch.int8)
+    y = torch.randint(0, 2, (M,), generator=g).to(torch.float32)
+    if score == "pearson":
+        X = X.to(torch.float32) + 0.1 * torch.randn(F, M, generator=g)
+    sel = torch.zeros((L, M), dtype=torch.float32)
+    sel[:2] = X[[5, 9]].to(torch.float32)
+    Xd, yd, seld = X.to(cuda), y.to(cuda), sel.to(cuda)
+    make = {"mi": lambda k: MIScore(2, 2, use_kernel=k),
+            "pearson": lambda k: PearsonMIScore(use_kernel=k)}[score]
+    monkeypatch.setattr(scores, "_CUSTOM_CHUNK_ELEMS", chunk * M * (L + 1))
+    wrappers = ([contingency_tables_cuda, mi_scores_cuda] if score == "mi"
+                else [pearson_corr_cuda])
+    before = [w.launches for w in wrappers]
+    got = mrmr_custom_score(make(True)).full_score(Xd, yd, seld, 2)
+    chunks = -(-F // chunk)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2 * chunks] * len(wrappers)
+    want = mrmr_custom_score(make(False)).full_score(Xd, yd, seld, 2)
+    tol = dict(rtol=1e-5, atol=1e-6) if score == "mi" else dict(rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), **tol)

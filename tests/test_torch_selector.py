@@ -121,7 +121,7 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize(
     "knob", [dict(mesh=object()), dict(hosts=2), dict(devices=2),
-             dict(spill_dir="spill"), dict(readahead=2), dict(spill_budget_bytes=1 << 20),
+             dict(hosts=4), dict(devices=8), dict(obs_axes=("data", "pod")),
              dict(obs_axes=("rows",)), dict(feat_axes="cols"), dict(devices=[0, 1])],
 )
 def test_unported_knobs_raise(knob):
@@ -180,12 +180,9 @@ def _params(fn):
     return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
 
 
-# Names of repro.__all__ that come with later modules of the port (ROADMAP §1).
-NOT_YET_PORTED = {
-    "CustomScore": "ROADMAP §1 item 2 (CustomScore and mrmr_custom_score)",
-    "FeatureSelector": "ROADMAP §1 item 5 (core/selection.py)",
-    "mrmr_select": "ROADMAP §1 item 5 (core/selection.py)",
-}
+# Names of repro.__all__ that come with later modules of the port (ROADMAP
+# §1): none since CustomScore, FeatureSelector and mrmr_select were ported.
+NOT_YET_PORTED: dict = {}
 
 
 def test_signatures_and_exports_match_jax():
@@ -257,7 +254,10 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.data.binning, repro_torch.core.streaming; "
         "import repro_torch.kernels.flash_attention, repro_torch.models.convert; "
         "import repro_torch.models, repro_torch.serve, repro_torch.launch.serve; "
-        "import repro_torch.configs; "
+        "import repro_torch.configs, repro_torch.data.block_cache; "
+        "import repro_torch.serve.selection, repro_torch.interop.sklearn; "
+        "import repro_torch.core.selection, repro_torch.runtime.resilience; "
+        "import repro_torch.launch.serve_select; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )
