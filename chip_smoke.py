@@ -117,10 +117,32 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    ``MIScore`` and of the same score in plain torch, one pick's scores
    against the plain version's, a NaN relevance.
    Each fit logs its seconds and each streamed pass's seconds.
+9. Multi-process map-reduce (``python -m repro_torch.launch.select_multihost
+   --device cuda`` in spawn mode: N worker processes started with
+   ``subprocess``, each with its own CUDA context on the one card, gloo
+   collectives on the host; ``MRMRSelector(hosts="auto")`` in each).  The
+   data is written with ``np.save`` under phase 8's temporary directory and
+   each worker memmaps it and reads only its shard: (a) phase 3's tall
+   arrays, 2 workers, grid (2, 1), L=10 ``mid``, held to phase 3's streaming
+   fit; (b) CorrAL 10,000 x 50,000, 2 workers, grid (1, 2), L=10, q=2,
+   ``--spill-dir`` (one spill entry each for ``h0`` and ``h1``); (c) CorrAL
+   40,000 x 40,000, 4 workers, grid (2, 2) by the automatic rule, L=5
+   ``jmi``.  (b) and (c) are held to a one-process streaming fit of the
+   same arrays on the card.  Each run: the same selection and bitwise the
+   same gains and passes, every worker on the card with the contingency and
+   MI launches reckoned from the engine (``expected_worker_launches``) and
+   within 1/N +- 5% of the aggregate bytes; the wall seconds, the slowest
+   worker's fit and each worker's ``io["hosts"]`` row are printed.  A run of
+   N processes on one card is N contexts time-sliced on one device, not
+   cluster scaling: no gain is claimed from it.  Then kernel 2 (the
+   class-fused count) at (c)'s redundancy block, with and without its
+   appended target column.
 
-After phase 8 the MI kernel is timed at the five table shapes of the main
+After phase 9 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
-1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack): CUDA
+1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
+20,001 x 2 x 2 and the class-major view of its 20,001 x 2 x 2 x 2 stack, the
+custom path's 279 x 1 and 279 x 5 stacks of 2 x 2 tables): CUDA
 events and its own device time, the former design's on the same inputs, an
 empty kernel launched through the same ctypes path (the launch floor), the
 plain version, the bound (bytes, or ~10 instructions a cell and a logarithm a
@@ -147,7 +169,9 @@ correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
 launches the flash-attention kernel 64 times (2 waves x 32 layers); each
 spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
-fit launches each of the contingency and MI kernels twice a chunk a pick.  The
+fit launches each of the contingency and MI kernels twice a chunk a pick;
+each phase-9 worker zeroes its counts just before its fit and reads them
+just after, and a run's launches are the sum over its workers.  The
 second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
@@ -156,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -1466,21 +1491,15 @@ def dir_bytes(path) -> int:
     return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*") if p.is_file())
 
 
-def phase8(dev, launches, fits, keep):
+def phase8(dev, launches, fits, keep, tmp):
     """The out-of-core and service surfaces on the card; every temporary
-    file and spill directory lives under one directory, removed at the end."""
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ooc_"))
-    try:
-        recs = {r["path"]: r for r in fits}
-        out = dict(tall=phase8_tall(dev, launches, recs, keep, tmp))
-        out["binned"], code_times = phase8_binned(dev, launches, recs, keep, tmp)
-        out["csv"] = phase8_csv(dev, launches, out["tall"], keep, tmp)
-        out["service"] = phase8_service(dev, launches, tmp)
-        out["custom"], custom_times = phase8_custom(dev, launches)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    if tmp.exists():
-        raise AssertionError(f"phase 8 left {tmp} behind")
+    file and spill directory lives under ``tmp`` (removed after phase 9)."""
+    recs = {r["path"]: r for r in fits}
+    out = dict(tall=phase8_tall(dev, launches, recs, keep, tmp))
+    out["binned"], code_times = phase8_binned(dev, launches, recs, keep, tmp)
+    out["csv"] = phase8_csv(dev, launches, out["tall"], keep, tmp)
+    out["service"] = phase8_service(dev, launches, tmp)
+    out["custom"], custom_times = phase8_custom(dev, launches)
     return out, code_times + custom_times
 
 
@@ -1773,6 +1792,162 @@ def phase8_custom(dev, launches):
     return dict(rec, plain_s=plain_s, chunks=chunks, max_abs_err=err), times
 
 
+# -- phase 9: the multi-process map-reduce ------------------------------------
+
+MH_WIDE = (10_000, 50_000)  # phase 4's data
+MH_GRID = (40_000, 40_000)  # aspect 1: the automatic rule resolves (2, 2) on 4 hosts
+MH_PATHS = ("mh_tall", "mh_wide", "mh_grid")
+# block_obs of each run, and each worker's passes and blocks a pass, reckoned
+# before the run: (a) L=10 passes of ceil(500,000 / 65,536) = 8 blocks; (b)
+# one block of all 10,000 rows, 1 relevance pass + 5 to 9 redundancy passes
+# (L-1 = 9 vectors, q=2 a pass, a speculated vector a hit or a miss); (c)
+# one block of a host's 20,000 rows, L=5 passes.  (b) and (c) take a block
+# of the rows there are: a shorter block is padded to block_obs rows.
+MH_BLOCK = dict(mh_tall=65536, mh_wide=MH_WIDE[0], mh_grid=MH_GRID[0] // 2)
+MH_EXPECT = dict(mh_tall=((10,), 8), mh_wide=(tuple(range(6, 11)), 1), mh_grid=((5,), 1))
+
+
+def expected_worker_launches(name, passes, blocks):
+    """A worker's (contingency, MI) launches, reckoned from the engine: one
+    count a block a candidate, one MI launch a finalised state (two a
+    conditional pass: the marginal and the class-major view), per pass."""
+    if name == "mh_tall":  # mid, q=1: L passes of ``blocks`` blocks
+        return blocks * passes, passes
+    if name == "mh_wide":  # q=2: the relevance pass, then 2 states a pass
+        return blocks * (2 * passes - 1), 2 * passes - 1
+    # jmi, q=1: relevance, then L-1 conditional passes
+    return blocks * passes, 1 + 2 * (passes - 1)
+
+
+def mh_single(name, dev, launches, X, y, L, crit="mid", q=1):
+    """The one-process streaming fit on the card that a run is held to:
+    the same arrays (in memory), the same knobs."""
+    from repro_torch import ArraySource, MIScore, MRMRSelector
+
+    return run_path(f"{name}_single", lambda: MRMRSelector(
+        L, score=MIScore(2, 2), block_obs=MH_BLOCK[name], criterion=crit,
+        batch_candidates=q, device=dev).fit(ArraySource(X, y)), dev, launches)[1]
+
+
+def mh_run(name, dev, launches, tmp, X, y, one, hosts, grid, L, extra, crit="mid", q=1):
+    """Write (X, y) with ``np.save`` and fit the files through
+    ``repro_torch.launch.select_multihost`` with ``hosts`` workers sharing the
+    card; held to ``one`` (the record of a one-process fit of the same data):
+    the same picks, bitwise the same gains and passes, every worker on the
+    card with the launches the engine makes, each host's share of the bytes."""
+    from repro_torch.device import device_name
+
+    xp, yp = tmp / f"{name}_X.npy", tmp / f"{name}_y.npy"
+    t0 = time.perf_counter()
+    np.save(xp, X)
+    np.save(yp, y)
+    save_s = time.perf_counter() - t0
+    cmd = [sys.executable, "-m", "repro_torch.launch.select_multihost",
+           "--num-processes", str(hosts), "--input", str(xp), "--target", str(yp),
+           "--select", str(L), "--criterion", crit, "--block-obs", str(MH_BLOCK[name]),
+           "--batch-candidates", str(q), "--device", dev.type, "--timeout", "300", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: the launcher failed (rc={proc.returncode})\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["selected"] != one["selected"]:
+        raise AssertionError(f"{name}: selected {out['selected']} vs one process {one['selected']}")
+    if out["gains"] != one["gains"]:
+        raise AssertionError(f"{name}: gains {out['gains']} are not bitwise the one-process "
+                             f"{one['gains']}")
+    hosts_io = out["hosts"]
+    if hosts_io["grid"] != list(grid):
+        raise AssertionError(f"{name}: grid {hosts_io['grid']}, want {list(grid)}")
+    agg = hosts_io["aggregate"]
+    shares = [h["bytes_read"] / agg["bytes_read"] for h in hosts_io["per_host"]]
+    if any(abs(sh - 1 / hosts) > 0.05 for sh in shares):
+        raise AssertionError(f"{name}: bytes shares {shares}, want 1/{hosts} +- 0.05")
+    counts = dict(contingency_tables=0, mi_scores=0)
+    want = {}
+    passes_ok, blocks_want = MH_EXPECT[name]
+    for pid, w in out["workers"].items():
+        io = hosts_io["per_host"][int(pid)]
+        if (io["passes"] not in passes_ok or io["passes"] != one["io"]["passes"]
+                or io["blocks_read"] != blocks_want * io["passes"]):
+            raise AssertionError(f"{name}: worker {pid} ledger {io}, want passes in {passes_ok} "
+                                 f"(one process: {one['io']['passes']}) of {blocks_want} blocks")
+        want[pid] = dict(zip(("contingency_tables", "mi_scores"),
+                             expected_worker_launches(name, io["passes"], blocks_want)))
+        if not w["device"].startswith(dev.type) or w["device_name"] != device_name(dev):
+            raise AssertionError(f"{name}: worker {pid} ran on {w['device']} {w['device_name']}")
+        if w["launches"] != want[pid] or min(w["launches"].values()) == 0:
+            raise AssertionError(f"{name}: worker {pid} launches {w['launches']}, want {want[pid]}")
+        for k in counts:
+            counts[k] += w["launches"][k]
+    launches[name] = dict(counts, bin_codes=0, pearson_corr=0, flash_attention=0)
+    log(f"[mh] {name}: {hosts} workers on {out['workers']['0']['device']}, grid {hosts_io['grid']}; "
+        f"wall {wall:.3f} s (launcher {out['wall_seconds']:.3f} s), slowest worker's fit "
+        f"{out['seconds']:.3f} s, one process {one['seconds']:.3f} s; np.save {save_s:.3f} s")
+    for pid, w in out["workers"].items():
+        log(f"[mh] {name} host {pid}: {json.dumps(hosts_io['per_host'][int(pid)])} "
+            f"share {shares[int(pid)]:.4f}; fit {w['seconds']:.3f} s (set-up before it "
+            f"{w['setup_seconds']:.3f} s); launches "
+            f"{json.dumps(w['launches'])} (reckoned {json.dumps(want[pid])}); windows "
+            f"{w['host']['obs_range']} x {w['host']['col_range']}")
+    return dict(path=name, hosts=hosts, grid=hosts_io["grid"], block_obs=MH_BLOCK[name],
+                wall_s=wall, launcher_wall_s=out["wall_seconds"], slowest_fit_s=out["seconds"],
+                single_process_s=one["seconds"], save_s=save_s, per_host=hosts_io["per_host"],
+                shares=shares, workers=out["workers"], launches=counts,
+                selected=out["selected"], gains=out["gains"])
+
+
+def phase9(dev, launches, fits, keep, tmp):
+    """The paper's multi-process map-reduce on one card: (a) tall, 2 workers,
+    grid (2, 1); (b) wide, 2 workers, grid (1, 2), q=2, spill; (c) 2-D, 4
+    workers, grid (2, 2), ``jmi``.  N CUDA contexts time-sliced on one device,
+    the collectives on the host (gloo): what this measures is the path, not
+    cluster scaling.  Then kernel 2 (the class-fused count) at (c)'s block."""
+    from repro_torch.data.synthetic import corral_dataset_np
+
+    out = {}
+    X, y = keep["tall"]  # phase 3's arrays; its streaming fit is the same fit in one process
+    tall_one = next(r for r in fits if r["path"] == "tall_streaming")
+    out["tall"] = mh_run("mh_tall", dev, launches, tmp, X, y, tall_one, 2, (2, 1), 10, [])
+    X, y = corral_dataset_np(*MH_WIDE, seed=0)
+    spill = tmp / "mh_spill"
+    one = mh_single("mh_wide", dev, launches, X, y, 10, q=2)
+    out["wide"] = mh_run("mh_wide", dev, launches, tmp, X, y, one, 2, (1, 2), 10,
+                         ["--spill-dir", str(spill)], q=2)
+    entries = sorted(p.name for p in spill.iterdir())
+    if len(entries) != 2 or {e.rsplit("-", 1)[1] for e in entries} != {"h0", "h1"}:
+        raise AssertionError(f"mh_wide: spill entries {entries}, want one each for h0 and h1")
+    log(f"[mh] mh_wide: spill entries {entries}; caches "
+        f"{json.dumps({p: w['cache'] for p, w in out['wide']['workers'].items()})}")
+    out["wide"]["spill_entries"] = entries
+    t0 = time.perf_counter()
+    X, y = corral_dataset_np(*MH_GRID, seed=0)
+    log(f"[mh] grid data {MH_GRID[0]}x{MH_GRID[1]} int8 made in {time.perf_counter() - t0:.3f} s")
+    one = mh_single("mh_grid", dev, launches, X, y, 5, crit="jmi")
+    out["grid"] = mh_run("mh_grid", dev, launches, tmp, X, y, one, 4, (2, 2), 5, [], crit="jmi")
+    # Kernel 2 at (c)'s redundancy block, as host (0, 0) counts it: its rows
+    # and columns, the first pick appended (20,001 one-byte columns: rows
+    # aligned to no more than a byte), against that column fused with the
+    # class; then the same rows without the appended column.
+    rows, cols = MH_GRID[0] // 2, MH_GRID[1] // 2
+    c = out["grid"]["selected"][0]
+    yb = torch.from_numpy(y[:rows]).to(dev, torch.int32)
+    timings = []
+    for label, block in ((f"{rows}x{cols + 1} int8 VC=4 (2-D jmi redundancy block, phase 9)",
+                          np.concatenate([X[:rows, :cols], X[:rows, c:c + 1]], axis=1)),
+                         (f"{rows}x{cols} int8 VC=4 (the same rows, no appended column)",
+                          np.ascontiguousarray(X[:rows, :cols]))):
+        Xb = torch.from_numpy(block).to(dev)
+        timings.append(time_conditional(Xb, Xb[:, c].clone(), yb, label, reps=20))
+        del Xb, block
+    del X, y
+    torch.cuda.empty_cache()
+    return out, timings
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -1816,8 +1991,16 @@ def main():
     fits += phase("5 tall binned", phase5, dev, launches, keep)
     fits += phase("6 wide pearson", phase6, dev, launches)
     serves, serve_check = phase("7 yi-6b serve", phase7, dev, launches)
-    ooc, spilled_code_times = phase("8 out-of-core", phase8, dev, launches, fits, keep)
-    code_times += spilled_code_times
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ooc_"))
+    try:
+        ooc, spilled_code_times = phase("8 out-of-core", phase8, dev, launches, fits, keep, tmp)
+        code_times += spilled_code_times
+        mh, mh_times = phase("9 multi-host", phase9, dev, launches, fits, keep, tmp)
+        timings += mh_times
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if tmp.exists():
+        raise AssertionError(f"phases 8 and 9 left {tmp} behind")
     del keep
     rng = np.random.default_rng(1)
 
@@ -1831,12 +2014,17 @@ def main():
         (tables(1000, 16, 2), "1000x16x2 (binned relevance)"),
         (tables(1000, 16, 16), "1000x16x16 (binned redundancy)"),
         (tables(1000, 2, 2, 2).movedim(-1, -3),
-         "class-major view of a 1000x2x2x2 stack (jmi/cmim redundancy)")]]
+         "class-major view of a 1000x2x2x2 stack (jmi/cmim redundancy)"),
+        (tables(20001, 2, 2), "20001x2x2 (2-D jmi marginal, phase 9)"),
+        (tables(20001, 2, 2, 2).movedim(-1, -3),
+         "class-major view of a 20001x2x2x2 stack (2-D jmi redundancy, phase 9)"),
+        (tables(279, 1, 2, 2), "279x1x2x2 (custom relevance chunk)"),
+        (tables(279, 5, 2, 2), "279x5x2x2 (custom redundancy chunk)")]]
     log(f"[mi] main-path launches by table shape: {json.dumps({str(k): n for k, n in MI_TALLY.items()})}")
 
     mi_err = max([mi_err] + [r["max_abs_err"] for r in mi_times])
     mi_paths = ("tall_conventional", "tall_streaming", "wide_alternative",
-                "tall_binned_streaming", "tall_binned_in_memory", *OOC_PATHS)
+                "tall_binned_streaming", "tall_binned_in_memory", *OOC_PATHS, *MH_PATHS)
     kernels = [
         # the streaming block: the shape launched most often
         kernel_entry("contingency_tables", "src/repro_torch/csrc/contingency.cu",
@@ -1860,7 +2048,7 @@ def main():
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
-                        plan_paths=plan_paths, out_of_core=ooc)))
+                        plan_paths=plan_paths, out_of_core=ooc, multi_host=mh)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -23,6 +23,18 @@ parsed or encoded blocks once and replays them on later passes, and
 
     >>> MRMRSelector(10, spill_dir="/tmp/spill", readahead=2).fit(CSVSource("d.csv"))
 
+The paper's cluster regime is :mod:`repro_torch.dist.multihost`: under a
+``torch.distributed`` (gloo) process group, ``hosts="auto"`` applies the
+§III rule across processes, each reads only its rows and/or columns
+(``iter_shard_blocks``), one collective a pass merges the exact integer
+statistics, and every process commits the same picks, bitwise those of one
+process; ``python -m repro_torch.launch.select_multihost`` spawns or joins
+such a group:
+
+    >>> from repro_torch.dist import init_multihost
+    >>> init_multihost()                    # REPRO_* environment; idempotent
+    >>> MRMRSelector(10, hosts="auto").fit(NpySource("X.npy", "y.npy"))
+
 The paper's custom-score interface (Listing 7) is ``CustomScore``;
 ``repro_torch.serve.selection.SelectionService`` runs fits as managed jobs
 behind a result cache, and ``repro_torch.interop.sklearn.MRMRTransformer``

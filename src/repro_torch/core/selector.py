@@ -35,8 +35,19 @@ from repro_torch.core.scores import MIScore, PearsonMIScore, ScoreFn
 from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import ArraySource, DataSource
 from repro_torch.device import resolve_device
+from repro_torch.dist import multihost
+from repro_torch.dist.meshes import factor_mesh
 from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
 from repro_torch.kernels import ops
+
+# Paper §III aspect-ratio rule: beyond these ratios one axis dominates and
+# single-axis sharding wins; between them (and with enough devices or hosts
+# and data) the 2-D grid removes both memory walls at once.  The multi-host
+# shard rule (repro_torch.dist.multihost.resolve_host_shards) reads them.
+TALL_RATIO = 4.0      # obs/feat >= this -> conventional (observation-sharded)
+WIDE_RATIO = 0.25     # obs/feat <= this -> alternative (feature-sharded)
+GRID_MIN_DIM = 512    # both dims at least this before a grid pays off
+GRID_MIN_DEVICES = 4  # a 2-D grid needs at least a 2x2 factorisation
 
 
 def check_num_select(num_select, n_features: int) -> None:
@@ -72,6 +83,32 @@ class SelectionPlan:
     spill_budget_bytes: int | None = None  # LRU byte budget for spill_dir
     readahead: int = 0                # streaming: raw blocks read across
                                       # pass boundaries (0 = off)
+    hosts: int = 1                    # streaming: torch.distributed processes
+                                      # sharing the fit (1 = single-host)
+
+
+def _grid_worthwhile(m: int, n: int, n_dev: int) -> bool:
+    """§III both-large gate: enough devices (or hosts) for a 2-D
+    factorisation, both dims big enough to shard, and no axis dominant
+    enough for 1-D to win."""
+    aspect = m / max(n, 1)
+    return (
+        n_dev >= GRID_MIN_DEVICES
+        and min(m, n) >= GRID_MIN_DIM
+        and WIDE_RATIO < aspect < TALL_RATIO
+    )
+
+
+def _grid_factor(m: int, n: int, n_dev: int) -> tuple | None:
+    """The (obs, feat) factorisation when a 2-D grid pays off for an (m, n)
+    dataset over ``n_dev`` devices or hosts, else None (grid not worthwhile,
+    or the count only factors 1-D)."""
+    if not _grid_worthwhile(m, n, n_dev):
+        return None
+    # Weight the split by the aspect ratio: a taller dataset gets more
+    # observation shards.
+    od, fd = factor_mesh(n_dev, bias=max(m / max(n, 1), 1e-6))
+    return None if min(od, fd) == 1 else (od, fd)
 
 
 def _axes(axes) -> tuple:
@@ -204,12 +241,12 @@ def _fit_alternative(X, y, *, num_select, plan) -> MRMRResult:
 def _resolve_hosts(hosts) -> int:
     """The process count a fit spans: ``None``/1 one process, ``"auto"``
     the ``torch.distributed`` world size (1 when no process group is up),
-    an int as given."""
+    an int as given (a mismatch with the process group fails in the
+    collectives)."""
     if hosts in (None, 1):
         return 1
     if hosts == "auto":
-        dist = torch.distributed
-        return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        return multihost.process_count()
     h = int(hosts)
     if h < 1:
         raise ValueError(f"hosts must be >= 1 or 'auto', got {hosts!r}")
@@ -257,8 +294,13 @@ class MRMRSelector:
       readahead: streaming fits only — raw blocks a reader thread holds
         ahead across pass boundaries (0 = off; positive replaces
         ``prefetch``).
-      hosts: ``None``, 1 or ``"auto"`` (the ``torch.distributed`` world
-        size, 1 on one process); more than one process is not yet ported.
+      hosts: streaming fits only — run the fit across this many
+        ``torch.distributed`` processes (``"auto"`` = the world size after
+        :func:`repro_torch.dist.multihost.init_multihost`, 1 with no process
+        group).  The §III rule then applies across processes: each reads
+        only its block/column ranges, per-pass statistics merge with
+        explicit gloo collectives, and every process returns the identical
+        result.  One device per process.  ``None``/1 is one process.
       device: where the fit runs; "cuda" (the default) raises without a
         card, "cpu" runs the plain PyTorch versions.
       mesh: not yet ported; and ``devices``, ``obs_axes``, ``feat_axes``
@@ -296,15 +338,11 @@ class MRMRSelector:
 
     def __post_init__(self):
         _check_single_device(self.devices, self.obs_axes, self.feat_axes)
-        unported = dict(
-            mesh=self.mesh is not None,
-            hosts=_resolve_hosts(self.hosts) > 1,
-        )
-        for knob, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(
-                    f"MRMRSelector({knob}=...) is not yet ported to repro_torch"
-                )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "MRMRSelector(mesh=...) is not yet ported to repro_torch"
+            )
+        _resolve_hosts(self.hosts)  # validate now; "auto" resolves at fit
         self._device = resolve_device(self.device)
 
     def _resolve_score(self, X: torch.Tensor, y: torch.Tensor) -> ScoreFn:
@@ -471,6 +509,7 @@ class MRMRSelector:
             spill_dir=self.spill_dir,
             spill_budget_bytes=self.spill_budget_bytes,
             readahead=int(self.readahead),
+            hosts=_resolve_hosts(self.hosts),
         )
         res = get_engine("streaming")(
             source, None, num_select=self.num_select, plan=plan
@@ -490,6 +529,11 @@ class MRMRSelector:
             raise ValueError(
                 "y is required for array inputs (only DataSource fits "
                 "carry their own targets)"
+            )
+        if _resolve_hosts(self.hosts) > 1:
+            raise ValueError(
+                "hosts > 1 runs the streaming engine: pass a DataSource, "
+                "or arrays with encoding='streaming'"
             )
         X = torch.as_tensor(X)
         y = torch.as_tensor(y)

@@ -48,10 +48,18 @@ engine's semantics:
   that reads the next pass's blocks while the current pass drains (which
   blocks a pass reads never depends on the pick).
 
+Several processes share a fit through ``shards=`` (a
+:class:`~repro_torch.dist.multihost.HostShardSpec`; ``MRMRSelector(hosts=N)``
+resolves it from the process rank): each reads only its row and/or column
+window and one collective a pass merges the shards (see
+:func:`_mrmr_streaming_multihost`).
+
 Every fit reports its I/O on the result: ``MRMRResult.io`` carries
 ``passes`` / ``blocks_read`` / ``bytes_read`` / ``state_bytes``, counted
 exactly as the JAX package's streaming engine counts them, and, for a
-spilled fit, ``cache``: the spill's parse and replay passes and bytes.
+spilled fit, ``cache``: the spill's parse and replay passes and bytes; a
+multi-host fit adds ``host`` (this process's grid place and windows) and
+``hosts`` (every host's ledger and the aggregate).
 """
 
 from __future__ import annotations
@@ -65,8 +73,14 @@ from repro_torch.core.scores import MIScore, ScoreFn
 from repro_torch.core.selector import check_num_select, register_engine
 from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.block_cache import BlockCacheSource
-from repro_torch.data.sources import as_source
+from repro_torch.data.sources import DataSource, ShardSource, as_source
 from repro_torch.device import resolve_device
+from repro_torch.dist.multihost import (
+    HostCollectives,
+    HostShardSpec,
+    process_index,
+    resolve_host_shards,
+)
 from repro_torch.dist.streaming import (
     BlockPlacer,
     CrossPassReader,
@@ -141,7 +155,8 @@ class _PassIO:
 
 def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
                 prefetch: int, io: _PassIO, batch: int | None = None,
-                conditional: bool = False, binner=None, edges=None):
+                conditional: bool = False, binner=None, edges=None,
+                merge_state=None, keep: int | None = None):
     """One full map-reduce pass over ``raw_pass`` (an ``(X, y)`` raw host
     block iterator): ``(N,)`` scores of every feature against the class
     (``target_cols=None``) / one column (int), or ``(q, N)`` scores against
@@ -149,7 +164,14 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
     ``conditional=True`` returns ``dict(marginal=..., conditional=...)``
     instead — both terms from the one counting sweep.  ``edges`` (the
     binner's, on the device) makes the pass fused: each placed float block
-    is encoded to bin codes on the device, once, before the counts."""
+    is encoded to bin codes on the device, once, before the counts.
+
+    ``merge_state`` is the multi-host reduce hook: applied to the list of
+    fully accumulated states *before* finalize (a cross-process sum of exact
+    integer counts), so finalisation runs on the merged statistics as if one
+    process had counted every block.  ``keep`` is how many leading feature
+    rows survive (default: all; a column-partitioned host keeps its own
+    columns and drops the appended target columns)."""
     io.passes += 1
     cond = conditional and target_cols is not None
     kind = (
@@ -191,23 +213,30 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
             for i in range(batch):
                 states[i] = score.accumulate(states[i], X_dev, tgt[i], valid)
 
+    if merge_state is not None:
+        states = merge_state(states)
+    n = placer.num_features if keep is None else int(keep)
     if cond:
         terms = [score.finalize_conditional(s) for s in states]
         out = {
-            k: np.stack([t[k].cpu().numpy() for t in terms]).astype(np.float32)
+            k: np.stack([t[k].cpu().numpy() for t in terms]).astype(np.float32)[:, :n]
             for k in ("marginal", "conditional")
         }
         return {k: v[0] for k, v in out.items()} if batch is None else out
     scores = np.stack([score.finalize(s).cpu().numpy() for s in states])
-    scores = scores.astype(np.float32)
+    scores = scores.astype(np.float32)[:, :n]
     return scores[0] if batch is None else scores
 
 
 def _greedy_select(run_pass, crit: Criterion, n: int, num_select: int, q: int):
-    """The host-driven greedy loop: one relevance pass, then exact per-pick
-    criterion folds with ``q``-wide redundancy speculation.  The fold runs
-    on float32 CPU tensors, the same elementwise math the in-memory engines
-    run, so argmax ties resolve identically (toward the lowest id)."""
+    """The host-driven greedy loop shared by the single- and multi-host
+    fits: one relevance pass, then exact per-pick criterion folds with
+    ``q``-wide redundancy speculation.  ``run_pass(target_cols, batch=)``
+    hides where blocks come from and how per-host statistics merge: every
+    vector reaching this loop is the same full-width copy on every host, so
+    every host commits the same pick.  The fold runs on float32 CPU tensors,
+    the same elementwise math the in-memory engines run, so argmax ties
+    resolve identically (toward the lowest id)."""
     rel = run_pass(None)
     rel_t = torch.from_numpy(rel)
     cstate = crit.init_state(n)
@@ -272,6 +301,8 @@ def mrmr_streaming(
     spill_dir: str | None = None,
     spill_budget_bytes: int | None = None,
     readahead: int = 0,
+    shards: HostShardSpec | None = None,
+    collectives: HostCollectives | None = None,
 ) -> MRMRResult:
     """Greedy mRMR over a :class:`~repro_torch.data.sources.DataSource`.
 
@@ -293,6 +324,13 @@ def mrmr_streaming(
       readahead: raw blocks a reader thread holds ahead of the consumer,
         across pass boundaries (0 = off); when positive it takes the place
         of ``prefetch``.
+      shards: a :class:`~repro_torch.dist.multihost.HostShardSpec` placing
+        this process on the cross-host grid — the fit then reads ONLY this
+        host's block/column ranges and merges per-pass statistics with
+        explicit collectives (see :func:`_mrmr_streaming_multihost`).
+        ``None`` or a single-host spec runs the one-process path.
+      collectives: a pre-built :class:`~repro_torch.dist.multihost.
+        HostCollectives` for ``shards`` (built on demand when omitted).
     """
     crit = resolve_criterion(criterion)
     device = resolve_device(device)
@@ -313,6 +351,14 @@ def mrmr_streaming(
         raise ValueError(f"batch_candidates must be >= 1, got {q}")
     if readahead < 0:
         raise ValueError(f"readahead must be >= 0, got {readahead}")
+
+    if shards is not None and not shards.is_single_host:
+        return _mrmr_streaming_multihost(
+            source, num_select, score, spec=shards, coll=collectives,
+            block_obs=block_obs, device=device, prefetch=prefetch, crit=crit,
+            q=q, spill_dir=spill_dir, spill_budget_bytes=spill_budget_bytes,
+            readahead=readahead,
+        )
 
     # A caller-wrapped BlockCacheSource reports its counters like one the
     # engine wraps.  The cache sits after parse and encode: a spilled
@@ -376,9 +422,224 @@ def mrmr_streaming(
     )
 
 
+def _mrmr_streaming_multihost(
+    source: DataSource,
+    num_select: int,
+    score: ScoreFn,
+    *,
+    spec: HostShardSpec,
+    coll: HostCollectives | None,
+    block_obs: int,
+    device: torch.device,
+    prefetch: int,
+    crit: Criterion,
+    q: int,
+    spill_dir: str | None,
+    spill_budget_bytes: int | None,
+    readahead: int,
+) -> MRMRResult:
+    """The cross-host fit: this process reads ONLY its shard, the per-pass
+    reduce is an explicit collective, and every host runs the same greedy
+    loop on the same merged vectors.
+
+    The paper's two partitionings map onto the host grid:
+
+    * **tall** (``grid=(H, 1)``): each host streams its row window at full
+      width into a full-width state; one ``psum`` of the exact integer counts
+      rebuilds the global state bitwise on every host before finalize, so
+      scores (hence picks) equal one process having read everything.
+    * **wide** (``grid=(1, H)``): each host streams every row of its own
+      column group; states never merge.  Finalised per-column scores
+      ``assemble`` into the full ``(N,)`` vector (one non-zero addend per
+      column: float adds against zeros, exact).  Redundancy targets a host
+      does not own ride as *appended columns*: a synchronous single-column
+      shard stream aligned block for block with the main stream, so the
+      augmented state is ``local_cols + t`` wide and the targets sit at
+      local indices ``local_cols..local_cols+t-1``.
+    * **2-D grid**: both — ``psum_obs`` collapses the row partitions (column
+      groups padded to the widest; zeros change no sum), then the
+      ``obs_coord == 0`` row of hosts assembles.
+
+    Each process places its blocks on its one ``device``; the placer's width
+    is the exact shard width, which makes cross-host state shapes align.
+    """
+    n = source.num_features
+    if (spec.num_obs, spec.num_features) != (source.num_obs, n):
+        raise ValueError(
+            f"HostShardSpec geometry {(spec.num_obs, spec.num_features)} "
+            f"does not match the source {(source.num_obs, n)}"
+        )
+    if spec.partitions_obs and not score.supports_state_merge:
+        raise ValueError(
+            f"{type(score).__name__} statistics cannot merge across row "
+            "partitions (supports_state_merge=False): its state is not a "
+            "plain sum over blocks.  Use an MI score, or a column-only "
+            "host grid (grid=(1, H)) where no state merge is needed."
+        )
+    if isinstance(source, BlockCacheSource):
+        raise ValueError(
+            "pass spill_dir= instead of a pre-wrapped BlockCacheSource: "
+            "multi-host fits spill per-host shard streams under a "
+            "process-namespaced entry"
+        )
+    if coll is None:
+        coll = HostCollectives(spec)
+    needs_cond = crit.needs_redundancy and crit.needs_conditional_redundancy
+    clo = spec.col_range[0]
+    n_local = spec.local_cols
+
+    # Each host's block stream covers ONLY its row/column windows.  A spill
+    # caches the shard stream under a per-process namespace, so hosts
+    # sharing one filesystem never race each other's chunks.
+    shard_src = ShardSource(source, spec.obs_range, spec.col_range)
+    stream_src: DataSource = shard_src
+    spill: BlockCacheSource | None = None
+    if spill_dir is not None:
+        spill = stream_src = BlockCacheSource(
+            shard_src, spill_dir, budget_bytes=spill_budget_bytes,
+            namespace=f"h{spec.host_id}",
+        )
+
+    # Tall hosts hold every column; column-partitioned hosts size their
+    # placer (and state) to the exact shard width, plus appended targets.
+    placer_rel = BlockPlacer(
+        block_obs, device, num_features=n_local if spec.partitions_cols else n
+    )
+    eff_bo = placer_rel.block_obs
+    red_placers: dict = {}
+
+    def red_placer(aug: int) -> BlockPlacer:
+        if aug not in red_placers:
+            red_placers[aug] = BlockPlacer(block_obs, device, num_features=n_local + aug)
+        return red_placers[aug]
+
+    def aug_blocks(raw, cols):
+        """Append each target column's values for this host's row window to
+        every raw block: owned columns slice out of the block itself,
+        non-owned ones ride a synchronous single-column shard stream off the
+        base source (same ``eff_bo``, same row window — aligned block for
+        block by construction, and checked)."""
+        plans, streams = [], []
+        try:
+            for c in cols:
+                c = int(c)
+                if spec.owns_col(c):
+                    plans.append(("own", c - clo))
+                else:
+                    it = source.iter_shard_blocks(eff_bo, spec.obs_range, (c, c + 1))
+                    plans.append(("stream", it))
+                    streams.append(it)
+            for X_blk, y_blk in raw:
+                X_blk = np.asarray(X_blk)
+                extra = []
+                for kind, v in plans:
+                    if kind == "own":
+                        extra.append(X_blk[:, v : v + 1])
+                        continue
+                    Xc, _ = next(v)
+                    if Xc.shape[0] != X_blk.shape[0]:
+                        raise RuntimeError(
+                            "target-column stream misaligned with the shard "
+                            f"stream ({Xc.shape[0]} vs {X_blk.shape[0]} rows)"
+                        )
+                    extra.append(np.asarray(Xc))
+                yield np.concatenate([X_blk] + extra, axis=1), y_blk
+        finally:
+            for it in streams:
+                it.close()
+
+    io = _PassIO()
+    reader = None
+    if readahead > 0:
+        reader = CrossPassReader(
+            lambda: stream_src.iter_blocks(eff_bo),
+            depth=readahead,
+            max_passes=num_select if crit.needs_redundancy else 1,
+        )
+        next_raw = reader.next_pass
+        prefetch = 0
+    else:
+        def next_raw():
+            return stream_src.iter_blocks(eff_bo)
+
+    def run_pass(target_cols, batch=None):
+        cond = needs_cond and target_cols is not None
+        if target_cols is None or not spec.partitions_cols:
+            # Relevance everywhere, and tall-regime redundancy: every column
+            # is local, so global target ids index the block.
+            placer, raw, local_targets, aug = placer_rel, next_raw(), target_cols, 0
+        else:
+            cols = [int(target_cols)] if batch is None else [int(c) for c in target_cols]
+            aug = len(cols)
+            placer = red_placer(aug)
+            local_targets = (
+                n_local if batch is None else list(range(n_local, n_local + aug))
+            )
+            raw = aug_blocks(next_raw(), cols)
+        merge = None
+        if spec.partitions_obs:
+            if not spec.partitions_cols:
+                merge = coll.psum
+            else:
+                # The pass keeps a list of q states, each (width, V, ·):
+                # every state pads on its feature axis 0.
+                lw, pt = n_local + aug, spec.max_col_width + aug
+
+                def merge(states):
+                    return coll.psum_obs(states, feat_axis=0, local_width=lw, pad_to=pt)
+        res = _score_pass(
+            raw, score, placer, local_targets, prefetch, io, batch,
+            conditional=cond, merge_state=merge,
+            keep=n_local if spec.partitions_cols else n,
+        )
+        return coll.assemble(res) if spec.partitions_cols else res
+
+    try:
+        rel, selected, gains = _greedy_select(run_pass, crit, n, num_select, q)
+    finally:
+        if reader is not None:
+            reader.close()
+    io_report = io.as_dict()
+    if spill is not None:
+        io_report["cache"] = dict(spill.counters)
+    io_report["host"] = dict(
+        id=spec.host_id,
+        grid=list(spec.grid),
+        obs_range=list(spec.obs_range),
+        col_range=list(spec.col_range),
+    )
+    # The exact cross-host ledger: per-host rows plus the cluster aggregate.
+    names = ("passes", "blocks_read", "bytes_read", "state_bytes")
+    per = coll.allgather_counts([getattr(io, k) for k in names])
+    io_report["hosts"] = dict(
+        grid=list(spec.grid),
+        per_host=[{k: int(v) for k, v in zip(names, row)} for row in per],
+        aggregate=dict(
+            # Passes run in lockstep (max == every host); the rest sum.
+            passes=int(per[:, 0].max()),
+            blocks_read=int(per[:, 1].sum()),
+            bytes_read=int(per[:, 2].sum()),
+            state_bytes=int(per[:, 3].sum()),
+        ),
+    )
+    return MRMRResult(
+        selected=torch.from_numpy(selected),
+        gains=torch.from_numpy(gains),
+        relevance=torch.from_numpy(rel),
+        criterion=crit.name,
+        engine="streaming",
+        io=io_report,
+    )
+
+
 @register_engine("streaming")
 def _fit_streaming(source, y, *, num_select, plan) -> MRMRResult:
     del y  # targets come from the source's blocks
+    shards = None
+    if plan.hosts > 1:
+        shards = resolve_host_shards(
+            source.num_obs, source.num_features, plan.hosts, process_index(),
+        )
     return mrmr_streaming(
         source,
         num_select,
@@ -391,6 +652,7 @@ def _fit_streaming(source, y, *, num_select, plan) -> MRMRResult:
         spill_dir=plan.spill_dir,
         spill_budget_bytes=plan.spill_budget_bytes,
         readahead=plan.readahead,
+        shards=shards,
     )
 
 

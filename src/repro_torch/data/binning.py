@@ -387,6 +387,27 @@ class BinnedSource(DataSource):
         for X_blk, y_blk in self.base.iter_blocks(block_obs):
             yield binner.transform(X_blk), _as_class_labels(y_blk)
 
+    def iter_shard_blocks(
+        self,
+        block_obs: int,
+        obs_range: "tuple | None" = None,
+        col_range: "tuple | None" = None,
+    ) -> Iterator[Block]:
+        # Shard the RAW window through the base (its direct-slicing override
+        # stays in effect), then encode only the window's columns with the
+        # GLOBAL edges: the binner fit is a pure function of the whole base
+        # stream, so every host cuts identical edges and a shard's codes
+        # equal a full-source encode bit for bit.
+        binner = self.binner
+        clo, _ = col_range if col_range is not None else (0, self.num_features)
+        for X_blk, y_blk in self.base.iter_shard_blocks(
+            block_obs, obs_range, col_range
+        ):
+            codes = np.empty(X_blk.shape, np.int32)
+            for idx in range(X_blk.shape[1]):
+                codes[:, idx] = binner.encode_column(clo + idx, X_blk[:, idx])
+            yield codes, _as_class_labels(y_blk)
+
     @property
     def feature_dtype(self) -> np.dtype:
         return np.dtype(np.int32)  # transform() emits int32 codes

@@ -13,7 +13,9 @@ Sources here: in-memory arrays (:class:`ArraySource`), memmapped ``.npy``
 files (:class:`NpySource`), CSV files (:class:`CSVSource`), Parquet files
 and in-memory Arrow tables (:class:`ParquetSource` / :class:`ArrowSource`,
 which need pyarrow, imported only when one is built) and the paper's
-synthetic generator (:class:`CorralSource`).  Blocks are bitwise those of
+synthetic generator (:class:`CorralSource`); :class:`ShardSource` is one
+host's window of any of them (``iter_shard_blocks``, the multi-host map
+step).  Blocks are bitwise those of
 the JAX package's sources (``repro.data.sources``) for the same data and
 any ``block_obs``, and so are the fingerprints.
 """
@@ -127,6 +129,46 @@ class DataSource:
             h.update(np.ascontiguousarray(X).tobytes())
             h.update(str(y.dtype).encode())
             h.update(np.ascontiguousarray(y).tobytes())
+
+    def iter_shard_blocks(
+        self,
+        block_obs: int,
+        obs_range: "tuple | None" = None,
+        col_range: "tuple | None" = None,
+    ) -> Iterator[Block]:
+        """Yield blocks covering only ``rows[obs_range] × cols[col_range]``
+        — the multi-host map step, where each host walks its own shard.
+
+        The default walks :meth:`iter_blocks` and slices, stopping once past
+        the row window (a host holding the first half of a row-ordered file
+        never reads the second half); array-backed sources override it with
+        direct slicing that touches only the window's bytes.  Blocks are
+        re-chunked to exactly ``block_obs`` rows, so shard streams do not
+        depend on the producer's chunking.
+        """
+        olo, ohi = obs_range if obs_range is not None else (0, self.num_obs)
+        clo, chi = col_range if col_range is not None else (0, self.num_features)
+        whole_cols = (clo, chi) == (0, self.num_features)
+
+        def windowed() -> Iterator[Block]:
+            off = 0
+            it = self.iter_blocks(block_obs)
+            try:
+                for X, y in it:
+                    n = X.shape[0]
+                    if off >= ohi:
+                        break
+                    lo, hi = max(olo - off, 0), min(ohi - off, n)
+                    if lo < hi:
+                        Xs = X[lo:hi] if whole_cols else X[lo:hi, clo:chi]
+                        yield np.ascontiguousarray(Xs), y[lo:hi]
+                    off += n
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()  # release file handles promptly (CSVSource)
+
+        yield from _rechunked(windowed(), block_obs)
 
     def stats(self, block_obs: int = 65536) -> SourceStats:
         """One streaming pass of metadata (memoised per instance and by
@@ -254,6 +296,23 @@ class ArraySource(DataSource):
             # np.array forces a real copy: yielded blocks are contiguous
             # and never pin a memmapped file.
             yield np.array(self.X[lo:hi]), np.array(self.y[lo:hi])
+
+    def iter_shard_blocks(
+        self,
+        block_obs: int,
+        obs_range: "tuple | None" = None,
+        col_range: "tuple | None" = None,
+    ) -> Iterator[Block]:
+        # Direct window slicing: a memmapped host never faults in pages
+        # outside its shard (the default walks every leading block).
+        olo, ohi = obs_range if obs_range is not None else (0, self.num_obs)
+        clo, chi = col_range if col_range is not None else (0, self.num_features)
+        for lo in range(olo, ohi, block_obs):
+            hi = min(lo + block_obs, ohi)
+            yield (
+                np.ascontiguousarray(self.X[lo:hi, clo:chi]),
+                np.array(self.y[lo:hi]),
+            )
 
 
 class NpySource(ArraySource):
@@ -542,6 +601,74 @@ class ArrowSource(_ColumnarSource):
             yield self._block_of(self.table.slice(lo, block_obs))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardSource(DataSource):
+    """A window of another source, presented as a complete source.
+
+    The multi-host engine wraps each host's base source in one of these
+    (ranges from :class:`~repro_torch.dist.multihost.HostShardSpec`), so
+    every downstream consumer — placer, spill cache, read-ahead — sees an
+    ordinary ``num_obs × num_features`` source and streams only the shard's
+    bytes.  The fingerprint folds the window into the base identity, so
+    different hosts' spill entries for one file never collide.
+    """
+
+    base: DataSource
+    obs_range: tuple
+    col_range: tuple
+
+    def __post_init__(self):
+        olo, ohi = self.obs_range
+        clo, chi = self.col_range
+        if not (0 <= olo < ohi <= self.base.num_obs):
+            raise ValueError(
+                f"obs_range {self.obs_range} outside 0..{self.base.num_obs}"
+            )
+        if not (0 <= clo < chi <= self.base.num_features):
+            raise ValueError(
+                f"col_range {self.col_range} outside "
+                f"0..{self.base.num_features}"
+            )
+
+    @property
+    def num_obs(self) -> int:
+        return self.obs_range[1] - self.obs_range[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.col_range[1] - self.col_range[0]
+
+    @property
+    def feature_dtype(self) -> "np.dtype | None":
+        return self.base.feature_dtype
+
+    def _fingerprint_update(self, h) -> None:
+        h.update(
+            f"shard|{self.base.fingerprint()}|"
+            f"{self.obs_range}|{self.col_range}".encode()
+        )
+
+    def iter_blocks(self, block_obs: int) -> Iterator[Block]:
+        yield from self.base.iter_shard_blocks(
+            block_obs, self.obs_range, self.col_range
+        )
+
+    def iter_shard_blocks(
+        self,
+        block_obs: int,
+        obs_range: "tuple | None" = None,
+        col_range: "tuple | None" = None,
+    ) -> Iterator[Block]:
+        # Compose windows so nested sharding reads the base directly.
+        olo, ohi = obs_range if obs_range is not None else (0, self.num_obs)
+        clo, chi = col_range if col_range is not None else (0, self.num_features)
+        yield from self.base.iter_shard_blocks(
+            block_obs,
+            (self.obs_range[0] + olo, self.obs_range[0] + ohi),
+            (self.col_range[0] + clo, self.col_range[0] + chi),
+        )
+
+
 def _all_numeric(fields) -> bool:
     try:
         [float(v) for v in fields]
@@ -627,6 +754,7 @@ __all__ = [
     "DataSource",
     "NpySource",
     "ParquetSource",
+    "ShardSource",
     "SourceStats",
     "as_source",
     "clear_stats_memo",

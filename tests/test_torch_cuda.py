@@ -623,3 +623,40 @@ def test_custom_score_batches_into_one_launch_a_chunk(cuda, monkeypatch, score):
     want = mrmr_custom_score(make(False)).full_score(Xd, yd, seld, 2)
     tol = dict(rtol=1e-5, atol=1e-6) if score == "mi" else dict(rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(got.cpu(), want.cpu(), **tol)
+
+
+def test_two_gloo_workers_share_the_card_bitwise(cuda, tmp_path):
+    """``select_multihost --device cuda`` with two workers on one card: each
+    reads half the rows (two blocks a pass), launches the contingency and MI
+    kernels, and the merged fit is bitwise the single-process card fit."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from repro_torch.data.synthetic import corral_dataset_np
+
+    X, y = corral_dataset_np(131_072, 64, seed=0)
+    np.save(tmp_path / "X.npy", X)
+    np.save(tmp_path / "y.npy", y)
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.select_multihost",
+         "--num-processes", "2", "--input", str(tmp_path / "X.npy"),
+         "--target", str(tmp_path / "y.npy"), "--select", "4",
+         "--block-obs", "32768", "--timeout", "300"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": src},
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    one = MRMRSelector(4, score=MIScore(2, 2), block_obs=32768).fit(ArraySource(X, y))
+    assert out["selected"] == one.selected_.tolist()
+    assert out["gains"] == [float(g) for g in one.gains_]
+    assert out["hosts"]["grid"] == [2, 1]
+    for w in out["workers"].values():
+        assert w["device"] == "cuda:0"
+        assert w["device_name"] == torch.cuda.get_device_name(0)
+        # 2 blocks x 4 passes counted, one MI launch a pass.
+        assert w["launches"] == dict(contingency_tables=8, mi_scores=4)

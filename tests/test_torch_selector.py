@@ -120,8 +120,8 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize(
-    "knob", [dict(mesh=object()), dict(hosts=2), dict(devices=2),
-             dict(hosts=4), dict(devices=8), dict(obs_axes=("data", "pod")),
+    "knob", [dict(mesh=object()), dict(devices=4), dict(devices=2),
+             dict(feat_axes=("model", "pod")), dict(devices=8), dict(obs_axes=("data", "pod")),
              dict(obs_axes=("rows",)), dict(feat_axes="cols"), dict(devices=[0, 1])],
 )
 def test_unported_knobs_raise(knob):
@@ -257,7 +257,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.configs, repro_torch.data.block_cache; "
         "import repro_torch.serve.selection, repro_torch.interop.sklearn; "
         "import repro_torch.core.selection, repro_torch.runtime.resilience; "
-        "import repro_torch.launch.serve_select; "
+        "import repro_torch.launch.serve_select, repro_torch.dist.multihost; "
+        "import repro_torch.dist.meshes, repro_torch.launch.select_multihost; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )
