@@ -137,12 +137,36 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    cluster scaling: no gain is claimed from it.  Then kernel 2 (the
    class-fused count) at (c)'s redundancy block, with and without its
    appended target column.
+10. The in-process device mesh (``MRMRSelector(mesh=...)``, meshes of 2 or
+   4 positions, every one ``cuda:0``: the shards run one after another on
+   one stream).  (a) phase 3's tall arrays on (4,) ``data``, L=10; (b) phase
+   4's wide arrays on (4,) ``model``; (c) phase 9's 40,000 x 40,000 arrays,
+   ``jmi`` L=5, on a (2, 2) grid (16 class-fused counts); (d) phase 3's
+   arrays streamed at 65,536 rows on (2,) ``data``; (e) phase 4's arrays
+   streamed at 10,000 rows on (2,) ``model``, the state feature-sharded;
+   (f) phase 6's continuous arrays, Pearson, on (2,) ``model``, L=8; (g)
+   phase 5's continuous arrays, ``bins=16``, streamed at 65,536 rows on (3,)
+   ``model``, L=4 (the fitted edges cut into three feature shards, 1000
+   columns padded to 1002 with +inf edge rows; each tile encoded on its
+   position once a block; held to the first 4 picks and gains of phase 5's
+   streamed fit).  Each is held to the one-device card fit of the same
+   data: the same picks,
+   bitwise the same MI gains (Pearson within ``CORR_RTOL``/``CORR_ATOL``),
+   the launches reckoned from the engine (``expected_mesh_launches``); (a)
+   is traced warm (device busy share).  Then the per-shard kernel shapes:
+   the count at 250,000 x 1000 (a (4,) data shard), 32,768 x 1000 (half a
+   streamed block), the 10,000 x 12,500 column windows of (b) at columns 0
+   and 12,500 (each also with the L2 flushed before every call), kernel 2
+   at a 20,000 x 20,000 grid tile of (c), and the bin-code kernel at (g)'s
+   last tile, 65,536 x 334 with two +inf edge rows, held bitwise to its
+   plain version.
 
-After phase 9 the MI kernel is timed at the table shapes of the main
+After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
-20,001 x 2 x 2 and the class-major view of its 20,001 x 2 x 2 x 2 stack, the
-custom path's 279 x 1 and 279 x 5 stacks of 2 x 2 tables): CUDA
+20,001 x 2 x 2 and the class-major view of its 20,001 x 2 x 2 x 2 stack,
+phase 10's 12,500 x 2 x 2, 20,000 x 2 x 2 and class-major 20,000 x 2 x 2 x 2,
+the custom path's 279 x 1 and 279 x 5 stacks of 2 x 2 tables): CUDA
 events and its own device time, the former design's on the same inputs, an
 empty kernel launched through the same ctypes path (the launch floor), the
 plain version, the bound (bytes, or ~10 instructions a cell and a logarithm a
@@ -171,7 +195,10 @@ spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
 each phase-9 worker zeroes its counts just before its fit and reads them
-just after, and a run's launches are the sum over its workers.  The
+just after, and a run's launches are the sum over its workers; each
+phase-10 mesh fit counts one contingency launch a shard (a tile) a pass or
+block and one MI launch a feature group a pass (two on a conditional pass),
+and (g) one bin-code launch a tile a block.  The
 second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
 """
@@ -245,19 +272,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, name_part: str, reps: int = 5) -> float | None:
+def kernel_device_ms(fn, name_part: str, reps: int = 5, flush: bool = False) -> float | None:
     """The kernel's own device time per launch (ms) under ``torch.profiler``:
     the self device time of activities whose name contains ``name_part``
     over ``reps`` calls, divided by the launches the trace recorded (it can
     miss one).  Unlike ``cuda_ms`` it leaves out the wrapper's memset, casts
-    and launch gaps.  None if the trace shows none."""
+    and launch gaps.  ``flush`` writes 256 MiB (five times the L2) before
+    each call, so no call reads what the one before left in the L2.  None if
+    the trace shows none."""
     from torch.profiler import ProfilerActivity, profile
 
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
     for _ in range(3):  # a trace can come back empty; try again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush:
+                    scratch.zero_()
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
@@ -484,7 +516,10 @@ def phase2_mi(dev, rng):
     return err
 
 
-def time_contingency(X, y, v, c, label, reps=10):
+def time_contingency(X, y, v, c, label, reps=10, flush=False):
+    """Events, the kernel's own device time (and, with ``flush``, that time
+    with the L2 flushed before each call), the plain version, the bound and
+    ``bincount`` at one shape."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.contingency import contingency_tables_cuda
 
@@ -501,6 +536,9 @@ def time_contingency(X, y, v, c, label, reps=10):
     rec = dict(shape=label, ms=ms, kernel_device_ms=device_ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
                library_ms=library_ms, bytes=nbytes)
+    if flush:
+        rec["kernel_device_ms_l2_flushed"] = kernel_device_ms(
+            lambda: contingency_tables_cuda(X, y, v, c), "contingency", flush=True)
     log(f"[time] contingency {label}: {json.dumps(rec)}")
     return rec
 
@@ -799,7 +837,7 @@ def phase3(dev, launches, timings, keep):
     return [rec, srec, prec]
 
 
-def phase4(dev, launches, timings):
+def phase4(dev, launches, timings, keep):
     from repro_torch import MIScore, MRMRSelector
     from repro_torch.data.synthetic import corral_dataset_np
 
@@ -829,6 +867,7 @@ def phase4(dev, launches, timings):
         raise AssertionError("wide fit never launched the MI kernel")
     log(f"[wide] relevant picks among the first nine: "
         f"{len(set(kern.selected_[:9].tolist()) & set(range(9)))}/9")
+    keep["wide"] = (X, y)  # phase 10 shards the same data
     return [rec, prec]
 
 
@@ -900,6 +939,18 @@ def phase2_bins(dev):
         raise AssertionError("bin_codes 1000000x1000: codes differ")
     timings.append(time_bins(Xd, ed, "1000000x1000 E=15 (in-memory fit)", reps=10))
     return err, timings
+
+
+def check_bins(Xd, ed, label, reps):
+    """bin_codes held bitwise to its plain version at one shape, then timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binning import bin_codes_cuda
+
+    diff = (bin_codes_cuda(Xd, ed).long() - ref.bin_codes(Xd, ed).long()).abs().max().item()
+    if diff != 0:
+        raise AssertionError(f"bin_codes {label}: codes differ (max {diff})")
+    log(f"[bin_codes] {label}: bitwise equal to the plain version")
+    return dict(time_bins(Xd, ed, label, reps), max_abs_err=diff)
 
 
 def time_bins(Xd, ed, label, reps):
@@ -1060,14 +1111,14 @@ def device_breakdown(fn, top=6):
                 top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
 
 
-def phase6(dev, launches):
+def phase6(dev, launches, keep):
     from repro_torch import MRMRSelector, PearsonMIScore
     from repro_torch.data.synthetic import continuous_dataset_np
 
     t0 = time.perf_counter()
     X, y = continuous_dataset_np(10_000, 50_000, seed=0)
     Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
-    del X
+    keep["pearson"] = (X, y)  # phase 10 shards the same data
     log(f"[wide-pearson] data 10000x50000 float32 made and placed in "
         f"{time.perf_counter() - t0:.3f} s")
     kern, rec = run_path("wide_pearson", lambda: MRMRSelector(8).fit(Xd, yd), dev, launches)
@@ -1943,9 +1994,212 @@ def phase9(dev, launches, fits, keep, tmp):
         Xb = torch.from_numpy(block).to(dev)
         timings.append(time_conditional(Xb, Xb[:, c].clone(), yb, label, reps=20))
         del Xb, block
-    del X, y
+    keep["grid"] = (X, y)  # phase 10's 2-D grid fits the same data
     torch.cuda.empty_cache()
     return out, timings
+
+
+# -- phase 10: the in-process device mesh -------------------------------------
+
+MESH_PATHS = ("mesh_tall", "mesh_tall_streaming", "mesh_binned_streaming", "mesh_wide",
+              "mesh_wide_streaming", "mesh_grid", "mesh_pearson")
+
+
+def expected_mesh_launches(name, passes, blocks=1):
+    """A mesh run's (contingency, MI) launches, reckoned from the engine: one
+    count a shard (a tile) a pass, streamed a tile a block; MI once a
+    feature group a pass (a conditional pass twice: the marginal and the
+    class-major view)."""
+    if name == "mesh_tall":  # (4,) data: 4 shards a pass, one feature group
+        return 4 * passes, passes
+    if name == "mesh_wide":  # (4,) model: 4 shards, each its own group
+        return 4 * passes, 4 * passes
+    if name == "mesh_grid":  # (2, 2) jmi: 4 tiles; 2 groups, 1 + 2 MI a pass each
+        return 4 * passes, 2 + 2 * 2 * (passes - 1)
+    if name == "mesh_tall_streaming":  # (2,) data: 2 tiles a block, one group
+        return 2 * blocks * passes, passes
+    if name == "mesh_wide_streaming":  # (2,) model: 2 tiles a block, 2 groups
+        return 2 * blocks * passes, 2 * passes
+    if name == "mesh_binned_streaming":  # (3,) model: 3 tiles a block, 3 groups
+        return 3 * blocks * passes, 3 * passes
+    raise KeyError(name)
+
+
+def phase10(dev, launches, fits, keep):
+    """The in-process device mesh on one card: meshes of 2 or 4 positions,
+    every one ``cuda:0``, so the shards run one after another on one stream.
+    (a) phase 3's tall data on (4,) data; (b) phase 4's wide data on (4,)
+    model; (c) phase 9's 40,000 x 40,000 ``jmi`` L=5 on a (2, 2) grid; (d)
+    phase 3's data streamed at 65,536 rows on (2,) data; (e) phase 4's data
+    streamed at 10,000 rows on (2,) model, the state feature-sharded; (f)
+    phase 6's continuous data, Pearson, on (2,) model; (g) phase 5's
+    continuous data, bins=16, L=4, streamed on (3,) model with the edges
+    feature-sharded.  Each is held to the one-device card fit of the same
+    data (picks equal, MI gains bitwise,
+    Pearson within ``CORR_RTOL``/``CORR_ATOL``) and to its launches; then
+    the new per-shard kernel shapes are timed.  A path, not a speed-up: no
+    gain is claimed."""
+    from repro_torch import ArraySource, MIScore, MRMRSelector
+    from repro_torch.dist.meshes import make_mesh
+
+    def mesh(shape, axes):
+        return make_mesh(shape, axes, devices=[dev] * 4)
+
+    one = {r["path"]: r for r in fits}
+    out, timings = {}, []
+
+    def held(name, rec, ref, exact=True):
+        if rec["selected"] != ref["selected"]:
+            raise AssertionError(f"{name}: selected {rec['selected']} vs one device "
+                                 f"{ref['selected']}")
+        if exact and rec["gains"] != ref["gains"]:
+            raise AssertionError(f"{name}: gains {rec['gains']} are not bitwise the one-device "
+                                 f"{ref['gains']}")
+        if not exact:
+            np.testing.assert_allclose(rec["gains"], ref["gains"], rtol=CORR_RTOL,
+                                       atol=CORR_ATOL, err_msg=name)
+
+    def counted(name, want):
+        got = (launches[name]["contingency_tables"], launches[name]["mi_scores"])
+        if got != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, reckoned {want}")
+        log(f"[mesh] {name}: contingency, MI launches {got} as reckoned")
+
+    def plan_of(name, res, encoding, shape):
+        p = res.plan_
+        if (p.encoding, p.mesh_shape, res.mesh_.size) != (encoding, shape, int(np.prod(shape))):
+            raise AssertionError(f"{name}: plan {p.encoding} {p.mesh_shape} on {res.mesh_}")
+        if {str(d) for d in res.mesh_.devices.flat} != {str(dev)}:
+            raise AssertionError(f"{name}: mesh positions {res.mesh_}")
+
+    # (a) tall in memory and (d) streamed, phase 3's arrays
+    X, y = keep["tall"]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    m = mesh((4,), ("data",))
+    res, rec = run_path("mesh_tall", lambda: MRMRSelector(10, mesh=m).fit(Xd, yd), dev, launches)
+    plan_of("mesh_tall", res, "conventional", (4,))
+    held("mesh_tall", rec, one["tall_conventional"])
+    counted("mesh_tall", expected_mesh_launches("mesh_tall", 10))
+    rec["trace"] = device_breakdown(lambda: MRMRSelector(10, mesh=m).fit(Xd, yd))
+    log(f"[mesh] warm (4,) data fit, traced: {json.dumps(rec['trace'])}")
+    out["tall"] = dict(rec, single_s=one["tall_conventional"]["seconds"])
+    timings.append(time_contingency(Xd[:250_000], yd[:250_000], 2, 2,
+                                    "250000x1000 int8 (a (4,) data shard, phase 10)", flush=True))
+    timings.append(time_contingency(Xd[:32768], yd[:32768], 2, 2,
+                                    "32768x1000 int8 (half a streamed block, phase 10)", reps=40, flush=True))
+    del Xd, yd
+    m = mesh((2,), ("data",))
+    res, rec = run_path("mesh_tall_streaming", lambda: MRMRSelector(
+        10, score=MIScore(2, 2), block_obs=65536, mesh=m).fit(ArraySource(X, y)), dev, launches)
+    plan_of("mesh_tall_streaming", res, "streaming", (2,))
+    held("mesh_tall_streaming", rec, one["tall_streaming"])
+    blocks = -(-X.shape[0] // 65536)  # 16 at 1,000,000 rows
+    if (rec["io"]["passes"], rec["io"]["blocks_read"]) != (10, 10 * blocks):
+        raise AssertionError(f"mesh_tall_streaming ledger {rec['io']}")
+    counted("mesh_tall_streaming", expected_mesh_launches("mesh_tall_streaming", 10, blocks))
+    out["tall_streaming"] = dict(rec, single_s=one["tall_streaming"]["seconds"])
+
+    # (g) phase 5's continuous data, bins=16, streamed on (3,) model: the
+    # fitted edges cut into three feature shards (1000 columns padded to
+    # 1002: the last shard's two edge rows +inf), each block's tiles encoded
+    # on their position, once a tile a block.  Cut to L=4 (the host copies
+    # a block's column tiles, 2.3x phase 5's fit at L=10): its picks and
+    # gains are the first 4 of phase 5's L=10 fit, whose greedy steps they are.
+    src, depth = keep["binned_src"], 4
+    m = mesh((3,), ("model",))
+    res, rec = run_path("mesh_binned_streaming", lambda: MRMRSelector(
+        depth, bins=16, block_obs=65536, mesh=m).fit(src), dev, launches)
+    plan_of("mesh_binned_streaming", res, "streaming", (3,))
+    if (res.plan_.bins, res.plan_.feat_axes) != (16, ("model",)):
+        raise AssertionError(f"mesh_binned_streaming: plan {res.plan_}")
+    ref5 = one["tall_binned_streaming"]
+    held("mesh_binned_streaming", rec, dict(selected=ref5["selected"][:depth],
+                                            gains=ref5["gains"][:depth]))
+    if (rec["io"]["passes"], rec["io"]["blocks_read"]) != (depth, depth * blocks):
+        raise AssertionError(f"mesh_binned_streaming ledger {rec['io']}")
+    counted("mesh_binned_streaming",
+            expected_mesh_launches("mesh_binned_streaming", depth, blocks))
+    if launches["mesh_binned_streaming"]["bin_codes"] != 3 * blocks * depth:
+        raise AssertionError(f"mesh_binned_streaming: bin_codes launches "
+                             f"{launches['mesh_binned_streaming']}, reckoned {3 * blocks * depth}")
+    out["binned_streaming"] = dict(rec, single_s=one["tall_binned_streaming"]["seconds"])
+    # The last tile's encode: 332 columns and 2 padded ones, their edges +inf.
+    rng = np.random.default_rng(10)
+    Xt, et = planted_block(rng, 65536, 332, 15)
+    Xt = np.concatenate([Xt, np.zeros((65536, 2), np.float32)], axis=1)
+    et = np.concatenate([et, np.full((2, 15), np.inf, np.float32)])
+    Xtd, etd = torch.from_numpy(Xt).to(dev), torch.from_numpy(et).to(dev)
+    bin_times = [check_bins(Xtd, etd, "65536x334 E=15, the last 2 edge rows +inf (the last "
+                            "tile of a (3,) model mesh, phase 10)", reps=40)]
+    del Xtd, etd
+
+    # (b) wide in memory and (e) streamed, phase 4's arrays
+    X, y = keep["wide"]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    m = mesh((4,), ("model",))
+    res, rec = run_path("mesh_wide", lambda: MRMRSelector(10, mesh=m).fit(Xd, yd), dev, launches)
+    plan_of("mesh_wide", res, "alternative", (4,))
+    held("mesh_wide", rec, one["wide_alternative"])
+    counted("mesh_wide", expected_mesh_launches("mesh_wide", 10))
+    out["wide"] = dict(rec, single_s=one["wide_alternative"]["seconds"])
+    for lo in (0, 12_500):  # shard 0, and shard 1: its rows start 12,500 bytes in
+        timings.append(time_contingency(
+            Xd[:, lo:lo + 12_500], yd, 2, 2, f"10000x12500 int8 column window at column {lo} "
+            f"(a (4,) model shard of the 10000x50000 matrix, phase 10)", flush=True))
+    del Xd, yd
+    m = mesh((2,), ("model",))
+    _, single = run_path("mesh_wide_streaming_single", lambda: MRMRSelector(
+        10, score=MIScore(2, 2), block_obs=10_000).fit(ArraySource(X, y)), dev, launches)
+    res, rec = run_path("mesh_wide_streaming", lambda: MRMRSelector(
+        10, score=MIScore(2, 2), block_obs=10_000, mesh=m).fit(ArraySource(X, y)), dev, launches)
+    plan_of("mesh_wide_streaming", res, "streaming", (2,))
+    held("mesh_wide_streaming", rec, single)
+    if rec["selected"] != one["wide_alternative"]["selected"]:
+        raise AssertionError("mesh_wide_streaming: picks differ from phase 4's in-memory fit")
+    counted("mesh_wide_streaming", expected_mesh_launches("mesh_wide_streaming", 10, 1))
+    out["wide_streaming"] = dict(rec, single_s=single["seconds"])
+
+    # (c) the 2-D grid, phase 9's 40,000 x 40,000 arrays, jmi L=5
+    X, y = keep["grid"]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    _, single = run_path("mesh_grid_single", lambda: MRMRSelector(5, criterion="jmi").fit(Xd, yd),
+                         dev, launches)
+    m = mesh((2, 2), ("data", "model"))
+    inputs: dict = {}
+    with tally_count_inputs(inputs):
+        res, rec = run_path("mesh_grid", lambda: MRMRSelector(
+            5, criterion="jmi", encoding="grid", mesh=m).fit(Xd, yd), dev, launches)
+    plan_of("mesh_grid", res, "grid", (2, 2))
+    held("mesh_grid", rec, single)
+    counted("mesh_grid", expected_mesh_launches("mesh_grid", 5))
+    if inputs.get("int8 V=2 C=4") != 16:
+        raise AssertionError(f"mesh_grid: counts by input {inputs}, want 16 class-fused")
+    log(f"[mesh] mesh_grid: contingency launches by input {json.dumps(inputs)}")
+    out["grid"] = dict(rec, single_s=single["seconds"], count_inputs=inputs)
+    rows, cols = MH_GRID[0] // 2, MH_GRID[1] // 2
+    c = rec["selected"][0]
+    timings.append(time_conditional(
+        Xd[:rows, :cols], Xd[:rows, c].clone(), yd[:rows],
+        f"{rows}x{cols} int8 VC=4 (a (2, 2) grid tile, a view with rows 16-byte aligned, "
+        "phase 10)", reps=20))
+    del Xd, yd
+
+    # (f) Pearson, phase 6's arrays, on (2,) model
+    X, y = keep["pearson"]
+    Xd, yd = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    m = mesh((2,), ("model",))
+    res, rec = run_path("mesh_pearson", lambda: MRMRSelector(8, mesh=m).fit(Xd, yd), dev, launches)
+    plan_of("mesh_pearson", res, "alternative", (2,))
+    held("mesh_pearson", rec, one["wide_pearson"], exact=False)
+    if launches["mesh_pearson"]["pearson_corr"] != 16:  # 2 shards x (1 relevance + 7 folds)
+        raise AssertionError(f"mesh_pearson launches {launches['mesh_pearson']}")
+    out["pearson"] = dict(rec, single_s=one["wide_pearson"]["seconds"])
+    del Xd, yd
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"[mesh] {name}: fit {r['seconds']:.3f} s on {r['path']}, the one-device card "
+            f"fit {r['single_s']:.3f} s")
+    return out, timings, bin_times
 
 
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
@@ -1982,14 +2236,14 @@ def main():
     timings: list = []
     keep: dict = {}
     fits = phase("3 tall", phase3, dev, launches, timings, keep)
-    fits += phase("4 wide", phase4, dev, launches, timings)
+    fits += phase("4 wide", phase4, dev, launches, timings, keep)
     gen = torch.Generator(device=dev).manual_seed(4)
     Xc = (torch.rand((65536, 1000), generator=gen, device=dev) < 0.5).to(torch.int8)
     timings.append(time_conditional(Xc, Xc[:, 3].clone(), Xc[:, 5].to(torch.int32),
                                     "65536x1000 int8 VC=4 (conditional)"))
     del Xc
     fits += phase("5 tall binned", phase5, dev, launches, keep)
-    fits += phase("6 wide pearson", phase6, dev, launches)
+    fits += phase("6 wide pearson", phase6, dev, launches, keep)
     serves, serve_check = phase("7 yi-6b serve", phase7, dev, launches)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ooc_"))
     try:
@@ -2001,6 +2255,11 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     if tmp.exists():
         raise AssertionError(f"phases 8 and 9 left {tmp} behind")
+    mesh_fits, mesh_times, mesh_bin_times = phase("10 device mesh", phase10, dev, launches,
+                                                  fits, keep)
+    timings += mesh_times
+    bin_times += mesh_bin_times
+    bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
     del keep
     rng = np.random.default_rng(1)
 
@@ -2016,6 +2275,10 @@ def main():
         (tables(1000, 2, 2, 2).movedim(-1, -3),
          "class-major view of a 1000x2x2x2 stack (jmi/cmim redundancy)"),
         (tables(20001, 2, 2), "20001x2x2 (2-D jmi marginal, phase 9)"),
+        (tables(12500, 2, 2), "12500x2x2 (a (4,) model shard's pass, phase 10)"),
+        (tables(20000, 2, 2), "20000x2x2 (a (2, 2) grid's feature group, jmi marginal, phase 10)"),
+        (tables(20000, 2, 2, 2).movedim(-1, -3),
+         "class-major view of a 20000x2x2x2 stack (the grid's jmi redundancy, phase 10)"),
         (tables(20001, 2, 2, 2).movedim(-1, -3),
          "class-major view of a 20001x2x2x2 stack (2-D jmi redundancy, phase 9)"),
         (tables(279, 1, 2, 2), "279x1x2x2 (custom relevance chunk)"),
@@ -2024,7 +2287,8 @@ def main():
 
     mi_err = max([mi_err] + [r["max_abs_err"] for r in mi_times])
     mi_paths = ("tall_conventional", "tall_streaming", "wide_alternative",
-                "tall_binned_streaming", "tall_binned_in_memory", *OOC_PATHS, *MH_PATHS)
+                "tall_binned_streaming", "tall_binned_in_memory", *OOC_PATHS, *MH_PATHS,
+                *MESH_PATHS)
     kernels = [
         # the streaming block: the shape launched most often
         kernel_entry("contingency_tables", "src/repro_torch/csrc/contingency.cu",
@@ -2035,10 +2299,11 @@ def main():
                      mi_err, mi_times[0], mi_times),
         kernel_entry("bin_codes", "src/repro_torch/csrc/bin_codes.cu",
                      "src/repro/kernels/binning.py:45",
-                     ("tall_binned_streaming", "tall_binned_in_memory"), launches,
+                     ("tall_binned_streaming", "tall_binned_in_memory", "mesh_binned_streaming"),
+                     launches,
                      bins_err, bin_times[0], bin_times),
         kernel_entry("pearson_corr", "src/repro_torch/csrc/pearson.cu",
-                     "src/repro/kernels/pearson.py:57", ("wide_pearson",), launches,
+                     "src/repro/kernels/pearson.py:57", ("wide_pearson", "mesh_pearson"), launches,
                      corr_err, corr_times[0], corr_times),
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:79", ("yi6b_serve",), launches,
@@ -2048,7 +2313,8 @@ def main():
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
-                        plan_paths=plan_paths, out_of_core=ooc, multi_host=mh)))
+                        plan_paths=plan_paths, out_of_core=ooc, multi_host=mh,
+                        device_mesh=mesh_fits)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,15 @@ such a group:
     >>> init_multihost()                    # REPRO_* environment; idempotent
     >>> MRMRSelector(10, hosts="auto").fit(NpySource("X.npy", "y.npy"))
 
+The paper's §III split also runs inside one process, over a device mesh
+(:mod:`repro_torch.dist.meshes`): tall data shards observations, wide data
+features, both-large a 2-D grid.  Positions may repeat a device, so four
+shards can share one card:
+
+    >>> from repro_torch.dist import make_mesh
+    >>> mesh = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    >>> MRMRSelector(10, encoding="grid", mesh=mesh).fit(X, y)
+
 The paper's custom-score interface (Listing 7) is ``CustomScore``;
 ``repro_torch.serve.selection.SelectionService`` runs fits as managed jobs
 behind a result cache, and ``repro_torch.interop.sklearn.MRMRTransformer``
@@ -73,6 +82,7 @@ from repro_torch.core.mrmr import (
     MRMRResult,
     mrmr_alternative,
     mrmr_conventional,
+    mrmr_grid,
     mrmr_reference,
 )
 from repro_torch.core.scores import (
@@ -143,6 +153,7 @@ __all__ = [
     "mrmr_alternative",
     "mrmr_conventional",
     "mrmr_custom_score",
+    "mrmr_grid",
     "mrmr_reference",
     "mrmr_select",
     "mrmr_streaming",

@@ -27,12 +27,12 @@ def infer_layout(n_obs: int, n_feat: int) -> str:
 
 @dataclasses.dataclass
 class FeatureSelector:
-    """mRMR feature selection with the paper's two encodings.
+    """mRMR feature selection with the paper's two encodings (+grid).
 
     Compatibility alias of :class:`repro_torch.core.selector.MRMRSelector`:
     ``layout`` maps onto ``encoding`` ("auto" resolves with the original
-    shape rule).  ``layout="grid"`` and a ``mesh`` need the mesh engines,
-    not yet ported: they raise ``NotImplementedError``.
+    shape rule — grid only when asked for), ``mesh`` runs it on a
+    :class:`~repro_torch.dist.meshes.Mesh`.
     """
 
     num_select: int
@@ -49,10 +49,6 @@ class FeatureSelector:
     gains_: np.ndarray | None = None
 
     def _encoding_for(self, X: torch.Tensor) -> str:
-        if self.layout == "grid":
-            raise NotImplementedError(
-                "layout='grid' needs the mesh engines, not yet ported to repro_torch"
-            )
         if self.layout != "auto":
             return self.layout
         m, n = X.shape

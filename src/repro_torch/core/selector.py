@@ -1,28 +1,36 @@
 """The front-door selection API: ``MRMRSelector`` / ``SelectionPlan``.
 
-1. **Planning** — ``plan_selection`` implements the paper's §III rule on one
-   device: tall/narrow data -> conventional encoding, wide/short ->
-   alternative (non-MI scores always alternative).  Continuous data takes
-   the paper's Pearson score (``PearsonMIScore``) on the alternative
-   encoding, or, with ``bins=``, quantile codes and exact MI.
+1. **Planning** — ``plan_selection`` implements the paper's §III rule:
+   tall/narrow data -> conventional encoding (observations sharded),
+   wide/short -> alternative (features sharded; non-MI scores always),
+   both large on at least ``GRID_MIN_DEVICES`` devices -> the 2-D grid, and
+   factors the devices into a mesh shape.  Continuous data takes the
+   paper's Pearson score (``PearsonMIScore``) on the alternative encoding,
+   or, with ``bins=``, quantile codes and exact MI.
 2. **Engines** — a registry mapping encoding names to fit functions
-   (``reference`` / ``conventional`` / ``alternative`` here, ``streaming``
-   in :mod:`repro_torch.core.streaming`).
-3. **The selector** — ``MRMRSelector.fit(X, y)`` resolves the score and
-   the plan, lands the data on the device and hands off to the engine.
-   Inputs are always observations × features; layout changes are views.
+   (``reference`` / ``conventional`` / ``alternative`` / ``grid`` here,
+   ``streaming`` in :mod:`repro_torch.core.streaming`); a plan's ``mesh``
+   says where the shards go.
+3. **The selector** — ``MRMRSelector.fit(X, y)`` resolves the score, the
+   plan and the mesh, lands the data on the device and hands off to the
+   engine.  Inputs are always observations × features; layout changes are
+   views.
 
     >>> from repro_torch import MRMRSelector
     >>> sel = MRMRSelector(num_select=10).fit(X, y)   # on the card
     >>> X_reduced = sel.transform(X)                  # selection order
 
 The selector runs on ``device="cuda"`` unless told otherwise and raises
-when no card is present; it never falls back to the CPU.
+when no card is present; it never falls back to the CPU.  ``devices=None``
+is every local device of that kind: all the cards (one on a one-card
+machine, so one-device plans), the CPU once.  A ``mesh=`` or a device list
+may repeat a device, to run the mesh engines on one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -36,7 +44,14 @@ from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.sources import ArraySource, DataSource
 from repro_torch.device import resolve_device
 from repro_torch.dist import multihost
-from repro_torch.dist.meshes import factor_mesh
+from repro_torch.dist.meshes import (
+    Mesh,
+    check_mesh_kind,
+    factor_mesh,
+    local_devices,
+    make_mesh,
+)
+from repro_torch.dist.sharding import axes_tuple as _axes_tuple
 from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
 from repro_torch.kernels import ops
 
@@ -61,14 +76,16 @@ def check_num_select(num_select, n_features: int) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class SelectionPlan:
-    """Resolved strategy for one ``fit`` on one device.
+    """Resolved strategy for one ``fit``.
 
     ``score=None`` means "resolve from the data at fit time";
     ``criterion`` is a registered name or a
     :class:`~repro_torch.core.criteria.Criterion` instance.
+    ``mesh_shape`` aligns with ``obs_axes + feat_axes``; empty means run
+    unsharded.  ``mesh`` is the mesh the selector resolved for the engine.
     """
 
-    encoding: str                     # reference|conventional|alternative|streaming
+    encoding: str                     # reference|conventional|alternative|grid|streaming
     incremental: bool = True          # running criterion fold vs recompute
     score: ScoreFn | None = None      # score spec (None = auto from data)
     block_obs: int = 65536            # streaming: observations per block
@@ -85,6 +102,18 @@ class SelectionPlan:
                                       # pass boundaries (0 = off)
     hosts: int = 1                    # streaming: torch.distributed processes
                                       # sharing the fit (1 = single-host)
+    obs_axes: tuple = ()              # mesh axes sharding observations
+    feat_axes: tuple = ()             # mesh axes sharding features
+    mesh_shape: tuple = ()            # extents, aligned with mesh_axes
+    mesh: Mesh | None = None          # where the shards run (None = unsharded)
+
+    @property
+    def mesh_axes(self) -> tuple:
+        return self.obs_axes + self.feat_axes
+
+    @property
+    def num_shards(self) -> int:
+        return math.prod(self.mesh_shape) if self.mesh_shape else 1
 
 
 def _grid_worthwhile(m: int, n: int, n_dev: int) -> bool:
@@ -111,26 +140,16 @@ def _grid_factor(m: int, n: int, n_dev: int) -> tuple | None:
     return None if min(od, fd) == 1 else (od, fd)
 
 
-def _axes(axes) -> tuple:
-    """Mesh axis names as a tuple (a bare string names one axis)."""
-    return (axes,) if isinstance(axes, str) else tuple(axes)
-
-
-def _check_single_device(devices=None, obs_axes=("data",), feat_axes=("model",)) -> None:
-    """Refuse the JAX package's mesh knobs beyond one device: ``devices`` of
-    ``None`` or 1 and the default axis names plan what one device runs; any
-    other value raises ``NotImplementedError`` naming the knob (the mesh
-    engines are not yet ported)."""
-    unported = dict(
-        devices=devices not in (None, 1),
-        obs_axes=_axes(obs_axes) != ("data",),
-        feat_axes=_axes(feat_axes) != ("model",),
-    )
-    for knob, is_set in unported.items():
-        if is_set:
-            raise NotImplementedError(
-                f"{knob}=... beyond one device is not yet ported to repro_torch"
-            )
+def _device_count(devices, device="cuda") -> int:
+    """The device budget: every local device of ``device``'s kind for
+    ``None``, a mesh's positions, an int as given, a list's length."""
+    if devices is None:
+        return len(local_devices(device))
+    if isinstance(devices, Mesh):
+        return devices.size
+    if isinstance(devices, int):
+        return devices
+    return len(devices)
 
 
 def plan_selection(
@@ -145,30 +164,89 @@ def plan_selection(
     criterion: Criterion | str = "mid",
     device="cuda",
 ) -> SelectionPlan:
-    """Pick the encoding for a dataset shape (paper §III, one device).
+    """Pick encoding + mesh for a dataset shape (paper §III).
 
     The signature is the JAX package's, with the port's ``device`` last.
 
     Args:
       shape: (observations, features) of the conventional-orientation input.
-      devices: the device budget; ``None`` or 1 (one device) only.
+      devices: device budget — an int, a device list, a ``Mesh`` (planning
+        is then constrained to its axes), or None for every local device of
+        ``device``'s kind.  One device never plans a grid.
       score: the score spec.  Non-MI scores force the alternative encoding
         (the only layout that supports arbitrary scores, §IV.D).
-      obs_axes, feat_axes: mesh axis names; only the defaults (no mesh).
+      obs_axes, feat_axes: mesh axis names for observation / feature
+        sharding.
       block: accepted for the JAX signature; the kernels pick their own
         tiling (the plain count's block is ``MIScore.block``).
       device: where the plan runs.
     """
-    _check_single_device(devices, obs_axes, feat_axes)
     criterion = resolve_criterion(criterion)
     m, n = int(shape[0]), int(shape[1])
+    obs_axes, feat_axes = _axes_tuple(obs_axes), _axes_tuple(feat_axes)
+    n_dev = _device_count(devices, device)
+    mesh = devices if isinstance(devices, Mesh) else None
+    if mesh is not None:
+        obs_axes = tuple(a for a in obs_axes if a in mesh.shape)
+        feat_axes = tuple(a for a in feat_axes if a in mesh.shape)
+
     mi_ok = score is None or isinstance(score, MIScore)
-    tall = m / max(n, 1) >= 1.0
-    encoding = "conventional" if mi_ok and tall else "alternative"
-    return SelectionPlan(
-        encoding=encoding, incremental=incremental, score=score,
-        criterion=criterion, device=str(device),
+    aspect = m / max(n, 1)
+    can_grid = (
+        mi_ok
+        and _grid_worthwhile(m, n, n_dev)
+        and (mesh is None or (obs_axes and feat_axes))
     )
+    if not mi_ok:
+        encoding = "alternative"
+    elif can_grid:
+        encoding = "grid"
+    elif aspect >= 1.0:
+        encoding = "conventional"
+    else:
+        encoding = "alternative"
+
+    common = dict(incremental=incremental, score=score, criterion=criterion,
+                  device=str(device))
+    if n_dev <= 1 and mesh is None:
+        # One device: the encoding still follows the shape (the engines run
+        # unsharded), so plans are stable as the fleet scales.
+        if encoding == "grid":
+            encoding = "conventional" if aspect >= 1.0 else "alternative"
+        return SelectionPlan(encoding=encoding, **common)
+
+    if mesh is not None:
+        if encoding == "conventional" and not obs_axes:
+            encoding = "alternative" if feat_axes else "reference"
+        if encoding == "alternative" and not feat_axes:
+            # Only MI scores may reroute to the conventional engine; any
+            # other score falls back to the score-agnostic reference.
+            encoding = "conventional" if (obs_axes and mi_ok) else "reference"
+        if encoding == "reference":
+            return SelectionPlan("reference", **common)
+        if encoding == "conventional":
+            feat_axes = ()
+        elif encoding == "alternative":
+            obs_axes = ()
+        return SelectionPlan(
+            encoding, obs_axes=obs_axes, feat_axes=feat_axes,
+            mesh_shape=tuple(mesh.shape[a] for a in obs_axes + feat_axes), **common,
+        )
+
+    if encoding == "grid":
+        gf = _grid_factor(m, n, n_dev)
+        if gf is None:  # prime device count: the grid degenerates
+            encoding = "conventional" if aspect >= 1.0 else "alternative"
+        else:
+            return SelectionPlan(
+                "grid", obs_axes=obs_axes[:1] or ("data",),
+                feat_axes=feat_axes[:1] or ("model",), mesh_shape=gf, **common,
+            )
+    if encoding == "conventional":
+        return SelectionPlan("conventional", obs_axes=obs_axes[:1] or ("data",),
+                             mesh_shape=(n_dev,), **common)
+    return SelectionPlan("alternative", feat_axes=feat_axes[:1] or ("model",),
+                         mesh_shape=(n_dev,), **common)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +281,11 @@ def available_encodings() -> tuple:
     return tuple(sorted(_ENGINES))
 
 
+# Engines read ``plan.mesh``: None runs on the data's device, a mesh shards
+# the data over the plan's axes (the padding is the engines' own: padded
+# observations carry an out-of-range category and count nothing, padded
+# feature columns are zero and never picked).
+
 @register_engine("reference")
 def _fit_reference(X, y, *, num_select, plan) -> MRMRResult:
     return mrmr_mod.mrmr_reference(
@@ -214,8 +297,8 @@ def _fit_reference(X, y, *, num_select, plan) -> MRMRResult:
 @register_engine("conventional")
 def _fit_conventional(X, y, *, num_select, plan) -> MRMRResult:
     return mrmr_mod.mrmr_conventional(
-        X, y, num_select, plan.score, incremental=plan.incremental,
-        criterion=plan.criterion,
+        X, y, num_select, plan.score, mesh=plan.mesh, obs_axes=plan.obs_axes,
+        incremental=plan.incremental, criterion=plan.criterion,
     )
 
 
@@ -223,13 +306,24 @@ def _fit_conventional(X, y, *, num_select, plan) -> MRMRResult:
 def _fit_alternative(X, y, *, num_select, plan) -> MRMRResult:
     # Feature-major storage as a transposed VIEW: the contingency kernel
     # reads it in place.  A score that wants its own row layout (Pearson:
-    # rows contiguous along M) gets one copy per fit here.
+    # rows contiguous along M) gets one copy per fit here, or one a shard.
     X_rows = X.T
     feature_rows = getattr(plan.score, "feature_rows", None)
-    if feature_rows is not None:
+    if feature_rows is not None and plan.mesh is None:
         X_rows = feature_rows(X_rows)
     return mrmr_mod.mrmr_alternative(
-        X_rows, y, num_select, plan.score, incremental=plan.incremental,
+        X_rows, y, num_select, plan.score, mesh=plan.mesh, feat_axes=plan.feat_axes,
+        incremental=plan.incremental, criterion=plan.criterion,
+    )
+
+
+@register_engine("grid")
+def _fit_grid(X, y, *, num_select, plan) -> MRMRResult:
+    if plan.mesh is None:
+        raise ValueError("grid encoding requires a mesh")
+    return mrmr_mod.mrmr_grid(
+        X, y, num_select, plan.score, mesh=plan.mesh, obs_axes=plan.obs_axes,
+        feat_axes=plan.feat_axes, incremental=plan.incremental,
         criterion=plan.criterion,
     )
 
@@ -255,7 +349,7 @@ def _resolve_hosts(hosts) -> int:
 
 @dataclasses.dataclass
 class MRMRSelector:
-    """mRMR feature selection, scikit-learn style, on one device.
+    """mRMR feature selection, scikit-learn style, on one device or a mesh.
 
     ``fit(X, y)`` -> self with ``selected_`` / ``gains_`` / ``scores_`` /
     ``ranking_`` / ``plan_`` / ``result_``; ``transform(X)`` returns the
@@ -300,12 +394,23 @@ class MRMRSelector:
         group).  The §III rule then applies across processes: each reads
         only its block/column ranges, per-pass statistics merge with
         explicit gloo collectives, and every process returns the identical
-        result.  One device per process.  ``None``/1 is one process.
+        result.  Each process may shard its blocks over a local device mesh
+        on the observation axes (``devices=``).  ``None``/1 is one process.
       device: where the fit runs; "cuda" (the default) raises without a
-        card, "cpu" runs the plain PyTorch versions.
-      mesh: not yet ported; and ``devices``, ``obs_axes``, ``feat_axes``
-        only as one device (None or 1, the default axes).  Any other value
-        raises ``NotImplementedError`` naming the knob.
+        card, "cpu" runs the plain PyTorch versions.  A mesh's devices are
+        of the same kind.
+      mesh: a :class:`~repro_torch.dist.meshes.Mesh` to run on; None lets
+        the planner build one from ``devices``.
+      devices: the device budget for planning (an int, a device list, or
+        None for every local device of ``device``'s kind).  Ignored when
+        ``mesh`` is given.
+      obs_axes / feat_axes: mesh axis names for observation / feature
+        sharding (intersected with the mesh's axes).
+
+    Streamed fits follow the same §III rule: tall sources shard blocks over
+    ``obs_axes``, wide ones shard blocks *and the per-pair statistics
+    state* over ``feat_axes``, both-large ones run the 2-D grid; a ``mesh``
+    overrides the rule with whatever axes it carries.
     """
 
     num_select: int
@@ -335,15 +440,74 @@ class MRMRSelector:
     result_: MRMRResult | None = None
     n_features_in_: int | None = None
     plan_: SelectionPlan | None = None
+    mesh_: Mesh | None = None
 
     def __post_init__(self):
-        _check_single_device(self.devices, self.obs_axes, self.feat_axes)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "MRMRSelector(mesh=...) is not yet ported to repro_torch"
-            )
         _resolve_hosts(self.hosts)  # validate now; "auto" resolves at fit
         self._device = resolve_device(self.device)
+        if isinstance(self.mesh, Mesh):
+            check_mesh_kind(self.mesh, self._device)
+
+    def _resolve_plan(self, shape: tuple, score: ScoreFn) -> SelectionPlan:
+        """The in-memory plan: the §III rule for ``encoding="auto"``, else the
+        asked encoding on the mesh (or the device budget's mesh)."""
+        crit = resolve_criterion(self.criterion)
+        if self.encoding == "auto":
+            devices = self.mesh if self.mesh is not None else self.devices
+            return plan_selection(
+                shape, devices, score, obs_axes=self.obs_axes,
+                feat_axes=self.feat_axes, incremental=self.incremental,
+                block=self.block, criterion=crit, device=self._device,
+            )
+        obs, feat = _axes_tuple(self.obs_axes), _axes_tuple(self.feat_axes)
+        if self.mesh is not None:
+            obs = tuple(a for a in obs if a in self.mesh.shape)
+            feat = tuple(a for a in feat if a in self.mesh.shape)
+        axes = {
+            "reference": ((), ()),
+            "conventional": (obs, ()),
+            "alternative": ((), feat),
+            "grid": (obs, feat),
+        }.get(self.encoding, (obs, feat))
+        if self.mesh is not None:
+            shape_of = tuple(self.mesh.shape[a] for a in axes[0] + axes[1])
+        else:
+            # No mesh given: build one from the device budget, so an
+            # explicitly asked encoding still shards.
+            n_dev = _device_count(self.devices, self._device)
+            m, n = shape
+            if self.encoding == "grid":
+                # One device runs the degenerate 1x1 grid, as JAX does.
+                axes = (axes[0][:1] or ("data",), axes[1][:1] or ("model",))
+                shape_of = (factor_mesh(n_dev, bias=max(m / max(n, 1), 1e-6))
+                            if n_dev > 1 else (1, 1))
+            elif n_dev <= 1 or self.encoding == "reference":
+                axes, shape_of = ((), ()), ()
+            elif self.encoding == "conventional":
+                axes, shape_of = (axes[0][:1] or ("data",), ()), (n_dev,)
+            elif self.encoding == "alternative":
+                axes, shape_of = ((), axes[1][:1] or ("model",)), (n_dev,)
+            else:  # a registered engine runs unsharded unless given a mesh
+                shape_of = ()
+        return SelectionPlan(
+            encoding=self.encoding, obs_axes=axes[0], feat_axes=axes[1],
+            mesh_shape=shape_of, incremental=self.incremental, score=score,
+            criterion=crit, device=str(self._device),
+        )
+
+    def _resolve_mesh(self, plan: SelectionPlan) -> Mesh | None:
+        """The mesh the engine runs on: the user's (when the plan shards), or
+        one of ``plan.mesh_shape`` over the device budget."""
+        if self.mesh is not None:
+            return self.mesh if plan.mesh_axes else None
+        if not plan.mesh_shape:
+            return None
+        devices = self.devices
+        if devices is None or isinstance(devices, int):
+            devices = local_devices(self._device)
+        mesh = make_mesh(plan.mesh_shape, plan.mesh_axes, devices=devices)
+        check_mesh_kind(mesh, self._device)
+        return mesh
 
     def _resolve_score(self, X: torch.Tensor, y: torch.Tensor) -> ScoreFn:
         if self.score is not None:
@@ -449,6 +613,7 @@ class MRMRSelector:
 
     def _finish_fit(self, res: MRMRResult, plan: SelectionPlan,
                     n_features: int) -> "MRMRSelector":
+        self.mesh_ = plan.mesh
         # An engine registered from outside may leave its provenance empty:
         # fill both names in from the plan that drove the fit.
         if not res.engine:
@@ -492,29 +657,83 @@ class MRMRSelector:
                 # Explicit MI on float blocks would truncate them to
                 # categories inside the count — fail actionably here.
                 raise self._continuous_mi_error("the source")
-        crit = resolve_criterion(self.criterion)
-        mrmr_mod.check_conditional_support(score, crit)
-        q = int(self.batch_candidates)
-        if q < 1:
-            raise ValueError(f"batch_candidates must be >= 1, got {q}")
-        if int(self.readahead) < 0:
-            raise ValueError(f"readahead must be >= 0, got {self.readahead}")
-        plan = SelectionPlan(
-            encoding="streaming",
-            block_obs=effective_block_obs(self.block_obs),
-            prefetch=resolve_prefetch(self.prefetch, self._device),
-            score=score, criterion=crit, batch_candidates=q,
-            device=str(self._device),
-            bins=source.bins if isinstance(source, BinnedSource) else None,
-            spill_dir=self.spill_dir,
-            spill_budget_bytes=self.spill_budget_bytes,
-            readahead=int(self.readahead),
-            hosts=_resolve_hosts(self.hosts),
+        mrmr_mod.check_conditional_support(score, resolve_criterion(self.criterion))
+        plan = self._resolve_stream_plan(source, score)
+        plan = dataclasses.replace(
+            plan, bins=source.bins if isinstance(source, BinnedSource) else None,
+            mesh=self._resolve_mesh(plan),
         )
         res = get_engine("streaming")(
             source, None, num_select=self.num_select, plan=plan
         )
         return self._finish_fit(res, plan, source.num_features)
+
+    def _resolve_stream_plan(self, source: DataSource, score: ScoreFn) -> SelectionPlan:
+        """Streaming layout per the paper's §III rule: tall shards blocks over
+        observations, wide shards blocks AND statistics over features,
+        both-large runs the 2-D grid.  A user mesh overrides the rule: the
+        obs/feat axes it carries are used (both present -> 2-D).
+
+        With ``hosts > 1`` the rule applies across processes
+        (:func:`~repro_torch.dist.multihost.resolve_host_shards`) and the
+        device layout is per process: blocks shard over its LOCAL devices on
+        the observation axes only, since device feature-sharding would pad
+        the statistics width past the exact shard width and break the
+        cross-host alignment of the states."""
+        m, n = source.num_obs, source.num_features
+        aspect = m / max(n, 1)
+        obs, feat = _axes_tuple(self.obs_axes), _axes_tuple(self.feat_axes)
+        hosts = _resolve_hosts(self.hosts)
+        if hosts > 1:
+            if self.mesh is not None:
+                raise ValueError(
+                    "hosts > 1 plans the per-host device mesh from local "
+                    "devices; pass devices= instead of mesh="
+                )
+            n_dev = _device_count(self.devices, self._device)
+            obs, feat, shape = ((), (), ()) if n_dev <= 1 else (obs[:1] or ("data",), (), (n_dev,))
+        elif self.mesh is not None:
+            obs = tuple(a for a in obs if a in self.mesh.shape)
+            feat = tuple(a for a in feat if a in self.mesh.shape)
+            if not obs and not feat:
+                # Running unsharded on a user's mesh would betray the device
+                # budget; streaming has no engine to reroute to, so fail.
+                raise ValueError(
+                    f"mesh axes {tuple(self.mesh.shape)} share no axis with "
+                    f"obs_axes {_axes_tuple(self.obs_axes)} or feat_axes "
+                    f"{_axes_tuple(self.feat_axes)}; streaming shards "
+                    "blocks over observation and/or feature axes"
+                )
+            shape = tuple(self.mesh.shape[a] for a in obs + feat)
+        else:
+            n_dev = _device_count(self.devices, self._device)
+            gf = _grid_factor(m, n, n_dev)
+            if n_dev <= 1:
+                obs, feat, shape = (), (), ()
+            elif aspect >= TALL_RATIO or (gf is None and aspect >= 1.0):
+                obs, feat, shape = obs[:1] or ("data",), (), (n_dev,)
+            elif gf is None:
+                obs, feat, shape = (), feat[:1] or ("model",), (n_dev,)
+            else:
+                obs, feat, shape = obs[:1] or ("data",), feat[:1] or ("model",), gf
+        q = int(self.batch_candidates)
+        if q < 1:
+            raise ValueError(f"batch_candidates must be >= 1, got {q}")
+        if int(self.readahead) < 0:
+            raise ValueError(f"readahead must be >= 0, got {self.readahead}")
+        # The EFFECTIVE block size: the placer rounds blocks up to the
+        # observation extent, and plan_ reports what runs.
+        block_obs = effective_block_obs(
+            self.block_obs, math.prod(shape[: len(obs)]) if obs else 1
+        )
+        return SelectionPlan(
+            encoding="streaming", obs_axes=obs, feat_axes=feat, mesh_shape=shape,
+            block_obs=block_obs, prefetch=resolve_prefetch(self.prefetch, self._device),
+            score=score, criterion=resolve_criterion(self.criterion),
+            batch_candidates=q, device=str(self._device),
+            spill_dir=self.spill_dir, spill_budget_bytes=self.spill_budget_bytes,
+            readahead=int(self.readahead), hosts=hosts,
+        )
 
     def fit(self, X, y=None) -> "MRMRSelector":
         """X: (observations, features) array + y: (observations,) targets,
@@ -556,20 +775,9 @@ class MRMRSelector:
         # Discrete MI needs integral class labels; every other score keeps
         # continuous targets intact.
         y = y.to(torch.int32 if isinstance(score, MIScore) else torch.float32)
-        crit = resolve_criterion(self.criterion)
-        mrmr_mod.check_conditional_support(score, crit)
-        if self.encoding == "auto":
-            plan = plan_selection(
-                X.shape, score=score, incremental=self.incremental,
-                criterion=crit, device=self._device,
-            )
-        else:
-            plan = SelectionPlan(
-                encoding=self.encoding,
-                incremental=self.incremental, score=score, criterion=crit,
-                device=str(self._device),
-            )
-        plan = dataclasses.replace(plan, bins=plan_bins)
+        mrmr_mod.check_conditional_support(score, resolve_criterion(self.criterion))
+        plan = self._resolve_plan(tuple(X.shape), score)
+        plan = dataclasses.replace(plan, bins=plan_bins, mesh=self._resolve_mesh(plan))
         res = get_engine(plan.encoding)(X, y, num_select=self.num_select, plan=plan)
         return self._finish_fit(res, plan, X.shape[1])
 

@@ -1,5 +1,5 @@
 """Streaming mRMR — the paper's MapReduce fit over out-of-core data, on one
-device.
+device or a :class:`~repro_torch.dist.meshes.Mesh`.
 
 Each scoring pass is one MapReduce job in the paper's conventional encoding:
 ``map`` + ``combine`` = the per-block contingency count (the contingency
@@ -48,6 +48,14 @@ engine's semantics:
   that reads the next pass's blocks while the current pass drains (which
   blocks a pass reads never depends on the pick).
 
+Both of the paper's §III regimes stream on a mesh (``mesh=``): **tall** —
+blocks shard over ``obs_axes``, each shard counting its rows, the shards'
+exact counts summed once a pass; **wide** — blocks *and the statistics
+state* shard over ``feat_axes``, so the per-pair state spreads across the
+mesh; **both-large** — the 2-D grid.  The kernels run once per tile (the
+fused bin-code encode too); selections and gains are bitwise the one-device
+fit's.
+
 Several processes share a fit through ``shards=`` (a
 :class:`~repro_torch.dist.multihost.HostShardSpec`; ``MRMRSelector(hosts=N)``
 resolves it from the process rank): each reads only its row and/or column
@@ -75,12 +83,14 @@ from repro_torch.data.binning import BinnedSource, _as_class_labels
 from repro_torch.data.block_cache import BlockCacheSource
 from repro_torch.data.sources import DataSource, ShardSource, as_source
 from repro_torch.device import resolve_device
+from repro_torch.dist.meshes import check_mesh_kind
 from repro_torch.dist.multihost import (
     HostCollectives,
     HostShardSpec,
     process_index,
     resolve_host_shards,
 )
+from repro_torch.dist.sharding import psum
 from repro_torch.dist.streaming import (
     BlockPlacer,
     CrossPassReader,
@@ -163,8 +173,16 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
     a batch of candidate columns (sequence of length ``q``).
     ``conditional=True`` returns ``dict(marginal=..., conditional=...)``
     instead — both terms from the one counting sweep.  ``edges`` (the
-    binner's, on the device) makes the pass fused: each placed float block
-    is encoded to bin codes on the device, once, before the counts.
+    binner's, placed per position) makes the pass fused: each placed float
+    tile is encoded to bin codes on its device, once, before the counts.
+
+    On a mesh every tile accumulates into its own position's state.  States
+    that merge by addition (``supports_state_merge``: exact integer counts)
+    are summed over the observation shards once, at the end of the pass, on
+    each feature group's first position; any other state (running moments)
+    accumulates each block's observation shards gathered onto that position,
+    the global block's arithmetic.  Each feature group finalises its own
+    columns.
 
     ``merge_state`` is the multi-host reduce hook: applied to the list of
     fully accumulated states *before* finalize (a cross-process sum of exact
@@ -179,12 +197,15 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
         if target_cols is None
         else ("feature_cond" if cond else "feature")
     )
-    # One state per candidate column (one, for an unbatched pass).
-    states = [placer.place_state(score.init_state(placer.num_features, kind))
-              for _ in range(batch or 1)]
-    io.note_state(states)
+    # The ledger counts the global state, as the JAX engine does; each
+    # candidate column (one, for an unbatched pass) gets its state [i][j].
+    logical = score.init_state(placer.padded_features, kind)
+    io.note_state([logical] * (batch or 1))
+    states = [placer.place_state(logical) for _ in range(batch or 1)]
     cond_classes = score.num_classes if cond else None
     use_kernel = getattr(score, "use_kernel", "auto")
+    heads = placer.grid[0]  # each feature group's first position
+    gather = len(placer.grid) > 1 and not score.supports_state_merge
 
     def host_blocks():
         for X_blk, y_blk in io.count(raw_pass):
@@ -203,28 +224,43 @@ def _score_pass(raw_pass, score: ScoreFn, placer: BlockPlacer, target_cols,
         placed = PrefetchPlacer(placer, depth=prefetch).stream(host_blocks())
     else:
         placed = (placer(X_blk, tgt) for X_blk, tgt in host_blocks())
-    for X_dev, tgt, valid in placed:
+    for tiles in placed:
         if edges is not None:
             # Padded rows encode to some code; their targets are masked.
-            X_dev = ops.bin_codes(X_dev, edges, use_kernel)
-        if batch is None:
-            states[0] = score.accumulate(states[0], X_dev, tgt, valid)
-        else:  # one count per candidate column, the block shared
-            for i in range(batch):
-                states[i] = score.accumulate(states[i], X_dev, tgt[i], valid)
+            tiles = [[(ops.bin_codes(X, e, use_kernel), t, v)
+                      for (X, t, v), e in zip(row, erow)]
+                     for row, erow in zip(tiles, edges)]
+        if gather:
+            # Running moments are no sum of per-shard states: each feature
+            # group counts the block's rows gathered on its first position
+            # (rows along axis 0 of the block, the last of target and mask).
+            tiles = [[tuple(torch.cat([row[j][a].to(d) for row in tiles], dim=-1 if a else 0)
+                            for a in range(3))
+                      for j, d in enumerate(heads)]]
+        for c, st in enumerate(states):  # one count per candidate column
+            for i, row in enumerate(tiles):
+                for j, (X, t, v) in enumerate(row):
+                    st[i][j] = score.accumulate(st[i][j], X, t if batch is None else t[c], v)
 
+    # Per candidate: the feature groups' states, observation shards summed.
+    rows = 1 if gather else len(placer.grid)
+    groups = [[st[0][j] if rows == 1 else psum([st[i][j] for i in range(rows)], d)
+               for j, d in enumerate(heads)] for st in states]
     if merge_state is not None:
-        states = merge_state(states)
+        if len(heads) > 1:  # the collectives take one full-width state
+            groups = [[torch.cat([g.to(heads[0]) for g in gs])] for gs in groups]
+        groups = [[s] for s in merge_state([gs[0] for gs in groups])]
     n = placer.num_features if keep is None else int(keep)
+
+    def cat(parts):
+        return np.concatenate([p.cpu().numpy() for p in parts]).astype(np.float32)[:n]
+
     if cond:
-        terms = [score.finalize_conditional(s) for s in states]
-        out = {
-            k: np.stack([t[k].cpu().numpy() for t in terms]).astype(np.float32)[:, :n]
-            for k in ("marginal", "conditional")
-        }
+        terms = [[score.finalize_conditional(s) for s in gs] for gs in groups]
+        out = {k: np.stack([cat([t[k] for t in ts]) for ts in terms])
+               for k in ("marginal", "conditional")}
         return {k: v[0] for k, v in out.items()} if batch is None else out
-    scores = np.stack([score.finalize(s).cpu().numpy() for s in states])
-    scores = scores.astype(np.float32)[:, :n]
+    scores = np.stack([cat([score.finalize(s) for s in gs]) for gs in groups])
     return scores[0] if batch is None else scores
 
 
@@ -295,6 +331,9 @@ def mrmr_streaming(
     *,
     block_obs: int = 65536,
     device="cuda",
+    mesh=None,
+    obs_axes=("data",),
+    feat_axes=(),
     prefetch="auto",
     criterion: Criterion | str = "mid",
     batch_candidates: int = 1,
@@ -310,8 +349,15 @@ def mrmr_streaming(
       source: a ``DataSource`` (or an ``(X, y)`` pair to wrap).
       num_select: L, number of features to pick.
       score: a streaming-capable ``ScoreFn`` (``supports_streaming``).
-      block_obs: observations per device block — the peak-memory knob.
+      block_obs: observations per device block — the peak-memory knob
+        (rounded up to the mesh's observation extent).
       device: where blocks are counted; ``"cuda"`` raises without a card.
+        A mesh's devices are of the same kind.
+      mesh / obs_axes / feat_axes: shard each block over the observation
+        axes, the feature axes, or both (the 2-D grid) of a
+        :class:`~repro_torch.dist.meshes.Mesh`.  Feature sharding also
+        shards the statistics state, the wide regime's memory wall;
+        observation sharding sums the shards' counts once a pass.
       prefetch: host blocks staged ahead of the device (0 = synchronous;
         ``"auto"`` = 2 on a CUDA device, 0 on the CPU).
       criterion: greedy objective, a registered name or a Criterion.
@@ -334,6 +380,8 @@ def mrmr_streaming(
     """
     crit = resolve_criterion(criterion)
     device = resolve_device(device)
+    if mesh is not None:
+        check_mesh_kind(mesh, device)
     source = as_source(*source) if isinstance(source, tuple) else as_source(source)
     if not score.supports_streaming:
         raise ValueError(
@@ -355,7 +403,8 @@ def mrmr_streaming(
     if shards is not None and not shards.is_single_host:
         return _mrmr_streaming_multihost(
             source, num_select, score, spec=shards, coll=collectives,
-            block_obs=block_obs, device=device, prefetch=prefetch, crit=crit,
+            block_obs=block_obs, device=device, mesh=mesh, obs_axes=obs_axes,
+            feat_axes=feat_axes, prefetch=prefetch, crit=crit,
             q=q, spill_dir=spill_dir, spill_budget_bytes=spill_budget_bytes,
             readahead=readahead,
         )
@@ -371,7 +420,8 @@ def mrmr_streaming(
             source, spill_dir, budget_bytes=spill_budget_bytes
         )
 
-    placer = BlockPlacer(block_obs, device, num_features=n)
+    placer = BlockPlacer(block_obs, device, num_features=n, mesh=mesh,
+                         obs_axes=obs_axes, feat_axes=feat_axes)
     # A BinnedSource scoring discrete MI streams FUSED: the base's raw float
     # blocks go to the device and are encoded there.  The sketch pass
     # (memoised by fingerprint) happens here, before the first scoring pass.
@@ -431,6 +481,9 @@ def _mrmr_streaming_multihost(
     coll: HostCollectives | None,
     block_obs: int,
     device: torch.device,
+    mesh,
+    obs_axes,
+    feat_axes,
     prefetch: int,
     crit: Criterion,
     q: int,
@@ -460,7 +513,9 @@ def _mrmr_streaming_multihost(
       groups padded to the widest; zeros change no sum), then the
       ``obs_coord == 0`` row of hosts assembles.
 
-    Each process places its blocks on its one ``device``; the placer's width
+    Each process places its blocks on its ``device``, or shards them over
+    its local ``mesh`` on ``obs_axes``; column-partitioned grids refuse
+    device ``feat_axes``: with no device feature sharding the placer's width
     is the exact shard width, which makes cross-host state shapes align.
     """
     n = source.num_features
@@ -475,6 +530,12 @@ def _mrmr_streaming_multihost(
             "partitions (supports_state_merge=False): its state is not a "
             "plain sum over blocks.  Use an MI score, or a column-only "
             "host grid (grid=(1, H)) where no state merge is needed."
+        )
+    if spec.partitions_cols and feat_axes:
+        raise ValueError(
+            "column-partitioned multi-host fits require feat_axes=() per "
+            "host: device feature-sharding would pad the statistics width "
+            "past the exact shard width and break cross-host alignment"
         )
     if isinstance(source, BlockCacheSource):
         raise ValueError(
@@ -503,14 +564,16 @@ def _mrmr_streaming_multihost(
     # Tall hosts hold every column; column-partitioned hosts size their
     # placer (and state) to the exact shard width, plus appended targets.
     placer_rel = BlockPlacer(
-        block_obs, device, num_features=n_local if spec.partitions_cols else n
+        block_obs, device, num_features=n_local if spec.partitions_cols else n,
+        mesh=mesh, obs_axes=obs_axes, feat_axes=feat_axes,
     )
     eff_bo = placer_rel.block_obs
     red_placers: dict = {}
 
     def red_placer(aug: int) -> BlockPlacer:
         if aug not in red_placers:
-            red_placers[aug] = BlockPlacer(block_obs, device, num_features=n_local + aug)
+            red_placers[aug] = BlockPlacer(block_obs, device, num_features=n_local + aug,
+                                           mesh=mesh, obs_axes=obs_axes)
         return red_placers[aug]
 
     def aug_blocks(raw, cols):
@@ -646,6 +709,9 @@ def _fit_streaming(source, y, *, num_select, plan) -> MRMRResult:
         plan.score,
         block_obs=plan.block_obs,
         device=plan.device,
+        mesh=plan.mesh,
+        obs_axes=plan.obs_axes,
+        feat_axes=plan.feat_axes,
         prefetch=plan.prefetch,
         criterion=plan.criterion,
         batch_candidates=plan.batch_candidates,

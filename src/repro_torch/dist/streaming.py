@@ -1,10 +1,23 @@
-"""Observation-block placement for the streaming engine, on one device.
+"""Observation-block placement for the streaming engine, on one device or
+a :class:`~repro_torch.dist.meshes.Mesh`.
 
 ``BlockPlacer`` pads every host block to ``block_obs`` rows (reporting the
 padding through a ``valid`` mask, which the score turns into out-of-range
 targets) and lands it on the device: on a CUDA device through pinned host
 memory with a ``non_blocking`` copy, so the transfer runs on the stream
-while the host moves on; on the CPU as a view of the numpy block.
+while the host moves on; on the CPU as a view of the numpy block.  Given a
+mesh it lands each block as tiles, one a position, per the plan's regime:
+
+* **obs-sharded** (tall data) — rows split over ``obs_axes``; each shard
+  counts every feature on its rows, and the engine sums the shards' states
+  once a pass (exact integer counts);
+* **feature-sharded** (wide data) — columns padded to the feature extent
+  and split over ``feat_axes``, and the *statistics state itself* lives in
+  feature shards (``place_state``): per-device state is ``O(N/shards)``;
+* **2-D grid** — both at once.
+
+Padded feature columns produce junk statistics rows the engine slices off
+after finalize.
 
 ``PrefetchPlacer`` is the double-buffered face of the same placement: a
 bounded host thread reads and pads block ``i+1`` while the consumer places
@@ -23,6 +36,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import axes_tuple, grid_devices, mesh_extent
 
 # End-of-stream sentinels for the prefetch and read-ahead queues.
 _DONE = object()
@@ -55,51 +70,129 @@ def effective_block_obs(block_obs: int, obs_extent: int = 1) -> int:
 
 @dataclasses.dataclass
 class BlockPlacer:
-    """Pad-and-place for observation blocks on one device.
+    """Pad-and-place for observation blocks.
 
     Args:
-      block_obs: rows per placed block; shorter blocks are zero-padded and
-        their padding marked invalid.
-      device: the torch device the blocks land on.
-      num_features: expected feature count of every block.
+      block_obs: rows per placed block; rounded UP to a multiple of the
+        observation-axes extent so every shard gets equal rows.  Shorter
+        blocks are zero-padded and their padding marked invalid.
+      device: the torch device blocks land on without a mesh.
+      num_features: expected feature count of every block (required for
+        feature sharding: columns pad up to a multiple of the feature-axes
+        extent, ``padded_features``).
+      mesh: a device mesh, or None for one device.
+      obs_axes / feat_axes: mesh axes to shard observations / features
+        (and the statistics state) over, intersected with the mesh's axes.
     """
 
     block_obs: int
     device: torch.device
-    num_features: int
+    num_features: int | None = None
+    mesh: object = None
+    obs_axes: tuple = ()
+    feat_axes: tuple = ()
 
     def __post_init__(self):
-        self.block_obs = effective_block_obs(self.block_obs)
-        self.device = torch.device(self.device)
+        obs, feat = axes_tuple(self.obs_axes), axes_tuple(self.feat_axes)
+        if self.mesh is not None:
+            obs = tuple(a for a in obs if a in self.mesh.shape)
+            feat = tuple(a for a in feat if a in self.mesh.shape)
+            if not obs and not feat:
+                # A mesh the blocks cannot shard over would silently run on
+                # one device against the caller's device budget.
+                raise ValueError(
+                    f"mesh axes {tuple(self.mesh.shape)} share no axis "
+                    f"with obs_axes {axes_tuple(self.obs_axes)} or "
+                    f"feat_axes {axes_tuple(self.feat_axes)}"
+                )
+            if feat and self.num_features is None:
+                # Without the global feature count the placer can neither pad
+                # columns to the shard extent nor shard the state.
+                raise ValueError(
+                    "feature sharding requires num_features "
+                    f"(feat_axes={feat} on mesh {tuple(self.mesh.shape)})"
+                )
+            self.grid = grid_devices(self.mesh, obs, feat)
+        else:
+            self.grid = [[torch.device(self.device)]]
+        self.obs_axes, self.feat_axes = obs, feat
+        self.device = self.grid[0][0]
+        self.block_obs = effective_block_obs(self.block_obs, mesh_extent(self.mesh, obs))
+        fext = mesh_extent(self.mesh, feat)
+        self._feat_pad = (
+            None if self.num_features is None
+            else -(-int(self.num_features) // fext) * fext
+        )
+
+    @property
+    def padded_features(self) -> int:
+        """Feature count after padding to the feature-axes extent."""
+        if self._feat_pad is None:
+            raise ValueError("BlockPlacer was built without num_features")
+        return self._feat_pad
+
+    @property
+    def shard_rows(self) -> int:
+        return self.block_obs // len(self.grid)
+
+    @property
+    def shard_cols(self) -> int:
+        return self.padded_features // len(self.grid[0])
+
+    def _cols(self, j: int) -> slice:
+        """Feature shard ``j``'s columns (all of them without feature axes)."""
+        if len(self.grid[0]) == 1:
+            return slice(None)
+        return slice(j * self.shard_cols, (j + 1) * self.shard_cols)
+
+    # -- statistics state -------------------------------------------------
 
     def place_state(self, state):
-        """Land a freshly initialised statistics state on the device: one
-        tensor (contingency counts) or a dict of tensors (running moments)."""
-        if isinstance(state, dict):
-            return {k: v.to(self.device) for k, v in state.items()}
-        return state.to(self.device)
+        """Land a freshly initialised statistics state — one tensor
+        (contingency counts) or a dict of tensors (running moments) — as
+        ``[i][j]``: a zeroed copy per position, leaves with a leading
+        ``padded_features`` axis cut to feature shard ``j``'s columns (the
+        rest, scalars, whole).  Without a mesh, ``[[state]]`` on the device."""
 
-    def place_edges(self, edges: np.ndarray) -> torch.Tensor:
-        """Land fitted bin edges ``(N, E)`` as one contiguous float32 tensor,
-        the operand every block's device encode reads."""
+        def cut(leaf, j, dev):
+            if leaf.dim() >= 1 and leaf.shape[0] == self._feat_pad:
+                leaf = leaf[self._cols(j)]
+            return leaf.to(dev, copy=True)
+
+        return [[{k: cut(v, j, d) for k, v in state.items()}
+                 if isinstance(state, dict) else cut(state, j, d)
+                 for j, d in enumerate(row)] for row in self.grid]
+
+    def place_edges(self, edges: np.ndarray) -> list:
+        """Land fitted bin edges ``(N, E)`` for every block's device encode:
+        float32, padded to ``padded_features`` rows of +inf (a pad column
+        encodes to code 0; its statistics are sliced off), cut into feature
+        shards — ``[i][j]`` on each position."""
         e = np.ascontiguousarray(edges, dtype=np.float32)
         if e.shape[0] != self.num_features:
             raise ValueError(
                 f"edges cover {e.shape[0]} features, placer expects "
                 f"{self.num_features}"
             )
-        return torch.from_numpy(e).to(self.device)
+        pad = self.padded_features - e.shape[0]
+        if pad:
+            e = np.concatenate([e, np.full((pad, e.shape[1]), np.inf, np.float32)])
+        t = torch.from_numpy(e)
+        return [[t[self._cols(j)].to(d) for j, d in enumerate(row)] for row in self.grid]
+
+    # -- blocks -------------------------------------------------------------
 
     def stage(self, X_block: np.ndarray, target: np.ndarray):
         """Host half: pad a (B, N) block and its ``(B,)`` or ``(q, B)``
-        target to ``block_obs`` rows and build the valid mask.  Pure numpy —
-        safe on a background thread (``PrefetchPlacer`` runs it there)."""
+        target to ``block_obs`` rows (and the block to ``padded_features``
+        zero columns) and build the valid mask.  Pure numpy — safe on a
+        background thread (``PrefetchPlacer`` runs it there)."""
         b, nf = X_block.shape
         if b > self.block_obs:
             raise ValueError(
                 f"block of {b} rows exceeds block_obs={self.block_obs}"
             )
-        if nf != self.num_features:
+        if self.num_features is not None and nf != self.num_features:
             raise ValueError(
                 f"block has {nf} features, placer expects {self.num_features}"
             )
@@ -110,23 +203,38 @@ class BlockPlacer:
             )
             tpad = np.zeros(target.shape[:-1] + (pad,), target.dtype)
             target = np.concatenate([target, tpad], axis=-1)
+        if self._feat_pad is not None and nf < self._feat_pad:
+            X_block = np.concatenate(
+                [X_block, np.zeros((X_block.shape[0], self._feat_pad - nf), X_block.dtype)],
+                axis=1,
+            )
         valid = np.arange(self.block_obs) < b
         return X_block, target, valid
 
+    def _land(self, a: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """One host array onto ``dev``: through pinned memory with an
+        asynchronous copy on a CUDA device (the caching host allocator keeps
+        the pinned buffer alive until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type != "cuda":
+            return t.to(dev)
+        return t.pin_memory().to(dev, non_blocking=True)
+
     def place(self, staged):
-        """Device half: land a staged (X, target, valid) triple.  On a CUDA
-        device each array goes through pinned memory with an asynchronous
-        copy (the caching host allocator keeps the pinned buffer alive until
-        the copy has run)."""
-        arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in staged]
-        if self.device.type != "cuda":
-            return tuple(a.to(self.device) for a in arrays)
-        return tuple(
-            a.pin_memory().to(self.device, non_blocking=True) for a in arrays
-        )
+        """Device half: land a staged (X, target, valid) triple as ``[i][j]``
+        triples, tile (i, j) holding observation shard ``i``'s rows of
+        feature shard ``j``'s columns (targets and mask: shard ``i``'s rows)
+        on its position's device — ``[[triple]]`` without a mesh."""
+        X, target, valid = staged
+        h = self.shard_rows
+        return [[(self._land(X[i * h:(i + 1) * h, self._cols(j)], d),
+                  self._land(target[..., i * h:(i + 1) * h], d),
+                  self._land(valid[i * h:(i + 1) * h], d))
+                 for j, d in enumerate(row)] for i, row in enumerate(self.grid)]
 
     def __call__(self, X_block: np.ndarray, target: np.ndarray):
-        """(B, N), (B,) host block -> placed (X, target, valid)."""
+        """(B, N), (B,) host block -> ``[i][j]`` placed (X, target, valid)
+        triples (see :meth:`place`)."""
         return self.place(self.stage(X_block, target))
 
 
@@ -146,7 +254,7 @@ class PrefetchPlacer:
             raise ValueError(f"prefetch depth must be >= 1, got {self.depth}")
 
     def stream(self, host_blocks):
-        """``(X_block, target)`` host iterator -> placed-tuple iterator."""
+        """``(X_block, target)`` host iterator -> placed-tiles iterator."""
         q: queue.Queue = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
 

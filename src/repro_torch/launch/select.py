@@ -19,6 +19,11 @@
         --input X.npy --target y.npy --bins 16
     PYTHONPATH=src python -m repro_torch.launch.select --score pearson
 
+    # A 2-D (observation x feature) mesh: REPRO_DEVICES=4 gives four mesh
+    # positions, cycled over the local devices of --device (four on one card)
+    REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.select \
+        --rows 4096 --cols 4096 --encoding grid --mesh-obs 2 --mesh-feat 2
+
     # The L-pass I/O knobs of a streamed fit (CSV, Parquet or .npy input):
     # speculate 8 redundancy candidates per pass, spill parsed blocks so
     # passes 2..L replay memmapped chunks, read the next pass ahead
@@ -31,15 +36,24 @@ Inputs: ``--input data.npz`` (arrays ``X``, ``y``) fits in memory;
 streams a CSV and ``--input data.parquet`` Parquet row batches (pyarrow),
 target = last column; default is the paper's CorrAL generator.
 
-Prints one JSON line: the plan, the device it ran on, the picks and gains
-(and the streaming engine's I/O ledger, and the bins of a binned fit);
-``--output`` also writes the full ``MRMRResult`` as JSON.
+The selector plans over the local devices of ``--device`` (one on a
+one-card machine); ``REPRO_DEVICES=N`` makes N mesh positions cycled over
+them, the counterpart of the JAX command line's forced host devices, so the
+mesh engines run on one card.  ``--encoding grid`` places a 2-D mesh
+(shape from ``--mesh-obs`` / ``--mesh-feat``, or auto-factored); the same
+mesh flags apply to streamed inputs (tall sources shard blocks over the
+observation axis, wide ones blocks and statistics over the feature axis).
+
+Prints one JSON line: the plan and its mesh, the device it ran on, the
+picks and gains (and the streaming engine's I/O ledger, and the bins of a
+binned fit); ``--output`` also writes the full ``MRMRResult`` as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -47,10 +61,20 @@ import torch
 
 from repro_torch.core.criteria import available_criteria, resolve_criterion
 from repro_torch.core.scores import MIScore, PearsonMIScore
-from repro_torch.core.selector import MRMRSelector, check_num_select
+from repro_torch.core.selector import MRMRSelector, available_encodings, check_num_select
 from repro_torch.data.sources import CSVSource, NpySource
 from repro_torch.data.synthetic import corral_dataset_np
 from repro_torch.device import device_name
+from repro_torch.dist.meshes import local_devices, make_mesh
+
+
+def mesh_positions(device) -> list:
+    """The devices the selector plans over: ``REPRO_DEVICES=N`` (N > 1) mesh
+    positions cycled over the local devices of ``device``, else those
+    devices themselves."""
+    devs = local_devices(device)
+    n = int(os.environ.get("REPRO_DEVICES", "0"))
+    return [devs[i % len(devs)] for i in range(n)] if n > 1 else devs
 
 
 def _load_input(args) -> tuple:
@@ -129,7 +153,11 @@ def main(argv=None) -> dict:
                     help="write the full MRMRResult (selected, gains, "
                          "relevance, provenance, io) as JSON to this path")
     ap.add_argument("--encoding", default="auto",
-                    choices=("auto", "conventional", "alternative", "streaming"))
+                    choices=("auto",) + available_encodings())
+    ap.add_argument("--mesh-obs", type=int, default=0,
+                    help="observation-axis mesh extent (0 = auto)")
+    ap.add_argument("--mesh-feat", type=int, default=0,
+                    help="feature-axis mesh extent (0 = auto)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -159,9 +187,17 @@ def main(argv=None) -> dict:
     if (args.bins or args.score == "pearson") and len(data) == 2:
         data = (data[0].astype(np.float32), data[1])  # as the JAX CLI casts
 
+    devices = mesh_positions(args.device)
+    mesh = None
+    if args.mesh_obs or args.mesh_feat:
+        obs = args.mesh_obs or max(len(devices) // max(args.mesh_feat, 1), 1)
+        feat = args.mesh_feat or max(len(devices) // obs, 1)
+        mesh = make_mesh((obs, feat), ("data", "model"), devices=devices)
+
     sel = MRMRSelector(
         num_select=args.select, score=score,
-        criterion=args.criterion, encoding=args.encoding,
+        criterion=args.criterion, encoding=args.encoding, mesh=mesh,
+        devices=devices,
         incremental=bool(args.incremental), block=args.block,
         block_obs=args.block_obs,
         prefetch=args.prefetch if args.prefetch == "auto" else int(args.prefetch),
@@ -178,6 +214,8 @@ def main(argv=None) -> dict:
     out = {
         "encoding": sel.plan_.encoding,
         "criterion": sel.result_.criterion,
+        "mesh": dict(zip(sel.plan_.mesh_axes, sel.plan_.mesh_shape)),
+        "devices": len(devices),
         "device": device_name(sel._device),
         "selected": sel.selected_.tolist(),
         "gains": [float(g) for g in sel.gains_],

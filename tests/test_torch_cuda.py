@@ -540,7 +540,7 @@ def test_spilled_int8_codes_count_bitwise(cuda, spilled_codes, c):
     tgt = yr if c == 2 else np.ascontiguousarray(Xr[:, 7])  # relevance / redundancy
     # Placed as the streaming engine places it: a read-only memmap copied
     # once into pinned memory, then to the card.
-    Xd, td, valid = BlockPlacer(65536, cuda, num_features=1000)(Xr, tgt)
+    [[(Xd, td, valid)]] = BlockPlacer(65536, cuda, num_features=1000)(Xr, tgt)
     assert Xd.dtype == torch.int8 and bool(valid.all())
     before = contingency_tables_cuda.launches
     got = contingency_tables_cuda(Xd, td.to(torch.int32), 16, c)
@@ -660,3 +660,118 @@ def test_two_gloo_workers_share_the_card_bitwise(cuda, tmp_path):
         assert w["device_name"] == torch.cuda.get_device_name(0)
         # 2 blocks x 4 passes counted, one MI launch a pass.
         assert w["launches"] == dict(contingency_tables=8, mi_scores=4)
+
+
+# ---------------------------------------------------------------------------
+# the in-process device mesh: four positions on one card
+# ---------------------------------------------------------------------------
+
+def _card_mesh(cuda, shape, axes):
+    from repro_torch.dist.meshes import make_mesh
+
+    return make_mesh(shape, axes, devices=[cuda] * 4)
+
+
+def _launches():
+    return contingency_tables_cuda.launches, mi_scores_cuda.launches
+
+
+@pytest.mark.parametrize("engine,shape,axes,crit,want", [
+    # L=5 picks: one count a shard a pass; MI once a feature group a pass
+    # (a conditional pass twice: the marginal and the class-major view).
+    ("conventional", (4,), ("data",), "mid", (4 * 5, 5)),
+    ("conventional", (3,), ("data",), "cmim", (3 * 5, 1 + 2 * 4)),  # padded rows
+    ("alternative", (4,), ("model",), "mid", (4 * 5, 4 * 5)),
+    ("alternative", (3,), ("model",), "jmi", (3 * 5, 3 + 3 * 2 * 4)),  # padded rows
+    ("grid", (2, 2), ("data", "model"), "jmi", (4 * 5, 2 + 2 * 2 * 4)),
+    ("grid", (2, 2), ("data", "model"), "miq", (4 * 5, 2 * 5)),
+])
+def test_mesh_engines_on_one_card_bitwise(cuda, engine, shape, axes, crit, want):
+    """Each engine on a mesh of positions on ``cuda:0``: the one-device card
+    fit's picks, bitwise its gains, the launches reckoned from the engine."""
+    X, y = CorralSource(20_000, 301, seed=1).materialize()
+    Xd, yd = torch.from_numpy(X).to(cuda), torch.from_numpy(y).to(cuda)
+    one = MRMRSelector(5, score=MIScore(2, 2), criterion=crit,
+                       encoding="alternative" if engine == "alternative" else "conventional",
+                       ).fit(Xd, yd)
+    mesh = _card_mesh(cuda, shape, axes)
+    before = _launches()
+    got = MRMRSelector(5, score=MIScore(2, 2), criterion=crit, encoding=engine,
+                       mesh=mesh).fit(Xd, yd)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == want
+    assert got.mesh_ is mesh and got.result_.engine == engine
+    np.testing.assert_array_equal(got.selected_, one.selected_)
+    assert np.array_equal(got.gains_, one.gains_)  # bitwise
+    assert np.array_equal(got.scores_, one.scores_)
+
+
+def test_mesh_pearson_on_one_card(cuda):
+    X, y = continuous_dataset_np(4000, 3001, seed=2)
+    Xd, yd = torch.from_numpy(X).to(cuda), torch.from_numpy(y).to(cuda)
+    one = MRMRSelector(5).fit(Xd, yd)
+    before = pearson_corr_cuda.launches
+    got = MRMRSelector(5, mesh=_card_mesh(cuda, (4,), ("model",))).fit(Xd, yd)
+    assert pearson_corr_cuda.launches - before == 4 * 5  # a shard: 1 relevance + 4 folds
+    np.testing.assert_array_equal(got.selected_, one.selected_)
+    np.testing.assert_allclose(got.gains_, one.gains_, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,axes,tiles,groups", [
+    ((4,), ("data",), 4, 1), ((4,), ("model",), 4, 4), ((2, 2), ("data", "model"), 4, 2),
+])
+def test_mesh_streaming_on_one_card_bitwise(cuda, shape, axes, tiles, groups):
+    """Streamed on the mesh (4 blocks a pass of 8,192 rows, L=4): one count a
+    tile a block, MI once a feature group a pass; q=2 and bins= too."""
+    X, y = CorralSource(30_000, 200, seed=2).materialize()
+    mesh = _card_mesh(cuda, shape, axes)
+    one = MRMRSelector(4, score=MIScore(2, 2), block_obs=8192).fit(ArraySource(X, y))
+    before = _launches()
+    got = MRMRSelector(4, score=MIScore(2, 2), block_obs=8192, mesh=mesh).fit(ArraySource(X, y))
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (4 * tiles * 4, groups * 4)
+    np.testing.assert_array_equal(got.selected_, one.selected_)
+    assert np.array_equal(got.gains_, one.gains_)
+    assert got.result_.io["blocks_read"] == one.result_.io["blocks_read"] == 16
+    q2 = MRMRSelector(4, score=MIScore(2, 2), block_obs=8192, batch_candidates=2,
+                      mesh=mesh).fit(ArraySource(X, y))
+    np.testing.assert_array_equal(q2.selected_, one.selected_)
+    assert np.array_equal(q2.gains_, one.gains_)
+    Xc, yc = continuous_dataset_np(30_000, 200, seed=3)
+    bone = MRMRSelector(4, bins=8, block_obs=8192).fit(ArraySource(Xc, yc))
+    before = bin_codes_cuda.launches
+    bgot = MRMRSelector(4, bins=8, block_obs=8192, mesh=mesh).fit(ArraySource(Xc, yc))
+    assert bin_codes_cuda.launches - before == 4 * tiles * 4  # the fused encode, a tile
+    np.testing.assert_array_equal(bgot.selected_, bone.selected_)
+    assert np.array_equal(bgot.gains_, bone.gains_)
+
+
+def test_a_mesh_mixing_cpu_and_cuda_raises(cuda):
+    from repro_torch.dist.meshes import make_mesh
+
+    with pytest.raises(ValueError, match="every position on CUDA or every one on the CPU"):
+        make_mesh((2,), ("data",), devices=["cpu", cuda])
+    mesh = _card_mesh(cuda, (4,), ("data",))
+    with pytest.raises(ValueError, match="mesh positions are cuda devices"):
+        MRMRSelector(3, mesh=mesh, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["conventional", "alternative", "grid"])
+def test_engines_refuse_card_data_on_a_cpu_mesh(cuda, engine):
+    """Card tensors on a mesh of CPU positions: each in-memory engine raises
+    before placing a shard, so no shard leaves the card."""
+    from repro_torch import mrmr_alternative, mrmr_conventional, mrmr_grid
+    from repro_torch.dist.meshes import make_mesh
+
+    X, y = CorralSource(2000, 40, seed=1).materialize()
+    Xd, yd = torch.from_numpy(X).to(cuda), torch.from_numpy(y).to(cuda)
+    mesh = make_mesh((4,), ("data",), devices=["cpu"] * 4)
+    call = dict(
+        conventional=lambda: mrmr_conventional(Xd, yd, 3, MIScore(2, 2), mesh=mesh),
+        alternative=lambda: mrmr_alternative(Xd.T, yd, 3, MIScore(2, 2), mesh=mesh,
+                                             feat_axes=("data",)),
+        grid=lambda: mrmr_grid(Xd, yd, 3, MIScore(2, 2), mesh=mesh, feat_axes=()),
+    )[engine]
+    before = _launches()
+    with pytest.raises(ValueError, match="mesh positions are cpu devices but device='cuda:0'"):
+        call()
+    assert _launches() == before

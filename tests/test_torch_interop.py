@@ -72,11 +72,27 @@ class TestLegacyAPI:
         assert t.selected.dtype == torch.int32
 
     def test_grid_and_mesh_wait_for_the_mesh_engines(self, corral):
+        """The mesh engines behind the legacy API: ``layout="grid"`` (the 1x1
+        grid on one device, a 2x2 grid of CPU positions) and ``mesh=`` select
+        as JAX's single-device fit, gains bitwise the port's one-device fit."""
+        from repro_torch.dist.meshes import make_mesh
+
         X, y = corral
-        with pytest.raises(NotImplementedError, match="grid"):
-            FeatureSelector(3, layout="grid", device="cpu").fit(X, y)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            FeatureSelector(3, mesh=object(), device="cpu").fit(X, y)
+        j = JFeatureSelector(3).fit(X, y)
+        one = FeatureSelector(3, device="cpu").fit(X, y)
+        for kw in (dict(layout="grid"),
+                   dict(layout="grid", mesh=make_mesh((2, 2), ("data", "model"),
+                                                      devices=["cpu"] * 4)),
+                   dict(mesh=make_mesh((4,), ("data",), devices=["cpu"] * 4))):
+            t = FeatureSelector(3, device="cpu", **kw).fit(X, y)
+            _same(t.selected_, t.gains_, j.selected_, j.gains_)
+            assert np.array_equal(t.gains_, one.gains_)
+            r = mrmr_select(X, y, 3, device="cpu", **kw)
+            assert r.selected.tolist() == t.selected_.tolist()
+        for fs in (FeatureSelector(3, mesh=object(), device="cpu"),
+                   JFeatureSelector(3, mesh=object())):  # not a mesh: JAX's error
+            with pytest.raises(AttributeError, match="shape"):
+                fs.fit(X, y)
 
     def test_transform_before_fit(self):
         with pytest.raises(RuntimeError, match="fit"):

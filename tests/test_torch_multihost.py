@@ -287,11 +287,34 @@ def test_selector_hosts_validation():
     # A two-host fit plans and then needs its process group.
     with pytest.raises(RuntimeError, match="init_multihost"):
         MRMRSelector(num_select=2, hosts=2, device="cpu").fit(ArraySource(X, y))
-    # Device feature-sharding stays unported (JAX refuses it per host too).
-    with pytest.raises(NotImplementedError, match="feat_axes"):
-        MRMRSelector(num_select=2, hosts=2, feat_axes=("model", "x"), device="cpu")
-    with pytest.raises(NotImplementedError, match="devices"):
-        MRMRSelector(num_select=2, hosts=2, devices=2, device="cpu")
+    # Column-partitioned host grids refuse device feature sharding, with the
+    # JAX package's message, before any collective.
+    from repro.dist.meshes import make_mesh as jmake_mesh
+
+    from repro_torch.dist.meshes import make_mesh
+
+    spec = tmh.resolve_host_shards(10, 4, 2, 0, grid=(1, 2))
+    jspec = jmh.resolve_host_shards(10, 4, 2, 0, grid=(1, 2))
+    msg = r"column-partitioned multi-host fits require feat_axes=\(\) per host"
+    with pytest.raises(ValueError, match=msg):
+        mrmr_streaming(ArraySource(X, y), 2, MIScore(2, 2), shards=spec, device="cpu",
+                       mesh=make_mesh((2,), ("model",), devices=["cpu"] * 2),
+                       feat_axes=("model",))
+    with pytest.raises(ValueError, match=msg):
+        jmrmr_streaming(JArraySource(X, y), 2, JMIScore(2, 2), shards=jspec,
+                        mesh=jmake_mesh((1,), ("model",)), feat_axes=("model",))
+    # A local device mesh per host plans (then needs its process group; the
+    # two-process fit is tests/test_torch_mesh.py); devices=2 on one device
+    # raises JAX's error.
+    with pytest.raises(RuntimeError, match="init_multihost"):
+        MRMRSelector(num_select=2, hosts=2, devices=["cpu"] * 2,
+                     device="cpu").fit(ArraySource(X, y))
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        MRMRSelector(num_select=2, hosts=2, devices=2, device="cpu").fit(ArraySource(X, y))
+    with pytest.raises(ValueError, match="devices= instead of mesh="):
+        MRMRSelector(num_select=2, hosts=2, device="cpu",
+                     mesh=make_mesh((2,), ("data",), devices=["cpu"] * 2)).fit(
+                         ArraySource(X, y))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MRMRSelector(num_select=2, hosts=2, device="cuda")

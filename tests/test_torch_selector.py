@@ -119,15 +119,45 @@ def test_default_device_is_the_card():
         MRMRSelector(3, encoding="streaming")
 
 
+# The mesh knobs, once refused: each fits on a CPU mesh (device positions
+# repeat "cpu") like the one-device fit, or raises the JAX selector's own
+# error.  The JAX side runs one device; "cpu" lists stand for its devices.
 @pytest.mark.parametrize(
     "knob", [dict(mesh=object()), dict(devices=4), dict(devices=2),
              dict(feat_axes=("model", "pod")), dict(devices=8), dict(obs_axes=("data", "pod")),
-             dict(obs_axes=("rows",)), dict(feat_axes="cols"), dict(devices=[0, 1])],
+             dict(obs_axes=("rows",)), dict(feat_axes="cols"), dict(devices=["cpu"] * 2),
+             dict(devices=["cpu"] * 4), dict(devices=["cpu"] * 3, obs_axes=("rows",)),
+             dict(mesh="data2"), dict(mesh="grid2x2")],
 )
-def test_unported_knobs_raise(knob):
-    (name,) = knob
-    with pytest.raises(NotImplementedError, match=rf"{name}=.*not yet ported"):
-        MRMRSelector(3, device="cpu", **knob)
+def test_unported_knobs_raise(corral, knob):
+    from repro_torch.dist.meshes import Mesh, make_mesh
+
+    X, y = corral
+    meshes = dict(data2=((2,), ("data",)), grid2x2=((2, 2), ("data", "model")))
+    if knob.get("mesh") in meshes:
+        knob = dict(mesh=make_mesh(*meshes[knob["mesh"]], devices=["cpu"] * 4))
+    jknob = {k: v for k, v in knob.items() if not isinstance(v, (list, Mesh))}
+    try:
+        JSelector(3, **jknob).fit(X, y)
+    except Exception as e:  # noqa: BLE001 - the port must raise what JAX raises
+        with pytest.raises(type(e), match=str(e).replace("(", r"\(").replace(")", r"\)")):
+            MRMRSelector(3, device="cpu", **knob).fit(X, y)
+        return
+    one = MRMRSelector(3, device="cpu").fit(X, y)
+    got = MRMRSelector(3, device="cpu", **knob).fit(X, y)
+    np.testing.assert_array_equal(got.selected_, one.selected_)
+    assert np.array_equal(got.gains_, one.gains_)  # bitwise
+    j = JSelector(3, devices=1).fit(X, y)
+    np.testing.assert_array_equal(got.selected_, j.selected_)
+    np.testing.assert_allclose(got.gains_, j.gains_, rtol=RTOL, atol=ATOL)
+    n_dev = len(knob["devices"]) if isinstance(knob.get("devices"), list) else 1
+    if "mesh" in knob:
+        assert got.mesh_ is knob["mesh"] and got.plan_.num_shards > 1
+    elif n_dev > 1:  # tall data: the observation-sharded engine on all positions
+        assert got.plan_.encoding == "conventional" and got.plan_.num_shards == n_dev
+        assert got.mesh_.size == n_dev
+    else:
+        assert got.mesh_ is None and got.plan_.mesh_shape == ()
 
 
 def test_one_device_knobs_fit_like_jax(corral):
@@ -237,9 +267,13 @@ class TestGuards:
     def test_unknown_encoding(self, corral):
         X, y = corral
         with pytest.raises(ValueError, match="unknown encoding"):
-            MRMRSelector(3, encoding="grid", device="cpu").fit(X, y)
+            MRMRSelector(3, encoding="hexagonal", device="cpu").fit(X, y)
+        # "grid" is registered: one device runs the degenerate 1x1 grid.
         assert available_encodings() == (
-            "alternative", "conventional", "reference", "streaming")
+            "alternative", "conventional", "grid", "reference", "streaming")
+        g = MRMRSelector(3, encoding="grid", device="cpu").fit(X, y)
+        assert (g.plan_.mesh_shape, g.result_.engine) == ((1, 1), "grid")
+        np.testing.assert_array_equal(g.selected_, MRMRSelector(3, device="cpu").fit(X, y).selected_)
 
     def test_transform_before_fit(self):
         with pytest.raises(RuntimeError, match="fit"):

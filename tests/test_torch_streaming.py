@@ -187,7 +187,7 @@ class TestPlacement:
         np.testing.assert_array_equal(valid, [1, 1, 1, 1, 1, 0, 0, 0])
         Xb, tb, vb = p.stage(X, np.stack([np.arange(5)] * 2))  # (q, B) targets
         assert tb.shape == (2, 8)
-        placed = p(X, np.arange(5))
+        [[placed]] = p(X, np.arange(5))  # one tile without a mesh
         assert all(isinstance(a, torch.Tensor) for a in placed)
         assert placed[0].dtype == torch.int8 and placed[2].dtype == torch.bool
 
@@ -202,7 +202,7 @@ class TestPlacement:
         p = BlockPlacer(4, "cpu", num_features=2)
         blocks = [(np.full((3, 2), i, np.int8), np.full(3, i, np.int8)) for i in range(5)]
         out = list(PrefetchPlacer(p, depth=2).stream(iter(blocks)))
-        assert [int(x[0, 0]) for x, _, _ in out] == list(range(5))
+        assert [int(x[0, 0]) for [[(x, _, _)]] in out] == list(range(5))
 
         def broken():
             yield blocks[0]
