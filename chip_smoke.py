@@ -161,6 +161,33 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    last tile, 65,536 x 334 with two +inf edge rows, held bitwise to its
    plain version.
 
+11. The other LM families, each at its published widths with random bf16
+   weights from seed 0 (JAX init scales), freed before the next: (a)
+   dbrx-132b cut to 4 of 40 layers (G = 6), phase 7's traffic (waves of 4 x
+   2048 and 4 x 1000 tokens, 32 new tokens); (b) llama4-scout cut to 2 of 48
+   layers (sigmoid top-1 routing, the shared expert, G = 5), one 4 x 2048
+   wave.  Both through ``serve_and_hold`` (phase 7's checks: kernel and
+   plain runs, every prefill attention held to the plain version on its own
+   q, k, v, tokens by the margin rule); layer 0's MoE on the first wave:
+   the slots dropped at the published capacity factor (1.25), and 1024 of
+   its tokens in float32 with the factor raised to E / k against
+   ``moe_dense_reference`` within ``MOE_REL_TOL``.  (c) mamba2-1.3b whole
+   (48 layers, no kernel): waves of 4 x 2048 and 4 x 1024 (whole 256-token
+   chunks), layer 0's chunked SSD in float32 against the token-by-token
+   recurrence on its own inputs (``SSD_REL_TOL`` of the largest output), and
+   in float32 prefill of 255 tokens plus one step against prefill of 256
+   (``DECODE_REL_TOL``).  (d) jamba's smoke config (a full-width superblock
+   is 90.3 GB) in bf16 (margin rule) and float32 (tokens equal).  (e)
+   qwen2-vl-2b whole: a prefill from 4 x 2048 embeddings whose first 1024
+   positions carry an image grid, (t, h, w) = (0, i // 32, i % 32), then
+   32 greedy steps, kernel against plain (attentions held, margin rule);
+   then a 4 x 2048 text wave through ``serve_and_hold``.  (f) whisper-tiny
+   whole: 4 x 1500 frame embeddings, a 4-token decoder prompt and 32 greedy
+   steps (``EncDecLM.greedy``), 4 + 4 + 4 flash launches a prefill (encoder,
+   decoder, cross-attention), each held to the plain version, in bf16 and
+   float32 (tokens equal).  Each logs parameters, weight bytes, prefill
+   seconds a wave, decode ms a step and flash launches a prefill.
+
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
@@ -175,7 +202,10 @@ nonzero cell at the SFU rate) and the shape's launches on the main paths.
 Phase 2 also holds the flash-attention kernel to its plain version at the
 serve shapes (B=4, S=T=2048 and the ragged 1000, H=32, KV=4, D=128, bf16),
 a long prompt (B=1, S=T=8192), MHA, S=1, a ragged S, S < T causal and
-non-causal: float32 within ``rtol=2e-5, atol=2e-5``, bf16 within
+non-causal, and phase 11's shapes (H=48 / 40 / 12 over KV=8 / 8 / 2 at
+S=T=2048, whisper's non-causal encoder at S=T=1500 and its cross-attention
+of 4 tokens against 1500 frames, H=KV=6, D=64; G = 6 and 5 and the
+cross-attention in float32 too): float32 within ``rtol=2e-5, atol=2e-5``, bf16 within
 ``rtol=3e-2, atol=3e-2`` and, for every dtype, each output row
 (``(b, s, h)``, L2 over D) within a relative error of ``1e-2``; it times
 the kernel, the plain version and one ``scaled_dot_product_attention(
@@ -190,7 +220,9 @@ streaming fit 160 (10 passes x 16 blocks), and every fit launches the MI
 kernel; the streaming binned fit encodes each of its 160 blocks once, the
 in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
-launches the flash-attention kernel 64 times (2 waves x 32 layers); each
+launches the flash-attention kernel 64 times (2 waves x 32 layers), and
+each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
+llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none); each
 spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
@@ -206,6 +238,7 @@ second-to-last line is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -1198,6 +1231,19 @@ def phase2_flash(dev):
         ("S=256 < T=2048 causal", 2, 256, 2048, 32, 4, 128, True, f32, False),
         ("non-causal S=300 T=1000", 2, 300, 1000, 32, 4, 128, False, f32, False),
         ("D=64 S=T=777 bf16", 2, 777, 777, 16, 16, 64, True, bf, False),
+        # The other families' shapes (phase 11): G = 6 and 5, D = 64 with G = 1,
+        # non-causal over 1500 frames, 4 decoder tokens against them.
+        ("dbrx prefill B=4 S=T=2048 H=48 KV=8", 4, 2048, 2048, 48, 8, 128, True, bf, True),
+        ("dbrx ragged wave B=4 S=T=1000 H=48 KV=8", 4, 1000, 1000, 48, 8, 128, True, bf, False),
+        ("llama4 prefill B=4 S=T=2048 H=40 KV=8", 4, 2048, 2048, 40, 8, 128, True, bf, True),
+        ("qwen2-vl prefill B=4 S=T=2048 H=12 KV=2", 4, 2048, 2048, 12, 2, 128, True, bf, True),
+        ("whisper encoder B=4 S=T=1500 H=KV=6 D=64 non-causal", 4, 1500, 1500, 6, 6, 64, False,
+         bf, True),
+        ("whisper cross-attention B=4 S=4 T=1500 H=KV=6 D=64", 4, 4, 1500, 6, 6, 64, False, bf,
+         True),
+        ("G=6 S=T=300 f32", 2, 300, 300, 48, 8, 128, True, f32, False),
+        ("G=5 S=T=300 f32", 2, 300, 300, 40, 8, 128, True, f32, False),
+        ("whisper cross-attention S=4 T=1500 f32", 2, 4, 1500, 6, 6, 64, False, f32, False),
     ]
     err, timings = 0.0, []
     for i, (label, b, s, t, h, kv, d, causal, dtype, timed) in enumerate(cases):
@@ -1210,34 +1256,36 @@ def phase2_flash(dev):
         log(f"[flash] {label} {str(dtype)[6:]}: max abs err {e:.3e}, "
             f"max row err {row:.3e}")
         if timed:
-            timings.append(time_flash(q, k, v, label))
+            timings.append(time_flash(q, k, v, label, causal))
         del q, k, v, got
         torch.cuda.empty_cache()
     return err, timings
 
 
-def time_flash(q, k, v, label):
+def time_flash(q, k, v, label, causal=True):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    if causal and s != t:
+        raise ValueError("SDPA's is_causal aligns the mask top-left; time S == T only")
     reps = 20 if s * b <= 8192 else 10
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), reps)
-    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 2, 1)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), reps)
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal), 2, 1)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
-    torch.testing.assert_close(lib.float(), flash_attention_cuda(q, k, v, causal=True).float(),
+    lib = sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True).transpose(1, 2)
+    torch.testing.assert_close(lib.float(), flash_attention_cuda(q, k, v, causal=causal).float(),
                                **FLASH_BF16_TOL)
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), reps)
+    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal, enable_gqa=True), reps)
     es = q.element_size()
     nbytes = (2 * b * s * h * d + 2 * b * t * kvh * d) * es
-    flops = 4 * b * h * d * visible_pairs(s, t, True)
+    flops = 4 * b * h * d * visible_pairs(s, t, causal)
     b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
     rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                share_of_bound=b_ms / ms, library_ms=library_ms,
-               library="scaled_dot_product_attention(is_causal=True, "
+               library=f"scaled_dot_product_attention(is_causal={causal}, "
                "enable_gqa=True)", bytes=nbytes, flops=flops,
                tflops=flops / ms / 1e9)
     log(f"[time] flash_attention {label}: {json.dumps(rec)}")
@@ -1342,6 +1390,82 @@ def last_logits(model, reqs, use_kernel):
     return out
 
 
+def margin_rule(outs, plain, margins, logit_err, reqs):
+    """Kernel and plain greedy tokens equal up to the first step whose plain
+    top-1 / top-2 margin is below twice the kernel-vs-plain logits error."""
+    rows = wave_rows(reqs)
+    agree = []
+    for i, (a, b) in enumerate(zip(outs, plain)):
+        new = len(b)
+        w, r = rows[i]
+        low = [j for j in range(new) if margins[new * w + j][r] < 2 * logit_err]
+        first_low = low[0] if low else new
+        first_diff = next((j for j in range(new) if a[j] != b[j]), new)
+        if first_diff < first_low:
+            raise AssertionError(
+                f"request {i}: kernel and plain tokens differ at step {first_diff}, "
+                f"before the first low-margin step {first_low}")
+        agree.append(dict(request=i, prompt_len=len(reqs[i].prompt), first_diff=first_diff,
+                          first_low_margin_step=first_low))
+    return agree
+
+
+def serve_and_hold(tag, model, reqs, dev, launches, attn_layers):
+    """Serve ``reqs`` through the kernel (path ``{tag}_serve``) and through
+    the plain attention (``{tag}_serve_plain``, which must launch nothing);
+    ``attn_layers`` flash launches per wave.  Then each prefill attention of
+    every wave held to the plain version on its own q, k, v, and the greedy
+    tokens to the plain run's by ``margin_rule``.  -> (kernel record, plain
+    record, check record, the plain last-position logits)."""
+    from repro_torch.serve import Request
+
+    vocab = model.cfg.vocab_size
+    # Warm-up (library handles, allocator): one short request, not counted.
+    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])
+    outs, _, rec = serve_run(f"{tag}_serve", model, reqs, dev, launches)
+    waves = len({len(r.prompt) for r in reqs})
+    if rec["flash_launches_per_wave"] != [attn_layers] * waves:
+        raise AssertionError(f"{tag}: flash launches per wave {rec['flash_launches_per_wave']}, "
+                             f"want {attn_layers} per wave")
+    plain, margins, prec = serve_run(f"{tag}_serve_plain", model, reqs, dev, launches,
+                                     use_kernel=False)
+    if any(launches[f"{tag}_serve_plain"].values()):
+        raise AssertionError(f"{tag}: plain serve launched {launches[f'{tag}_serve_plain']}")
+    for o, r in zip(outs, reqs):
+        if len(o) != r.max_new_tokens or not all(0 <= t < vocab for t in o):
+            raise AssertionError(f"{tag}: bad generation {o}")
+
+    # The kernel inside the model: each prefill attention of every wave held
+    # to the plain version on its own inputs, so no error of an earlier layer
+    # enters the comparison.
+    layer_errs = []
+    flash = kernel_wrappers()["flash_attention"]
+    before = flash.launches
+    with held_to_plain(layer_errs):
+        kern_logits = last_logits(model, reqs, "auto")
+    want = waves * attn_layers
+    if flash.launches - before != want or len(layer_errs) != want:
+        raise AssertionError(f"{tag}: held {len(layer_errs)} prefill attentions, "
+                             f"{flash.launches - before} launches; want {want}")
+    plain_logits = last_logits(model, reqs, False)
+    for lg in kern_logits + plain_logits:
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{tag}: non-finite prefill logits")
+    logit_err = max((a - b).abs().max().item() for a, b in zip(kern_logits, plain_logits))
+    agree = margin_rule(outs, plain, margins, logit_err, reqs)
+    check = dict(logit_err=logit_err, agreement=agree, tokens_equal=outs == plain,
+                 layer_abs_err=max((e for e, _ in layer_errs), default=None),
+                 layer_row_err=max((r for _, r in layer_errs), default=None))
+    log(f"[{tag}] prefill attention in the model, kernel vs plain on each layer's own q, k, "
+        f"v: max abs err {check['layer_abs_err']}, max row err {check['layer_row_err']} "
+        f"(limit {FLASH_ROW_RTOL}); last-position logits kernel vs plain {logit_err:.4e}")
+    log(f"[{tag}] tokens, kernel vs plain: {json.dumps(agree)}")
+    for r in (rec, prec):
+        r.update(arch=model.cfg.name, layers=model.cfg.num_layers, params=model.num_params(),
+                 weight_bytes=model.weight_bytes(), dtype=str(model.dtype)[6:])
+    return rec, prec, check, plain_logits
+
+
 def phase7(dev, launches):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -1358,57 +1482,10 @@ def phase7(dev, launches):
     new = 32
     reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(), new)
             for n in [2048] * 4 + [1000] * 4]
-    rows = wave_rows(reqs)
     n_layers = cfg.num_layers
-    # Warm-up (library handles, allocator): one short request, not counted.
-    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])
-
-    outs, _, rec = serve_run("yi6b_serve", model, reqs, dev, launches)
-    if rec["flash_launches_per_wave"] != [n_layers, n_layers]:
-        raise AssertionError(f"flash launches per wave {rec['flash_launches_per_wave']}, "
-                             f"want {n_layers} per wave")
-    plain, margins, prec = serve_run("yi6b_serve_plain", model, reqs, dev, launches,
-                                     use_kernel=False)
-    if any(launches["yi6b_serve_plain"].values()):
-        raise AssertionError(f"plain serve launched {launches['yi6b_serve_plain']}")
-    for o in outs:
-        if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
-            raise AssertionError(f"bad generation {o}")
-
-    # The kernel inside the model: each of the 64 prefill attentions of the
-    # two waves held to the plain version on its own inputs, so no error of
-    # an earlier layer enters the comparison.
-    layer_errs = []
-    flash = kernel_wrappers()["flash_attention"]
-    before = flash.launches
-    with held_to_plain(layer_errs):
-        kern_logits = last_logits(model, reqs, "auto")
-    if flash.launches - before != 2 * n_layers or len(layer_errs) != 2 * n_layers:
-        raise AssertionError(f"held {len(layer_errs)} prefill attentions, "
-                             f"{flash.launches - before} launches; want {2 * n_layers}")
-    layer_abs_err = max(e for e, _ in layer_errs)
-    layer_row_err = max(r for _, r in layer_errs)
-    log(f"[yi6b] prefill attention in the model, kernel vs plain on each layer's own "
-        f"q, k, v: max abs err {layer_abs_err:.4e}, max row err {layer_row_err:.4e} "
-        f"(limit {FLASH_ROW_RTOL})")
-    plain_logits = last_logits(model, reqs, False)
-    logit_err = max((a - b).abs().max().item() for a, b in zip(kern_logits, plain_logits))
-    for lg in kern_logits:
-        if not torch.isfinite(lg).all():
-            raise AssertionError("non-finite prefill logits")
-    agree = []
-    for i, (a, b) in enumerate(zip(outs, plain)):
-        w, r = rows[i]
-        low = [j for j in range(new) if margins[new * w + j][r] < 2 * logit_err]
-        first_low = low[0] if low else new
-        first_diff = next((j for j in range(new) if a[j] != b[j]), new)
-        if first_diff < first_low:
-            raise AssertionError(
-                f"request {i}: kernel and plain tokens differ at step {first_diff}, "
-                f"before the first low-margin step {first_low}")
-        agree.append(dict(request=i, prompt_len=len(reqs[i].prompt), first_diff=first_diff,
-                          first_low_margin_step=first_low))
-    log(f"[yi6b] bf16 tokens, kernel vs plain: {json.dumps(agree)}")
+    rec, prec, check, plain_logits = serve_and_hold("yi6b", model, reqs, dev, launches,
+                                                    n_layers)
+    logit_err = check["logit_err"]
     del model
     torch.cuda.empty_cache()
 
@@ -1440,8 +1517,390 @@ def phase7(dev, launches):
     recs = [rec, prec, frec, fprec]
     for r in recs:
         r.update(arch="yi-6b")
-    return recs, dict(logit_err=logit_err, bf16_vs_f32_err=bf16_err, agreement=agree,
-                      layer_abs_err=layer_abs_err, layer_row_err=layer_row_err)
+    check.update(bf16_vs_f32_err=bf16_err)
+    return recs, check
+
+
+# -- phase 11: the other LM families -----------------------------------------
+
+# Prompt lengths of each served wave (phase 7's traffic for dbrx); Mamba
+# prompts are whole SSD chunks (256; 32 in jamba's smoke config).
+FAMILY_WAVES = dict(dbrx=[2048] * 4 + [1000] * 4, llama4=[2048] * 4, mamba2=[2048] * 4 + [1024] * 4,
+                    jamba=[512] * 4 + [96] * 4, qwen2vl=[2048] * 4)
+FAMILY_DEPTH = {"dbrx-132b": 4, "llama4-scout-17b-a16e": 2}  # of 40 and 48 layers
+VLM_IMAGE = (1024, 32)  # image positions first, the grid's width: (0, i // 32, i % 32)
+WHISPER_FRAMES = 1500  # 30 s of audio at 50 frames/s
+WHISPER_PROMPT = 4
+NEW_TOKENS = 32
+FAMILY_PATHS = ("dbrx_serve", "llama4_serve", "jamba_bf16_serve", "jamba_f32_serve",
+                "qwen2vl_embeds", "qwen2vl_serve", "whisper_bf16", "whisper_f32")
+MOE_CHECK_TOKENS = 1024
+MOE_REL_TOL = 1e-4  # float32 MoE against the dense reference, of its largest magnitude
+SSD_REL_TOL = 1e-4  # chunked SSD against the recurrence, of the output's largest magnitude
+# Prefill of S-1 tokens and a step against prefill of S, float32 over 48
+# Mamba layers: each adds ~1e-6 relative float32 error (the SSD's chunk sums).
+DECODE_REL_TOL = 1e-3
+
+
+def counted(name, launches, fn):
+    """fn() with every kernel's launch count set to 0 just before it and read
+    just after, into ``launches[name]``."""
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches[name] = {k: w.launches for k, w in wrappers.items()}
+    return out
+
+
+def build_family(arch, dev, dtype, smoke=False):
+    """A random model of ``arch`` at its published widths (depth cut to
+    ``FAMILY_DEPTH``), or its smoke config, from seed 0 on the card."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if not smoke and arch in FAMILY_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_DEPTH[arch])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=dtype,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[{arch}] {cfg.num_layers} layers, {model.num_params()} parameters, "
+        f"{model.weight_bytes()} weight bytes ({str(dtype)[6:]}), made on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return model
+
+
+def family_requests(cfg, lengths, seed=0):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rng.integers(0, cfg.vocab_size, n).tolist(), NEW_TOKENS) for n in lengths]
+
+
+def moe_checks(tag, model, reqs):
+    """Layer 0's MoE on the first wave's tokens, as the prefill hands them
+    over: the slots dropped at the config's capacity factor; then, on
+    ``MOE_CHECK_TOKENS`` of them in float32 with the factor raised to E / k
+    (no expert can overflow), the MoE against ``moe_dense_reference``."""
+    from repro_torch.models import moe, transformer
+
+    cfg = model.cfg
+    seen = {}
+    inner = transformer.moe_einsum
+
+    def capture(p, x, *, cfg):
+        seen.setdefault("x", x.clone())
+        seen.setdefault("p", p)
+        return inner(p, x, cfg=cfg)
+
+    n = len(reqs[0].prompt)
+    toks = torch.tensor([r.prompt for r in reqs if len(r.prompt) == n], device=model.device)
+    transformer.moe_einsum = capture
+    try:
+        model.prefill(toks)
+    finally:
+        transformer.moe_einsum = inner
+    e, k = cfg.num_experts, cfg.experts_per_token
+    with torch.inference_mode():
+        x2d, p = seen["x"].reshape(-1, cfg.d_model), seen["p"]
+        t = x2d.shape[0]
+        cap = moe._capacity(t, k, e, cfg.capacity_factor)
+        ids, gates, _ = moe._route(x2d, p["router"], k, cfg.router_softmax_topk)
+        kept = int((moe._dispatch_sorted(ids, gates, e, cap)[0] >= 0).sum())
+        load = torch.bincount(ids.reshape(-1), minlength=e).tolist()
+        roomy = dataclasses.replace(cfg, capacity_factor=e / k)
+        x32 = x2d[:MOE_CHECK_TOKENS].float()[None]
+        p32 = {name: w.float() for name, w in p.named_parameters()}
+        ids32, gates32, _ = moe._route(x32[0], p32["router"], k, cfg.router_softmax_topk)
+        cap32 = moe._capacity(x32.shape[1], k, e, roomy.capacity_factor)
+        kept32 = int((moe._dispatch_sorted(ids32, gates32, e, cap32)[0] >= 0).sum())
+        got = moe.moe_einsum(p32, x32, cfg=roomy)[0]
+        want = moe.moe_dense_reference(p32, x32, cfg=roomy)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        del p32, x32, got, want
+    torch.cuda.empty_cache()
+    rec = dict(tokens=t, capacity_factor=cfg.capacity_factor, capacity=cap,
+               slots=t * k, dropped=t * k - kept, expert_load=load,
+               check_tokens=MOE_CHECK_TOKENS, check_dropped=MOE_CHECK_TOKENS * k - kept32,
+               check_rel_err=rel)
+    log(f"[{tag}] layer 0 MoE: {json.dumps(rec)}")
+    if kept32 != MOE_CHECK_TOKENS * k:
+        raise AssertionError(f"{tag}: the raised capacity factor still dropped slots")
+    if not rel <= MOE_REL_TOL:
+        raise AssertionError(f"{tag}: float32 MoE vs the dense reference {rel:.3e} > "
+                             f"{MOE_REL_TOL}")
+    return rec
+
+
+def phase11_moe(tag, arch, dev, launches):
+    """(a) dbrx, (b) llama4-scout: served at their published widths through
+    the kernel and the plain attention, held by ``serve_and_hold``; layer 0's
+    MoE checked by ``moe_checks``."""
+    model = build_family(arch, dev, torch.bfloat16)
+    reqs = family_requests(model.cfg, FAMILY_WAVES[tag])
+    attn = sum(kind == "attn" for kind, _ in model.kinds)
+    rec, prec, check, _ = serve_and_hold(tag, model, reqs, dev, launches, attn)
+    check["moe"] = moe_checks(tag, model, reqs)
+    del model
+    torch.cuda.empty_cache()
+    return [rec, prec], check
+
+
+def phase11_mamba(dev, launches):
+    """(c) mamba2-1.3b, whole: served in bf16 (no kernel on this path);
+    layer 0's chunked SSD in float32 against the token-by-token recurrence
+    on its own inputs; in float32, prefill of S-1 tokens plus one step
+    against prefill of S."""
+    from repro_torch.models import mamba
+    from repro_torch.serve import Request
+
+    model = build_family("mamba2-1.3b", dev, torch.bfloat16)
+    cfg = model.cfg
+    reqs = family_requests(cfg, FAMILY_WAVES["mamba2"])
+    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])  # warm-up
+    outs, _, rec = serve_run("mamba2_serve", model, reqs, dev, launches)
+    if any(launches["mamba2_serve"].values()):
+        raise AssertionError(f"mamba2 launched {launches['mamba2_serve']}; no kernel expected")
+    for o in outs:
+        if len(o) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"mamba2: bad generation {o}")
+    seen = []
+    inner = mamba.ssd_chunked
+    longest = max(FAMILY_WAVES["mamba2"])
+
+    def capture(*args, **kw):  # layer 0's inputs in the longest wave
+        if not seen and args[0].shape[1] == longest:
+            seen.append((args, kw))
+        return inner(*args, **kw)
+
+    mamba.ssd_chunked = capture
+    try:
+        logits = last_logits(model, reqs, "auto")
+    finally:
+        mamba.ssd_chunked = inner
+    if not all(torch.isfinite(lg).all() for lg in logits):
+        raise AssertionError("mamba2: non-finite bf16 logits")
+    with torch.inference_mode():
+        (x, dt, a, b, c), kw = seen[0]
+        x, b, c = x.float(), b.float(), c.float()
+        t0 = time.perf_counter()
+        y, state = inner(x, dt, a, b, c, **kw)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+        st = torch.zeros_like(state)
+        ys = []
+        t0 = time.perf_counter()
+        for i in range(x.shape[1]):
+            yi, st = mamba.ssd_recurrent_step(st, x[:, i:i + 1], dt[:, i:i + 1], a,
+                                              b[:, i:i + 1], c[:, i:i + 1])
+            ys.append(yi)
+        y_rec = torch.cat(ys, dim=1)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        ssd_err = ((y - y_rec).abs().max() / y.abs().max()).item()
+        state_err = ((state - st).abs().max() / state.abs().max()).item()
+        del x, b, c, y, y_rec, ys, st, state
+    ssd = dict(shape=list(seen[0][0][0].shape), chunk=kw["chunk"], rel_err=ssd_err,
+               state_rel_err=state_err, chunked_s=chunked_s, recurrence_s=rec_s)
+    log(f"[mamba2] layer 0 SSD in float32, chunked vs the recurrence: {json.dumps(ssd)}")
+    if not (ssd_err <= SSD_REL_TOL and state_err <= SSD_REL_TOL):
+        raise AssertionError(f"mamba2: chunked SSD vs recurrence {ssd_err:.3e} / "
+                             f"{state_err:.3e} > {SSD_REL_TOL}")
+    del model, seen
+    torch.cuda.empty_cache()
+
+    model = build_family("mamba2-1.3b", dev, torch.float32)
+    s = cfg.ssm_chunk
+    toks = torch.tensor([r.prompt[:s] for r in reqs[:4]], device=dev)
+    full, _ = model.prefill(toks)
+    _, caches = model.prefill(toks[:, : s - 1], cache_len=s)
+    step, _ = model.serve_step(toks[:, s - 1:], s - 1, caches)
+    dec_err = ((step[:, 0] - full).abs().max() / full.abs().max()).item()
+    log(f"[mamba2] float32: prefill of {s - 1} tokens and one step vs prefill of {s}: "
+        f"{dec_err:.3e} of the logits' largest magnitude (limit {DECODE_REL_TOL})")
+    if not dec_err <= DECODE_REL_TOL:
+        raise AssertionError(f"mamba2: decode consistency {dec_err:.3e} > {DECODE_REL_TOL}")
+    del model, caches
+    torch.cuda.empty_cache()
+    rec.update(arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16")
+    return [rec], dict(ssd=ssd, decode_rel_err=dec_err)
+
+
+def phase11_jamba(dev, launches):
+    """(d) jamba's smoke config (its full-width superblock needs 90 GB): bf16
+    held by the margin rule, float32 kernel and plain tokens equal."""
+    recs, checks = [], {}
+    for dtype, tag in ((torch.bfloat16, "jamba_bf16"), (torch.float32, "jamba_f32")):
+        model = build_family("jamba-1.5-large-398b", dev, dtype, smoke=True)
+        reqs = family_requests(model.cfg, FAMILY_WAVES["jamba"])
+        attn = sum(kind == "attn" for kind, _ in model.kinds)
+        rec, prec, check, _ = serve_and_hold(tag, model, reqs, dev, launches, attn)
+        if dtype == torch.float32 and not check["tokens_equal"]:
+            raise AssertionError("jamba float32: kernel and plain tokens differ")
+        recs += [rec, prec]
+        checks[tag] = check
+        del model
+        torch.cuda.empty_cache()
+    return recs, checks
+
+
+def vlm_positions(b, s, dev):
+    """(B, S, 3) M-RoPE ids: an image grid over the first ``VLM_IMAGE[0]``
+    positions, (t, h, w) = (0, i // w, i % w), text after it from the grid's
+    largest id plus one (t = h = w)."""
+    n, w = VLM_IMAGE
+    i = torch.arange(s, device=dev)
+    pos = torch.stack([torch.zeros_like(i), i // w, i % w], dim=-1)
+    text = (i - n + (n - 1) // w + 1)[:, None].expand(s, 3)
+    pos = torch.where((i < n)[:, None], pos, text)
+    return pos.expand(b, s, 3)
+
+
+def greedy_embeds(model, embeds, positions, new, use_kernel):
+    """Prefill from embeddings, then ``new - 1`` greedy steps -> (tokens
+    per row, each step's top-1 / top-2 margins, record)."""
+    b, s = embeds.shape[:2]
+    margins = []
+
+    def pick(logits):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        return torch.argmax(logits, dim=-1)
+
+    t0 = time.perf_counter()
+    last, caches = model.prefill(embeds=embeds, positions=positions, cache_len=s + new,
+                                 use_kernel=use_kernel)
+    tok = pick(last)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [tok]
+    for i in range(new - 1):
+        logits, caches = model.serve_step(tok[:, None], s + i, caches)
+        tok = pick(logits[:, 0])
+        out.append(tok)
+    torch.cuda.synchronize()
+    rec = dict(batch=b, prompt_len=s, prefill_s=t1 - t0,
+               decode_ms_per_step=1e3 * (time.perf_counter() - t1) / (new - 1))
+    return torch.stack(out, dim=1).tolist(), margins, rec
+
+
+def phase11_vlm(dev, launches):
+    """(e) qwen2-vl-2b, whole: a prefill from embeddings with image-grid
+    M-RoPE ids then greedy steps, kernel and plain, each prefill attention
+    held to the plain version; then a text wave through ServeEngine."""
+    from repro_torch.serve import Request
+
+    model = build_family("qwen2-vl-2b", dev, torch.bfloat16)
+    cfg = model.cfg
+    b, s = 4, FAMILY_WAVES["qwen2vl"][0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    embeds = (0.02 * torch.randn((b, s, cfg.d_model), generator=gen, device=dev)).to(model.dtype)
+    pos = vlm_positions(b, s, dev)
+    greedy_embeds(model, embeds[:, :64], pos[:, :64], 2, "auto")  # warm-up
+    toks, _, rec = counted("qwen2vl_embeds", launches,
+                           lambda: greedy_embeds(model, embeds, pos, NEW_TOKENS, "auto"))
+    plain, margins, prec = counted("qwen2vl_embeds_plain", launches,
+                                   lambda: greedy_embeds(model, embeds, pos, NEW_TOKENS, False))
+    attn = cfg.num_layers
+    if launches["qwen2vl_embeds"]["flash_attention"] != attn:
+        raise AssertionError(f"qwen2-vl embeddings prefill: {launches['qwen2vl_embeds']}")
+    if any(launches["qwen2vl_embeds_plain"].values()):
+        raise AssertionError(f"plain run launched {launches['qwen2vl_embeds_plain']}")
+    errs = []
+    with held_to_plain(errs):
+        kern, _ = model.prefill(embeds=embeds, positions=pos)
+    if len(errs) != attn:
+        raise AssertionError(f"held {len(errs)} prefill attentions, want {attn}")
+    want, _ = model.prefill(embeds=embeds, positions=pos, use_kernel=False)
+    logit_err = (kern.float() - want.float()).abs().max().item()
+    pseudo = [Request([0] * s, NEW_TOKENS) for _ in range(b)]  # one wave of b rows
+    agree = margin_rule(toks, plain, margins, logit_err, pseudo)
+    check = dict(logit_err=logit_err, agreement=agree, layer_abs_err=max(e for e, _ in errs),
+                 layer_row_err=max(r for _, r in errs), image_positions=VLM_IMAGE[0])
+    log(f"[qwen2vl] embeddings prefill (image grid {VLM_IMAGE}): {json.dumps(rec)}; plain "
+        f"{json.dumps(prec)}; held {json.dumps({k: v for k, v in check.items() if k != 'agreement'})}")
+    log(f"[qwen2vl] embeddings tokens, kernel vs plain: {json.dumps(agree)}")
+    rec.update(path="qwen2vl_embeds", flash_launches=attn)
+    prec.update(path="qwen2vl_embeds_plain")
+    reqs = family_requests(cfg, FAMILY_WAVES["qwen2vl"])
+    srec, sprec, scheck, _ = serve_and_hold("qwen2vl", model, reqs, dev, launches, attn)
+    del model
+    torch.cuda.empty_cache()
+    for r in (rec, prec):
+        r.update(arch=cfg.name, layers=cfg.num_layers)
+    return [rec, prec, srec, sprec], dict(embeds=check, text=scheck)
+
+
+def phase11_whisper(dev, launches):
+    """(f) whisper-tiny, whole: frame embeddings, a short decoder prompt and
+    greedy steps through ``EncDecLM.greedy``, kernel and plain; each prefill
+    attention held to the plain version; float32 tokens equal."""
+    recs, checks = [], {}
+    for dtype, tag in ((torch.bfloat16, "whisper_bf16"), (torch.float32, "whisper_f32")):
+        model = build_family("whisper-tiny", dev, dtype)
+        cfg = model.cfg
+        gen = torch.Generator(device=dev).manual_seed(2)
+        frames = (0.02 * torch.randn((4, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                                     device=dev)).to(dtype)
+        prompt = torch.randint(0, cfg.vocab_size, (4, WHISPER_PROMPT), generator=gen, device=dev)
+        attn = cfg.encoder_layers + 2 * cfg.decoder_layers
+        model.greedy(frames[:, :64], prompt, 2)  # warm-up
+        toks, rec = counted(tag, launches, lambda: model.greedy(frames, prompt, NEW_TOKENS))
+        plain, prec = counted(f"{tag}_plain", launches,
+                              lambda: model.greedy(frames, prompt, NEW_TOKENS, use_kernel=False))
+        if launches[tag]["flash_attention"] != attn or any(launches[f"{tag}_plain"].values()):
+            raise AssertionError(f"{tag}: launches {launches[tag]}, plain "
+                                 f"{launches[f'{tag}_plain']}; want {attn} flash")
+        errs = []
+        with held_to_plain(errs):
+            kern, _ = model.prefill(frames, prompt)
+        if len(errs) != attn:
+            raise AssertionError(f"{tag}: held {len(errs)} prefill attentions, want {attn}")
+        want, _ = model.prefill(frames, prompt, use_kernel=False)
+        if not (0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+            raise AssertionError(f"{tag}: tokens out of range")
+        same = torch.equal(toks, plain)
+        if dtype == torch.float32 and not same:
+            raise AssertionError(f"whisper float32: kernel and plain tokens differ: "
+                                 f"{toks.tolist()} vs {plain.tolist()}")
+        check = dict(logit_err=(kern.float() - want.float()).abs().max().item(),
+                     layer_abs_err=max(e for e, _ in errs), layer_row_err=max(r for _, r in errs),
+                     tokens_equal=same, distinct_tokens=len(set(toks.flatten().tolist())))
+        for r, path in ((rec, tag), (prec, f"{tag}_plain")):
+            r.update(path=path, arch=cfg.name, dtype=str(dtype)[6:], params=model.num_params(),
+                     weight_bytes=model.weight_bytes(), enc_frames=WHISPER_FRAMES,
+                     prompt_len=WHISPER_PROMPT, flash_launches=launches[path]["flash_attention"],
+                     decode_ms_per_step=1e3 * r["decode_s"] / r["decode_steps"])
+        log(f"[{tag}] {json.dumps(rec)}; plain {json.dumps(prec)}; held {json.dumps(check)}")
+        recs += [rec, prec]
+        checks[tag] = check
+        del model
+        torch.cuda.empty_cache()
+    return recs, checks
+
+
+def phase11(dev, launches):
+    """The other LM families: (a) dbrx, (b) llama4-scout, (c) mamba2,
+    (d) jamba, (e) qwen2-vl, (f) whisper; each model freed before the next."""
+    recs, checks = [], {}
+    parts = (("a dbrx", lambda: phase11_moe("dbrx", "dbrx-132b", dev, launches)),
+             ("b llama4-scout", lambda: phase11_moe("llama4", "llama4-scout-17b-a16e", dev,
+                                                    launches)),
+             ("c mamba2", lambda: phase11_mamba(dev, launches)),
+             ("d jamba", lambda: phase11_jamba(dev, launches)),
+             ("e qwen2-vl", lambda: phase11_vlm(dev, launches)),
+             ("f whisper", lambda: phase11_whisper(dev, launches)))
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        r, c = fn()
+        recs += r
+        checks[name.split()[1]] = c
+        log(f"[phase] 11{name} {time.perf_counter() - t0:.3f} s")
+    return recs, checks
 
 
 # -- phase 8: the out-of-core surfaces ---------------------------------------
@@ -2257,6 +2716,7 @@ def main():
         raise AssertionError(f"phases 8 and 9 left {tmp} behind")
     mesh_fits, mesh_times, mesh_bin_times = phase("10 device mesh", phase10, dev, launches,
                                                   fits, keep)
+    families, family_check = phase("11 other LM families", phase11, dev, launches)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
@@ -2306,15 +2766,20 @@ def main():
                      "src/repro/kernels/pearson.py:57", ("wide_pearson", "mesh_pearson"), launches,
                      corr_err, corr_times[0], corr_times),
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:79", ("yi6b_serve",), launches,
+                     "src/repro/kernels/flash_attention.py:79", ("yi6b_serve", *FAMILY_PATHS),
+                     launches,
                      flash_err, flash_times[0], flash_times),
     ]
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on a main path")
+        idle = [p for p, n in k["launches_by_path"].items() if n == 0]
+        if k["name"] == "flash_attention" and idle:
+            raise AssertionError(f"flash attention never launched on {idle}")
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
                         plan_paths=plan_paths, out_of_core=ooc, multi_host=mh,
-                        device_mesh=mesh_fits)))
+                        device_mesh=mesh_fits, families=families,
+                        family_check=family_check)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -54,9 +54,10 @@ through ``repro_torch.kernels`` (``csrc/contingency.cu``, ``csrc/mi_score.cu``,
 ``csrc/bin_codes.cu``, ``csrc/pearson.cu``), built with ``nvcc`` for
 ``sm_90a`` at first use.
 
-The dense decoder LMs of the registry are served by
-:mod:`repro_torch.serve` over :mod:`repro_torch.models`, prefill attention
-through ``csrc/flash_attention.cu``:
+The LMs of the registry (dense, MoE, SSM, hybrid, VLM and
+encoder-decoder) are served by :mod:`repro_torch.serve` over
+:mod:`repro_torch.models`, prefill attention through
+``csrc/flash_attention.cu``:
 
     >>> from repro_torch.configs import get_config
     >>> from repro_torch.models import build_model

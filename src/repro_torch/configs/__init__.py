@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> exact public config.
 
 A copy of the JAX package's ``repro.configs`` (data only), kept here so the
-port imports nothing of ``repro``.  Every family is registered;
-``repro_torch.models.build_model`` runs the dense family and refuses the
-others.
+port imports nothing of ``repro``.  Every family is registered, and
+``repro_torch.models.build_model`` builds each of them.
 
 ``smoke_config()`` derives the reduced same-family configs used by the
 per-arch CPU smoke tests (full configs are exercised only via the dry-run).

@@ -5,12 +5,27 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --preset full \
         --requests 8 --prompt-len 2048 --max-new-tokens 32
 
+    # Mamba-2 1.3B (no attention: the SSD prefill, a recurrent decode)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --preset full \
+        --requests 4 --prompt-len 1024
+
+    # Whisper-tiny: 30 s of frame embeddings (1500 frames), greedy decoding
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --preset full \
+        --requests 4 --prompt-len 4 --max-new-tokens 32
+
     # The reduced same-family config on the CPU (plain attention)
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke --device cpu
 
-Random weights from ``--seed`` (no pretrained weights ship with the
-repository).  Prints one JSON line: the model, the device it ran on, the
-tokens generated and the time they took.
+Every config of ``--arch`` serves.  Decoder-only models serve text prompts
+through ``ServeEngine`` (a VLM's token path; its image embeddings are a
+stub, as in the JAX package); the encoder-decoder (whisper) encodes random
+frame embeddings of ``ENC_FRAMES`` frames (30 s of audio at 50 frames/s)
+and decodes greedily from a ``--prompt-len`` token prompt.  Random weights
+from ``--seed`` (no pretrained weights ship with the repository).  A Mamba
+prompt longer than the SSD chunk must be a multiple of it, and one that
+decodes must hold at least ``ssm_conv - 1`` tokens.  Prints one JSON line:
+the model, the device it ran on, the tokens generated and the time they
+took.
 """
 
 from __future__ import annotations
@@ -26,6 +41,8 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import device_name, resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Request, ServeEngine
+
+ENC_FRAMES = 1500  # whisper's encoder input: 30 s of audio at 50 frames/s
 
 
 def main(argv=None) -> dict:
@@ -43,36 +60,41 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise SystemExit("--model-parallel: the port serves on one card; model "
-                         "parallelism waits for the mesh slice (ROADMAP.md)")
+                         "parallelism waits for ROADMAP.md item 6.3")
     if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir: checkpoints come with the training slice "
-                         "(ROADMAP.md); the port serves random weights")
+        raise SystemExit("--ckpt-dir: checkpoints come with training, ROADMAP.md "
+                         "item 6.2; the port serves random weights")
 
     cfg = get_config(args.arch) if args.preset == "full" else smoke_config(args.arch)
     dev = resolve_device(args.device)
-    try:
-        model = build_model(cfg, device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(args.seed))
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
-    engine = ServeEngine(model, temperature=args.temperature, seed=args.seed)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, size=args.prompt_len).tolist(),
-                    max_new_tokens=args.max_new_tokens)
-            for _ in range(args.requests)]
+    prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
     t0 = time.perf_counter()
-    outs = engine.serve(reqs)
+    if cfg.is_encdec:
+        if args.temperature > 0:
+            raise SystemExit("--temperature: encoder-decoder archs decode greedily")
+        frames = 0.02 * rng.standard_normal((args.requests, ENC_FRAMES, cfg.d_model))
+        toks, wave = model.greedy(torch.as_tensor(frames, dtype=torch.float32),
+                                  torch.as_tensor(prompts), args.max_new_tokens)
+        outs, stats = toks.tolist(), [wave]
+    else:
+        engine = ServeEngine(model, temperature=args.temperature, seed=args.seed)
+        outs = engine.serve([Request(prompt=p.tolist(), max_new_tokens=args.max_new_tokens)
+                             for p in prompts])
+        stats = engine.stats
     seconds = time.perf_counter() - t0
     new_tokens = sum(len(o) for o in outs)
-    steps = sum(w["decode_steps"] for w in engine.stats)
+    steps = sum(w["decode_steps"] for w in stats)
     out = {
-        "arch": cfg.name, "preset": args.preset, "device": device_name(dev),
-        "dtype": str(model.dtype).removeprefix("torch."),
-        "params": model.num_params(), "requests": len(reqs),
+        "arch": cfg.name, "family": cfg.family, "preset": args.preset,
+        "device": device_name(dev), "dtype": str(model.dtype).removeprefix("torch."),
+        "params": model.num_params(), "requests": len(outs),
         "new_tokens": new_tokens, "seconds": seconds,
         "tokens_per_s": new_tokens / seconds,
-        "prefill_s": [w["prefill_s"] for w in engine.stats],
-        "decode_ms_per_step": (1e3 * sum(w["decode_s"] for w in engine.stats) / steps
+        "prefill_s": [w["prefill_s"] for w in stats],
+        "decode_ms_per_step": (1e3 * sum(w["decode_s"] for w in stats) / steps
                                if steps else None),
         "first_tokens": [o[:8] for o in outs[:4]],
     }

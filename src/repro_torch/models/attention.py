@@ -37,19 +37,22 @@ def attention_params(cfg, *, generator, device, dtype) -> dict:
     return p
 
 
-def qkv_project(p: dict, x: torch.Tensor, cfg):
-    """x (B, S, d) -> q (B, S, H, D), k and v (B, S, KV, D): views of the
-    projections, no copy."""
+def qkv_project(p: dict, x: torch.Tensor, cfg, xkv: torch.Tensor | None = None):
+    """x (B, S, d) -> q (B, S, H, D), k and v (B, T, KV, D): views of the
+    projections, no copy.  K and V project ``xkv`` (B, T, d) where given
+    (cross-attention), else x (T = S)."""
     b, s, _ = x.shape
+    xkv = x if xkv is None else xkv
+    t = xkv.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    k = xkv @ p["wk"].to(x.dtype)
+    v = xkv @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    return q.view(b, s, h, hd), k.view(b, s, kv, hd), v.view(b, s, kv, hd)
+    return q.view(b, s, h, hd), k.view(b, t, kv, hd), v.view(b, t, kv, hd)
 
 
 def out_project(p: dict, o: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,19 @@
-"""Load the JAX package's parameters into a :class:`DecoderLM`.
+"""Load the JAX package's parameters into a port model.
 
 The JAX package draws its weights from ``jax.random`` keyed by an md5 of
 each parameter path; the port cannot reproduce those bits.  Handing the
 JAX parameter pytree over (nested dicts of numpy arrays, e.g.
 ``jax.tree.map(np.asarray, params)``) is the one way both packages compute
-with the same weights.  The scanned stack ``g0`` carries a leading layer
-axis; leaf ``i`` of it goes to layer ``i``.
+with the same weights.  Scanned stacks carry a leading layer axis:
+
+* a :class:`DecoderLM`'s ``g0 .. g{P-1}``, one stack a position of the
+  layer group (``P`` is 1 but for the hybrid): leaf ``i`` of ``g{j}`` is
+  layer ``i * P + j``;
+* an :class:`EncDecLM`'s ``enc_blocks`` and ``dec_blocks``: leaf ``i`` is
+  encoder (decoder) layer ``i``.
+
+Every other entry (``embed``, the final norms, ``unembed``) is a top-level
+weight.
 """
 
 from __future__ import annotations
@@ -13,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.model import DecoderLM
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.transformer import group_pattern
 
 
 def _flatten(tree: dict, prefix=()) -> dict:
@@ -27,18 +36,30 @@ def _flatten(tree: dict, prefix=()) -> dict:
     return out
 
 
-def params_from_jax(model: DecoderLM, tree: dict) -> DecoderLM:
+def _stacks(model) -> dict:
+    """JAX stack name -> (the model's layer list attribute, layers per group,
+    position in the group)."""
+    if isinstance(model, EncDecLM):
+        return {"enc_blocks": ("enc_layers", 1, 0), "dec_blocks": ("dec_layers", 1, 0)}
+    period = len(group_pattern(model.cfg))
+    return {f"g{j}": ("layers", period, j) for j in range(period)}
+
+
+def params_from_jax(model, tree: dict):
     """Copy ``tree`` into ``model`` (cast to its dtype and device); every
     parameter must be given exactly once with its shape.  Returns ``model``."""
     targets = {tuple(name.split(".")): p for name, p in model.named_parameters()}
+    stacks = _stacks(model)
     seen = set()
     for path, leaf in _flatten(tree).items():
         leaf = np.asarray(leaf)
-        if path[0] == "g0":
-            if leaf.shape[0] != len(model.layers):
+        if path[0] in stacks:
+            attr, period, j = stacks[path[0]]
+            n = len(getattr(model, attr)) // period
+            if leaf.shape[0] != n:
                 raise ValueError(f"{'/'.join(path)}: {leaf.shape[0]} layers, "
-                                 f"the model has {len(model.layers)}")
-            items = [(("layers", str(i)) + path[1:], leaf[i]) for i in range(leaf.shape[0])]
+                                 f"the model has {n} in this stack")
+            items = [((attr, str(i * period + j)) + path[1:], leaf[i]) for i in range(n)]
         else:
             items = [(("top",) + path, leaf)]
         for key, value in items:

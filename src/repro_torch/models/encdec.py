@@ -1,0 +1,185 @@
+"""Whisper-style encoder-decoder for serving (port of ``repro.models.encdec``
+and the encoder-decoder half of ``ModelBundle.prefill`` / ``serve_step``).
+
+The audio convolution front end is a stub, as in the JAX package: the
+encoder takes precomputed frame embeddings ``(B, S_enc, d)``.  Both stacks
+add the fixed sinusoidal table (the JAX package's decoder positions are
+sinusoidal too, not learned) and use LayerNorm and the GELU MLP.
+
+:class:`EncDecLM`:
+
+* ``prefill(enc_embeds, dec_tokens)`` -> (last-position logits ``(B, V)``,
+  per-decoder-layer caches ``{"k", "v", "xk", "xv"}``): the encoder's
+  non-causal self-attention, the decoder's causal self-attention and its
+  cross-attention over the encoder states all go through the
+  flash-attention kernel (one launch each a layer);
+* ``serve_step(tokens, pos, caches)``: one decoder step at cursor ``pos``,
+  self-attention K/V written at ``pos``; both attentions over the caches in
+  plain PyTorch (``decode_attention``), as the JAX package computes them.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import attention_params
+from repro_torch.models.layers import LMBase, Params, mlp_apply, mlp_params, norm_apply, norm_params, normal
+from repro_torch.models.rope import sinusoidal_positions, sinusoidal_rows
+
+
+def _enc_layer_params(cfg, **kw) -> dict:
+    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
+    return {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
+            "attn": attention_params(cfg, **kw),
+            "ln2": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
+            "mlp": mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)}
+
+
+def _dec_layer_params(cfg, **kw) -> dict:
+    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
+    return {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
+            "self": attention_params(cfg, **kw),
+            "lnx": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
+            "cross": attention_params(cfg, **kw),
+            "ln2": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
+            "mlp": mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)}
+
+
+def build_encdec(cfg, *, generator, device, dtype) -> "EncDecLM":
+    """Random weights for ``cfg`` (vocabulary already padded)."""
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    d, v = cfg.d_model, cfg.vocab_size
+    top = {"embed": normal((v, d), 0.02, **kw)}
+    enc = [_enc_layer_params(cfg, **kw) for _ in range(cfg.encoder_layers)]
+    top["enc_final"] = norm_params(d, cfg.norm_type, device=device, dtype=dtype)
+    dec = [_dec_layer_params(cfg, **kw) for _ in range(cfg.decoder_layers)]
+    top["dec_final"] = norm_params(d, cfg.norm_type, device=device, dtype=dtype)
+    if not cfg.tie_embeddings:
+        top["unembed"] = normal((d, v), d ** -0.5, **kw)
+    return EncDecLM(cfg, enc, dec, top)
+
+
+class EncDecLM(LMBase):
+    """An encoder-decoder LM for serving (weights in one dtype, one device)."""
+
+    def __init__(self, cfg, enc_layers: list, dec_layers: list, top: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.enc_layers = nn.ModuleList(Params(p) for p in enc_layers)
+        self.dec_layers = nn.ModuleList(Params(p) for p in dec_layers)
+        self.top = Params(top)
+
+    def _norm(self, p, x):
+        return norm_apply(p, x, self.cfg.norm_type, self.cfg.norm_eps)
+
+    def _mlp(self, p, x):
+        return x + mlp_apply(p["mlp"], self._norm(p["ln2"], x), gated=self.cfg.mlp_gated)
+
+    def encode(self, enc_embeds: torch.Tensor, use_kernel="auto") -> torch.Tensor:
+        """(B, S_enc, d) frame embeddings -> final-normed encoder states."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.device, self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, device=self.device).to(x.dtype)
+        for p in self.enc_layers:
+            q, k, v = attn_mod.qkv_project(p["attn"], self._norm(p["ln1"], x), cfg)
+            out = attn_mod.attention(q, k, v, causal=False, use_kernel=use_kernel)
+            x = self._mlp(p, x + attn_mod.out_project(p["attn"], out))
+        return self._norm(self.top["enc_final"], x)
+
+    def embed_decoder_tokens(self, tokens: torch.Tensor, pos: int | None = None) -> torch.Tensor:
+        """Token embeddings plus the sinusoidal rows of their positions:
+        ``0 .. S-1`` (``pos`` None), or the one decode row at cursor ``pos``."""
+        tokens = tokens.to(self.device)
+        x = self.top["embed"][tokens].to(self.dtype)
+        if pos is None:
+            rows = sinusoidal_positions(tokens.shape[1], self.cfg.d_model, device=self.device)
+        else:
+            rows = sinusoidal_rows(torch.tensor(pos, device=self.device), self.cfg.d_model)
+        return x + rows.to(x.dtype)
+
+    def new_caches(self, batch: int, length: int) -> list:
+        """Zeroed per-decoder-layer self-attention caches ``k``, ``v`` of
+        ``(B, length, KV, D)``; prefill adds the cross-attention ``xk``,
+        ``xv`` (``(B, S_enc, KV, D)``, the encoder states projected)."""
+        cfg = self.cfg
+        shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+        kw = dict(dtype=self.dtype, device=self.device)
+        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+                for _ in self.dec_layers]
+
+    def _decode_stack(self, x, caches, enc_out, pos, use_kernel) -> torch.Tensor:
+        """Decoder layers over x -> final-normed states; ``pos`` None is
+        prefill (caches filled from x and ``enc_out``), an int a step at that
+        cursor."""
+        cfg = self.cfg
+        for p, cache in zip(self.dec_layers, caches):
+            q, k, v = attn_mod.qkv_project(p["self"], self._norm(p["ln1"], x), cfg)
+            start = 0 if pos is None else pos
+            cache["k"][:, start:start + q.shape[1]] = k
+            cache["v"][:, start:start + q.shape[1]] = v
+            if pos is None:
+                out = attn_mod.attention(q, k, v, causal=True, use_kernel=use_kernel)
+            else:
+                out = attn_mod.decode_attention(q, cache["k"], cache["v"], pos)
+            x = x + attn_mod.out_project(p["self"], out)
+
+            hx = self._norm(p["lnx"], x)
+            if pos is None:
+                qx, xk, xv = attn_mod.qkv_project(p["cross"], hx, cfg, xkv=enc_out)
+                cache["xk"], cache["xv"] = xk, xv
+                outx = attn_mod.attention(qx, xk, xv, causal=False, use_kernel=use_kernel)
+            else:  # the JAX package projects K and V of the step too, unused
+                qx = attn_mod.qkv_project(p["cross"], hx, cfg)[0]
+                outx = attn_mod.decode_attention(qx, cache["xk"], cache["xv"])
+            x = self._mlp(p, x + attn_mod.out_project(p["cross"], outx))
+        return self._norm(self.top["dec_final"], x)
+
+    @torch.inference_mode()
+    def prefill(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor, *,
+                cache_len: int | None = None, use_kernel="auto"):
+        """enc_embeds (B, S_enc, d), dec_tokens (B, S) -> (logits (B, V) at
+        the last decoder position, caches of self-attention length
+        ``cache_len`` (default S))."""
+        enc_out = self.encode(enc_embeds, use_kernel)
+        b, s = dec_tokens.shape
+        caches = self.new_caches(b, s if cache_len is None else cache_len)
+        x = self._decode_stack(self.embed_decoder_tokens(dec_tokens), caches, enc_out, None,
+                               use_kernel)
+        return self.unembed(x[:, -1:])[:, 0], caches
+
+    @torch.inference_mode()
+    def serve_step(self, tokens: torch.Tensor, pos: int, caches: list):
+        """One decoder step: tokens (B, 1) at cursor ``pos`` -> (logits
+        (B, 1, V), caches)."""
+        pos = int(pos)
+        x = self.embed_decoder_tokens(tokens, pos)
+        return self.unembed(self._decode_stack(x, caches, None, pos, "auto")), caches
+
+    def greedy(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor,
+               max_new_tokens: int, use_kernel="auto"):
+        """Greedy decoding of one wave -> (new tokens (B, max_new_tokens)
+        int64 on the host, ``{"prefill_s", "decode_s", "decode_steps"}``)."""
+        clock = time.perf_counter
+        b, s = dec_tokens.shape
+        t0 = clock()
+        last, caches = self.prefill(enc_embeds, dec_tokens, cache_len=s + max_new_tokens,
+                                    use_kernel=use_kernel)
+        tok = torch.argmax(last, dim=-1)
+        self._sync()
+        t1 = clock()
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, caches = self.serve_step(tok[:, None], s + i, caches)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            out.append(tok)
+        self._sync()
+        stats = dict(prefill_s=t1 - t0, decode_s=clock() - t1, decode_steps=max_new_tokens - 1)
+        return torch.stack(out, dim=1).cpu(), stats
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

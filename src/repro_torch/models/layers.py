@@ -9,13 +9,65 @@ scales of the JAX ``ParamDef``s: normal weights ``N(0, scale^2)`` drawn in
 float32 and cast to the storage dtype once, norm weights one, biases zero.
 The JAX package draws from ``jax.random`` keyed by the parameter path, so
 the two packages share weights only through
-:func:`repro_torch.models.convert.params_from_jax`.
+:func:`repro_torch.models.convert.params_from_jax`.  :class:`Params` holds
+a nested dict of weights as modules named by the JAX parameter paths;
+:class:`LMBase` is what every served model shares (dtype, device, counts,
+the unembedding).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class Params(nn.Module):
+    """A nested dict of weights as a module: ``p["attn"]["wq"]`` reads the
+    parameter registered as ``attn.wq`` (the JAX package's parameter path)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                self.add_module(name, Params(leaf))
+            else:
+                self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def get(self, name: str, default=None):
+        return getattr(self, name, default)
+
+
+class LMBase(nn.Module):
+    """What every served model shares: ``top`` holds the embedding table
+    (and the unembedding unless tied); weights in one dtype on one device."""
+
+    cfg = None
+    top: Params
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.top["embed"].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.top["embed"].device
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def weight_bytes(self) -> int:
+        return sum(p.numel() * p.element_size() for p in self.parameters())
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-normed states (B, S, d) -> logits (B, S, V) (the embedding
+        table transposed when tied)."""
+        if self.cfg.tie_embeddings:
+            return x @ self.top["embed"].to(x.dtype).T
+        return x @ self.top["unembed"].to(x.dtype)
 
 
 def normal(shape, scale: float, *, generator, device, dtype) -> torch.Tensor:

@@ -1,13 +1,19 @@
-"""build_model(): a servable decoder for the dense family
-(port of the serving half of ``repro.models.model``).
+"""build_model(): a servable model of every family (port of the serving half
+of ``repro.models.model``).
 
-:class:`DecoderLM` mirrors ``ModelBundle.prefill`` and ``serve_step``:
+:class:`DecoderLM` (dense, MoE, SSM, hybrid and VLM families) mirrors
+``ModelBundle.prefill`` and ``serve_step``:
 
-* ``prefill(tokens)`` -> (last-position logits ``(B, V)``, per-layer KV
-  caches), the prompt's attention through the flash-attention kernel;
+* ``prefill(tokens)`` or ``prefill(embeds=...)`` (the VLM and audio stub:
+  precomputed input embeddings) -> (last-position logits ``(B, V)``,
+  per-layer caches), the prompt's attention through the flash-attention
+  kernel; ``positions`` default to ``0 .. S-1`` and may be ``(B, S, 3)``
+  (t, h, w) ids under M-RoPE;
 * ``serve_step(tokens, pos, caches)`` -> (logits ``(B, 1, V)``, caches),
-  one decode step at cursor ``pos``, the caches written in place.
+  one decode step at cursor ``pos`` (broadcast to ``(B, 1, 3)`` under
+  M-RoPE), the caches written in place.
 
+The encoder-decoder family (Whisper) is :class:`repro_torch.models.encdec.EncDecLM`.
 Weights are stored in the serving dtype (the JAX engine keeps float32
 weights and casts them at every use, which rounds to the same values).
 The vocabulary is padded to a multiple of 16 as the JAX package pads it.
@@ -22,94 +28,72 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models.attention import attention_params
-from repro_torch.models.layers import mlp_params, norm_apply, norm_params, normal
+from repro_torch.models.layers import LMBase, Params, mlp_params, norm_apply, norm_params, normal
+from repro_torch.models.mamba import mamba_cache, mamba_params
+from repro_torch.models.moe import moe_params
 from repro_torch.models.rope import rope_cos_sin
-from repro_torch.models.transformer import block_apply
-
-UNPORTED = "ROADMAP.md §1, item 1 (the other LM families)"
+from repro_torch.models.transformer import block_apply, group_pattern
 
 
 def _pad_vocab(v: int, multiple: int = 16) -> int:
     return -(-v // multiple) * multiple
 
 
-class Params(nn.Module):
-    """A nested dict of weights as a module: ``p["attn"]["wq"]`` reads the
-    parameter registered as ``attn.wq`` (the JAX package's parameter path)."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for name, leaf in tree.items():
-            if isinstance(leaf, dict):
-                self.add_module(name, Params(leaf))
-            else:
-                self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def get(self, name: str, default=None):
-        return getattr(self, name, default)
-
-
-class DecoderLM(nn.Module):
-    """A dense decoder-only LM for serving (weights in one dtype, one device)."""
+class DecoderLM(LMBase):
+    """A decoder-only LM for serving (weights in one dtype, one device);
+    ``kinds[l]`` is layer ``l``'s (mixer, FFN) kinds."""
 
     def __init__(self, cfg: ModelConfig, layers: list, top: dict):
         super().__init__()
         self.cfg = cfg
+        pattern = group_pattern(cfg)
+        self.kinds = [pattern[i % len(pattern)] for i in range(len(layers))]
         self.layers = nn.ModuleList(Params(p) for p in layers)
         self.top = Params(top)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.top["embed"].dtype
-
-    @property
-    def device(self) -> torch.device:
-        return self.top["embed"].device
-
-    def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
-
-    def weight_bytes(self) -> int:
-        return sum(p.numel() * p.element_size() for p in self.parameters())
-
     def new_caches(self, batch: int, length: int) -> list:
-        """Zeroed per-layer ``{"k", "v"}`` caches of ``(B, length, KV, D)``
-        (zeros, so unwritten slots never carry NaN into the masked sum)."""
+        """Zeroed per-layer caches: ``{"k", "v"}`` of ``(B, length, KV, D)``
+        for attention (zeros, so unwritten slots never carry NaN into the
+        masked sum), the Mamba cache for SSM layers."""
         cfg = self.cfg
         shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
-                for _ in self.layers]
+        kw = dict(dtype=self.dtype, device=self.device)
+        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+                if kind == "attn" else mamba_cache(cfg, batch, **kw)
+                for kind, _ in self.kinds]
+
+    def _run(self, x, positions, caches, pos, use_kernel) -> torch.Tensor:
+        cfg = self.cfg
+        rope = rope_cos_sin(positions, cfg.head_dim, theta=cfg.rope_theta,
+                            sections=cfg.mrope_sections)  # shared by all layers
+        for p, (kind, ffn), cache in zip(self.layers, self.kinds, caches):
+            x = block_apply(p, x, cfg, kind, ffn, rope, cache, pos, use_kernel)
+        return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = norm_apply(self.top["final_norm"], x, cfg.norm_type, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            return x @ self.top["embed"].to(x.dtype).T
-        return x @ self.top["unembed"].to(x.dtype)
+        return self.unembed(norm_apply(self.top["final_norm"], x, cfg.norm_type, cfg.norm_eps))
 
-    def _run(self, tokens, positions, caches, pos, use_kernel) -> torch.Tensor:
-        cfg = self.cfg
-        x = self.top["embed"][tokens].to(self.dtype)
-        rope = rope_cos_sin(positions, cfg.head_dim, theta=cfg.rope_theta)  # shared by all layers
-        for p, cache in zip(self.layers, caches):
-            x = block_apply(p, x, cfg, rope, cache, pos, use_kernel)
-        return x
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.top["embed"][tokens.to(self.device)].to(self.dtype)
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, cache_len: int | None = None,
+    def prefill(self, tokens: torch.Tensor | None = None, *, embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None, cache_len: int | None = None,
                 use_kernel="auto"):
-        """tokens (B, S) -> (logits (B, V) at the last position, caches of
-        length ``cache_len`` (default S) holding the prompt's K/V)."""
-        b, s = tokens.shape
-        tokens = tokens.to(self.device)
+        """tokens (B, S), or embeds (B, S, d) -> (logits (B, V) at the last
+        position, caches of length ``cache_len`` (default S) holding the
+        prompt's K/V and each SSM layer's state)."""
+        if (tokens is None) == (embeds is None):
+            raise ValueError("prefill takes tokens or embeds, not both")
+        x = self.embed(tokens) if embeds is None else embeds.to(self.device, self.dtype)
+        b, s = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=self.device).expand(b, s)
         caches = self.new_caches(b, s if cache_len is None else cache_len)
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        x = self._run(tokens, positions, caches, None, use_kernel)
+        x = self._run(x, positions.to(self.device), caches, None, use_kernel)
         return self._logits(x[:, -1:])[:, 0], caches
 
     @torch.inference_mode()
@@ -117,42 +101,54 @@ class DecoderLM(nn.Module):
         """One decode step: tokens (B, 1) at cursor ``pos`` -> (logits
         (B, 1, V), caches with this step's K/V written at ``pos``)."""
         b = tokens.shape[0]
-        positions = torch.full((b, 1), pos, device=self.device)
-        x = self._run(tokens.to(self.device), positions, caches, int(pos), "auto")
+        shape = (b, 1, 3) if self.cfg.mrope_sections else (b, 1)
+        positions = torch.full(shape, pos, device=self.device)
+        x = self._run(self.embed(tokens), positions, caches, int(pos), "auto")
         return self._logits(x), caches
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this package cannot run yet."""
-    if cfg.family != "dense" or cfg.mrope_sections or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name} is a {cfg.family} model; the port serves the dense "
-            f"family only, the others wait for {UNPORTED}"
-        )
+def layer_params(cfg: ModelConfig, kind: str, ffn_kind: str, **kw) -> dict:
+    """One decoder layer's weights, named as the JAX ``layer_defs``."""
+    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
+    p = {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype)}
+    if kind == "attn":
+        p["attn"] = attention_params(cfg, **kw)
+    else:
+        p["ssm"] = mamba_params(cfg, **kw)
+    if ffn_kind != "none":
+        p["ln2"] = norm_params(d, cfg.norm_type, device=dev, dtype=dtype)
+    if ffn_kind == "dense":
+        p["mlp"] = mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)
+    elif ffn_kind == "moe":
+        p["moe"] = moe_params(cfg, **kw)
+    return p
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", dtype: torch.dtype | None = None,
-                generator: torch.Generator | None = None) -> DecoderLM:
-    """A randomly initialised :class:`DecoderLM` for ``cfg`` on ``device``.
+                generator: torch.Generator | None = None):
+    """A randomly initialised model for ``cfg`` on ``device``: a
+    :class:`DecoderLM`, or an :class:`~repro_torch.models.encdec.EncDecLM`
+    for the encoder-decoder family.
 
     ``dtype`` defaults to ``cfg.dtype``; weights come from ``generator``
     (default: seed 0 on ``device``) with the JAX package's init scales.
     """
-    check_family(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cfg = dataclasses.replace(cfg, vocab_size=_pad_vocab(cfg.vocab_size))
     kw = dict(generator=generator, device=dev, dtype=dtype)
+    if cfg.is_encdec:
+        return encdec.build_encdec(cfg, **kw)
+    pattern = group_pattern(cfg)
+    if cfg.num_layers % len(pattern):
+        raise ValueError(f"{cfg.num_layers} layers is not a whole number of "
+                         f"{len(pattern)}-layer groups")
+    layers = [layer_params(cfg, *pattern[i % len(pattern)], **kw)
+              for i in range(cfg.num_layers)]
     d, v = cfg.d_model, cfg.vocab_size
-    layers = [
-        {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-         "attn": attention_params(cfg, **kw),
-         "ln2": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-         "mlp": mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)}
-        for _ in range(cfg.num_layers)
-    ]
+    # Embedding-input archs still decode text: the table serves serve_step.
     top = {"embed": normal((v, d), 0.02, **kw),
            "final_norm": norm_params(d, cfg.norm_type, device=dev, dtype=dtype)}
     if not cfg.tie_embeddings:

@@ -1,14 +1,23 @@
-"""Decoder blocks of the dense family (port of ``repro.models.transformer``).
+"""Decoder blocks of every decoder-only family (port of
+``repro.models.transformer``).
 
-One block is pre-norm attention then a pre-norm MLP, each added to the
-residual stream.  The JAX package scans the blocks with ``lax.scan`` over
-stacked weights; here the model loops over its layers in Python.  Serving
-needs no mesh, sharding constraints or rematerialisation, so none exist.
+A block is a pre-norm mixer, attention (``attn``) or Mamba-2 (``ssm``),
+then a pre-norm FFN, dense (``dense``), mixture of experts (``moe``) or none
+(``none``), each added to the residual stream.  :func:`group_pattern` gives
+the (mixer, FFN) kinds of one group of layers: one layer for the uniform
+families, ``attn_period`` layers for the hybrid (Jamba: attention at offset
+4, MoE on odd layers).  Layer ``l`` has the kinds of position
+``l % len(pattern)``.  The JAX package scans the groups with ``lax.scan``
+over stacked weights; here the model loops over its layers in Python.
+Serving needs no mesh, sharding constraints or rematerialisation, so none
+exist.
 
-The KV cache of a layer is ``{"k", "v"}`` of ``(B, L, KV, D)``, allocated
-once at the wave's full length ``L`` (prompt plus new tokens) and written in
-place: prefill fills slots ``[0, S)``, each decode step the slot at its
-cursor.  (The JAX engine pads its immutable caches after prefill instead.)
+A layer's decode cache is ``{"k", "v"}`` of ``(B, L, KV, D)`` for attention,
+allocated once at the wave's full length ``L`` (prompt plus new tokens) and
+written in place: prefill fills slots ``[0, S)``, each decode step the slot
+at its cursor.  (The JAX engine pads its immutable caches after prefill
+instead.)  A Mamba layer's cache (:mod:`repro_torch.models.mamba`) is
+replaced, entry by entry, by prefill and by every step.
 """
 
 from __future__ import annotations
@@ -17,7 +26,15 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import mlp_apply, norm_apply
+from repro_torch.models.mamba import mamba_apply
+from repro_torch.models.moe import moe_einsum
 from repro_torch.models.rope import rotate
+
+
+def group_pattern(cfg) -> list[tuple[str, str]]:
+    """Static (mixer kind, FFN kind) pattern of one group of layers."""
+    period = cfg.attn_period if cfg.family == "hybrid" else 1
+    return [(cfg.layer_kind(j), cfg.ffn_kind(j)) for j in range(period)]
 
 
 def attn_block(p, h: torch.Tensor, cfg, rope, cache: dict, pos: int | None,
@@ -40,10 +57,21 @@ def attn_block(p, h: torch.Tensor, cfg, rope, cache: dict, pos: int | None,
     return attn_mod.out_project(p, out)
 
 
-def block_apply(p, x: torch.Tensor, cfg, rope, cache: dict, pos: int | None,
-                use_kernel="auto") -> torch.Tensor:
-    """One dense transformer block: x -> x + attn(norm(x)) -> + mlp(norm(.))."""
+def block_apply(p, x: torch.Tensor, cfg, kind: str, ffn_kind: str, rope, cache: dict,
+                pos: int | None, use_kernel="auto") -> torch.Tensor:
+    """One block: x -> x + mixer(norm(x)) -> + ffn(norm(.)).  ``pos`` None is
+    prefill (the cache filled), an int a decode step at that cursor."""
     h = norm_apply(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
-    x = x + attn_block(p["attn"], h, cfg, rope, cache, pos, use_kernel)
+    if kind == "attn":
+        x = x + attn_block(p["attn"], h, cfg, rope, cache, pos, use_kernel)
+    else:
+        mix, new = mamba_apply(p["ssm"], h, cfg=cfg, cache=None if pos is None else cache,
+                               collect=True)
+        cache.update(new)
+        x = x + mix
+    if ffn_kind == "none":
+        return x
     h2 = norm_apply(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    if ffn_kind == "moe":
+        return x + moe_einsum(p["moe"], h2, cfg=cfg)[0]
     return x + mlp_apply(p["mlp"], h2, gated=cfg.mlp_gated)

@@ -28,7 +28,9 @@ class Request:
 
 
 class ServeEngine:
-    """Greedy/temperature decoding over a :class:`DecoderLM`.
+    """Greedy/temperature decoding over a :class:`DecoderLM` of any
+    decoder-only family; an encoder-decoder model is refused, as the JAX
+    engine refuses it (serve it with ``EncDecLM.greedy``).
 
     ``use_kernel`` goes to prefill attention (``False``: the plain version
     on the card too, for comparison).  ``stats`` collects one record per
@@ -37,6 +39,10 @@ class ServeEngine:
 
     def __init__(self, model, *, temperature: float = 0.0, seed: int = 0,
                  use_kernel="auto"):
+        if model.cfg.is_encdec:
+            raise NotImplementedError(
+                "ServeEngine drives decoder-only families; serve an encoder-decoder "
+                "model with EncDecLM.prefill / serve_step (EncDecLM.greedy)")
         self.model = model
         self.temperature = temperature
         self.use_kernel = use_kernel
@@ -58,6 +64,12 @@ class ServeEngine:
                       eos_id: Optional[int] = None) -> np.ndarray:
         """prompts (B, S) int, one length -> (B, max_new_tokens) int32."""
         b, s = prompts.shape
+        cfg = self.model.cfg
+        if cfg.family in ("ssm", "hybrid") and max_new_tokens > 1 and s < cfg.ssm_conv - 1:
+            # The prefill's conv cache keeps the prompt's last ssm_conv - 1
+            # inputs; a shorter prompt leaves it short and decoding fails.
+            raise ValueError(f"a prompt of {s} tokens is shorter than the SSM conv "
+                             f"window's {cfg.ssm_conv - 1}-token cache: decoding needs it")
         clock = time.perf_counter
         t0 = clock()
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.model.device)

@@ -14,8 +14,11 @@ another order, the JAX kernel test's own tolerance); flash attention within
 ``rtol=2e-5, atol=2e-5`` in float32 and ``rtol=3e-2, atol=3e-2`` in bfloat16
 (the JAX kernel tests' tolerances) and, since at S in the thousands the
 outputs shrink inside that atol, each output row within a relative error of
-``1e-2``; a two-layer smoke model's prefill through it within
-``rtol=1e-4, atol=1e-4`` of the plain attention.
+``1e-2``, also at the other families' shapes (G = 5 and 6, D = 64
+non-causal over 1500 frames, cross-attention of 4 tokens); each family's
+smoke model (a two-layer dense, MoE, SSM and VLM decoder, the jamba
+superblock, whisper) prefills through it within ``rtol=1e-4, atol=1e-4`` of
+the plain attention and decodes the same greedy tokens.
 """
 
 import numpy as np
@@ -505,6 +508,74 @@ def test_smoke_model_prefill_through_the_kernel(cuda):
         torch.testing.assert_close(c["v"], w["v"], rtol=1e-4, atol=1e-4)
     reqs = [Request(tokens[i, : 20 + 10 * i].tolist(), 6) for i in range(3)]
     assert ServeEngine(model).serve(reqs) == ServeEngine(model, use_kernel=False).serve(reqs)
+
+
+# The other families' attention shapes: G = H / KV of 6 and 5, D = 64 with
+# G = 1, non-causal encoder attention over 1500 frames, cross-attention of a
+# few decoder tokens against them.
+_FAMILY_FLASH = [  # b, s, t, h, kv, d, causal
+    (4, 2048, 2048, 48, 8, 128, True),  # dbrx prefill
+    (4, 2048, 2048, 40, 8, 128, True),  # llama4-scout prefill
+    (4, 2048, 2048, 12, 2, 128, True),  # qwen2-vl prefill
+    (4, 1500, 1500, 6, 6, 64, False),  # whisper encoder
+    (4, 4, 1500, 6, 6, 64, False),  # whisper cross-attention
+]
+_FAMILY_FLASH_F32 = [  # the same head layouts at small S
+    (2, 300, 300, 48, 8, 128, True),
+    (2, 300, 300, 40, 8, 128, True),
+    (2, 257, 257, 12, 2, 128, True),
+    (2, 300, 300, 6, 6, 64, False),
+    (2, 4, 1500, 6, 6, 64, False),
+]
+
+
+@pytest.mark.parametrize(
+    "b,s,t,h,kv,d,causal,dtype",
+    [case + (torch.bfloat16,) for case in _FAMILY_FLASH]
+    + [case + (torch.float32,) for case in _FAMILY_FLASH_F32],
+)
+def test_flash_attention_at_the_family_shapes(cuda, b, s, t, h, kv, d, causal, dtype):
+    q, k, v = _attn(b, s, t, h, kv, d, dtype, seed=h + t, device=cuda)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    _flash_close(got, ref.flash_attention(q, k, v, causal=causal))
+
+
+_FAMILIES = ["dbrx-132b", "llama4-scout-17b-a16e", "mamba2-1.3b", "jamba-1.5-large-398b",
+             "qwen2-vl-2b", "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_family_smoke_model_through_the_kernel(cuda, arch):
+    """Each family's smoke model in float32 on the card: prefill through the
+    kernel (one launch an attention) against the plain attention, and equal
+    greedy tokens."""
+    cfg = smoke_config(arch)
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 64), device=cuda, generator=gen)
+    if cfg.is_encdec:
+        frames = 0.5 * torch.randn((3, 300, cfg.d_model), device=cuda, generator=gen)
+        args, attns = (frames, tokens[:, :5]), cfg.encoder_layers + 2 * cfg.decoder_layers
+    else:
+        args = (tokens,)
+        attns = sum(kind == "attn" for kind, _ in model.kinds)
+    before = flash_attention_cuda.launches
+    got, _ = model.prefill(*args)
+    assert flash_attention_cuda.launches - before == attns
+    want, _ = model.prefill(*args, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if cfg.is_encdec:
+        assert torch.equal(model.greedy(*args, 6)[0], model.greedy(*args, 6, use_kernel=False)[0])
+    else:
+        reqs = [Request(tokens[i, : 9 if i else 64].tolist(), 6) for i in range(3)]
+        assert ServeEngine(model).serve(reqs) == ServeEngine(model, use_kernel=False).serve(reqs)
+    if cfg.mrope_sections:  # the embeddings path with (t, h, w) ids
+        embeds = 0.5 * torch.randn((2, 40, cfg.d_model), device=cuda, generator=gen)
+        pos = torch.arange(40, device=cuda)
+        ids = torch.stack([torch.zeros_like(pos), pos // 8, pos % 8], -1).expand(2, 40, 3)
+        got, _ = model.prefill(embeds=embeds, positions=ids)
+        want, _ = model.prefill(embeds=embeds, positions=ids, use_kernel=False)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 # -- the out-of-core path: spilled int8 bin codes, and kernels first launched

@@ -6,7 +6,7 @@ and norm weights perturbed away from their zero/one init, so every weight
 matters) are loaded into the port with ``params_from_jax``, and prefill
 logits, KV caches and one decode step must agree within
 ``rtol=1e-5, atol=1e-5``.  On the CPU prefill attention runs the kernel's
-plain version.
+plain version.  The other families are held in ``test_torch_families.py``.
 """
 
 import dataclasses
@@ -114,13 +114,6 @@ def test_prefill_then_decode_consistency(pair):
     _, caches = model.prefill(tokens[:, : s - 1], cache_len=s)
     step, _ = model.serve_step(tokens[:, s - 1:], s - 1, caches)
     np.testing.assert_allclose(step[:, 0].numpy(), full.numpy(), rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "dbrx-132b", "whisper-tiny",
-                                  "qwen2-vl-2b", "jamba-1.5-large-398b"])
-def test_unported_families_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(smoke_config(arch), device="cpu")
 
 
 def test_build_model_without_a_card_raises():

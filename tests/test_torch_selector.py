@@ -293,6 +293,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.core.selection, repro_torch.runtime.resilience; "
         "import repro_torch.launch.serve_select, repro_torch.dist.multihost; "
         "import repro_torch.dist.meshes, repro_torch.launch.select_multihost; "
+        "import repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.encdec; "
+        "import repro_torch.models.rope, repro_torch.models.transformer; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )

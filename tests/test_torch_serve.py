@@ -101,7 +101,6 @@ def test_cli_prints_one_json_line_naming_the_device():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--arch", "mamba2-1.3b", "--device", "cpu"],
     ["--ckpt-dir", "ckpt", "--device", "cpu"],
     ["--model-parallel", "2", "--device", "cpu"],
 ])
