@@ -100,10 +100,11 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    C=2 and 16), the spilled bytes; one replayed 65,536 x 1000 code block
    read back as a replay (a memmap, one replay pass and no parse), counted
    bitwise against the plain version and timed at C=2 and 16.  (c) the
-   tall data written as CSV with numpy byte operations (all 1,000,000
-   rows, about 2 GB of text) and fitted through ``CSVSource(dtype=int8,
-   target_dtype=int8)`` with ``spill_dir`` and ``readahead=4``: the
-   selection of (a), one parse pass and nine replays, each pass's seconds.
+   first ``CSV_ROWS`` (250,000) rows of the tall data written as CSV with
+   numpy byte operations (about 0.5 GB of text) and fitted through
+   ``CSVSource(dtype=int8, target_dtype=int8)`` with ``spill_dir`` and
+   ``readahead=4``: the selection and gains of an in-memory fit of the same
+   rows, one parse pass and nine replays, each pass's seconds.
    (d) ``SelectionService(workers=2, device="cuda")`` over
    ``corral:1000000x1000`` with ``spill_dir``: two identical requests at
    once run the engine once (one coalesces; (10 + 5) x 16 contingency
@@ -188,6 +189,24 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    float32 (tokens equal).  Each logs parameters, weight bytes, prefill
    seconds a wave, decode ms a step and flash launches a prefill.
 
+12. Training: qwen1.5-0.5b at its published widths and depth (24 layers,
+   619,570,176 parameters), random float32 masters from seed 0, bf16
+   compute, ``remat="full"``, AdamW float32 moments, warmup-cosine.  (a)
+   step 0's loss and six gradient leaves in bf16 compute against float32
+   compute (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_REL_L2``); (b) 10 steps of
+   ``make_train_step`` on ``ShardedDataPipeline`` batches of 8 x 2048 tokens
+   with the launch counts zeroed just before and read just after (every
+   count must be 0: training attends through plain PyTorch, the flash
+   kernel has no backward), the loss lower after them, the peak memory
+   under ``TRAIN_PEAK_LIMIT``; step ms, tokens/s and the share of the
+   step's bound (``train_step_bound``); one more step traced (busy share,
+   time by kernel); (c) ``python -m repro_torch.launch.train`` twice at
+   once, 2 of 24 layers, 6 steps, one with ``--fail-at-step 3``: the same
+   losses and, restored from their step-6 checkpoints, bitwise the same
+   state; the serve command line's ``main`` with ``--ckpt-dir``, in this
+   process, decoding from the uninterrupted run's checkpoint.  Its files go under one
+   ``tempfile.mkdtemp()`` directory, removed at the end.
+
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
@@ -220,8 +239,8 @@ streaming fit 160 (10 passes x 16 blocks), and every fit launches the MI
 kernel; the streaming binned fit encodes each of its 160 blocks once, the
 in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
-launches the flash-attention kernel 64 times (2 waves x 32 layers), and
-each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
+launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
+12's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
 llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none); each
 spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
@@ -1906,6 +1925,10 @@ def phase11(dev, launches):
 # -- phase 8: the out-of-core surfaces ---------------------------------------
 
 OOC_BLOCK = 65536  # block_obs of every phase-8 fit, as in phases 3 and 5
+# Phase 8(c) writes the first CSV_ROWS rows of phase 3's data as CSV: a
+# quarter of them (0.5 GB of text), cut for time (its parse pass took 94-96
+# s at all 1,000,000 rows).
+CSV_ROWS = 250_000
 SERVICE_REF = "corral:1000000x1000"
 CUSTOM_SHAPE = (10_000, 5_000)
 OOC_PATHS = ("ooc_tall_spill", "ooc_tall_replay", "ooc_binned_spill", "ooc_csv",
@@ -2007,7 +2030,7 @@ def phase8(dev, launches, fits, keep, tmp):
     recs = {r["path"]: r for r in fits}
     out = dict(tall=phase8_tall(dev, launches, recs, keep, tmp))
     out["binned"], code_times = phase8_binned(dev, launches, recs, keep, tmp)
-    out["csv"] = phase8_csv(dev, launches, out["tall"], keep, tmp)
+    out["csv"] = phase8_csv(dev, launches, keep, tmp)
     out["service"] = phase8_service(dev, launches, tmp)
     out["custom"], custom_times = phase8_custom(dev, launches)
     return out, code_times + custom_times
@@ -2117,14 +2140,15 @@ def phase8_binned(dev, launches, recs, keep, tmp):
                 float_bytes=int(src.X.nbytes + src.y.nbytes)), code_times
 
 
-def phase8_csv(dev, launches, tall, keep, tmp):
-    """(c) The tall CorrAL data (all 1,000,000 rows, about 2 GB of text)
-    written to CSV and fitted through CSVSource with the spill cache and
-    read-ahead: one parse pass, nine replays; the same selection as (a)."""
+def phase8_csv(dev, launches, keep, tmp):
+    """(c) The first CSV_ROWS rows of the tall CorrAL data written to CSV and
+    fitted through CSVSource with the spill cache and read-ahead: one parse
+    pass, nine replays; the selection and gains of an in-memory fit of the
+    same rows."""
     from repro_torch import MIScore, MRMRSelector
     from repro_torch.data.sources import CSVSource
 
-    X, y = keep["tall"]
+    X, y = (a[:CSV_ROWS] for a in keep["tall"])
     rows = len(X)
     path = tmp / "corral.csv"
     t0 = time.perf_counter()
@@ -2138,7 +2162,9 @@ def phase8_csv(dev, launches, tall, keep, tmp):
         dev, launches)
     blocks = -(-rows // OOC_BLOCK)
     check_io(res, "CSV fit", 10, 10 * blocks, 1, 9)
-    check_against_record(res, tall, "CSV fit vs (a)")
+    ref = MRMRSelector(10, score=MIScore(2, 2), device=dev).fit(X, y)
+    check_against_record(res, dict(selected=ref.selected_.tolist(), gains=ref.gains_),
+                         "CSV fit vs the in-memory fit of its rows")
     counts = launches["ooc_csv"]
     if counts["contingency_tables"] != 10 * blocks or counts["mi_scores"] == 0:
         raise AssertionError(f"CSV fit launches {counts}")
@@ -2661,6 +2687,240 @@ def phase10(dev, launches, fits, keep):
     return out, timings, bin_times
 
 
+# -- phase 12: training on the card ------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 10
+# One step in float32 compute against bf16 compute, float32 masters both:
+# bf16 keeps 8 significand bits (a rounding of 2^-9 relative), and each
+# gradient leaf accumulates a few hundred of them (worst leaf read 0.038 on
+# the H100).  The loss is a mean over 16,384 tokens, whose roundings mostly
+# cancel: read 7.5e-6 relative there, held at about 13x that.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_GRAD_LEAVES = ("top.final_norm.w", "layers.0.attn.wq", "layers.11.mlp.up",
+                     "layers.23.attn.bv", "layers.23.mlp.down", "top.unembed")
+# The restart and serve checks run the command lines at the published widths
+# with the depth cut to 2 of 24 layers: a checkpoint (float32 weights and two
+# moments, 12 bytes a parameter) is then 4.0 GB, not 7.4.
+CLI_DEVICE = "cuda"
+RESTART_MODEL = ("--arch", TRAIN_ARCH, "--preset", "full", "--num-layers", "2")
+RESTART_ARGS = ("--steps", "6", "--global-batch", "2", "--seq-len", "512", "--ckpt-every", "3",
+                "--log-every", "1", "--warmup", "2")
+TRAIN_PEAK_LIMIT = 70e9  # bytes; the step's batch is cut beyond this
+
+
+def train_step_bound(cfg, b, s):
+    """The step's least time (ms) and its reckoning, at the bf16
+    tensor-core rate.  N is the parameters in products (every weight but
+    the embedding table, which is gathered); the attention products are
+    QK^T and PV over the causal half, S (S + 1) / 2 scores a head: 2 D
+    flops each for either product, so 2 B H D S (S + 1) a layer forward.
+    The bound counts what the step runs: 8 N T matmul flops (forward 2,
+    backward 4, the full remat's recomputed forward 2) and the attention
+    products x4.  ``model_ms`` counts the work without the recompute: 6 N T
+    and the attention products x3."""
+    per_layer = (cfg.d_model * cfg.head_dim * (cfg.num_heads + 2 * cfg.num_kv_heads)
+                 + cfg.num_heads * cfg.head_dim * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    n = cfg.num_layers * per_layer + cfg.d_model * cfg.vocab_size
+    t = b * s
+    attn_fwd = 2 * b * cfg.num_heads * cfg.head_dim * s * (s + 1) * cfg.num_layers
+    matmul, attn = 8 * n * t, 4 * attn_fwd
+    ms = (matmul + attn) / BF16_OPS_PER_S * 1e3
+    model_flops = 6 * n * t + 3 * attn_fwd
+    model_ms = model_flops / BF16_OPS_PER_S * 1e3
+    return ms, dict(n_matmul_params=n, tokens=t, matmul_flops=matmul, attention_flops=attn,
+                    flops=matmul + attn, bf16_ops_per_s=BF16_OPS_PER_S, bound_ms=ms,
+                    model_flops=model_flops, model_ms=model_ms)
+
+
+def run_cli(module, args, timeout=600):
+    """``python -m module args`` from the repo root; its one JSON line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         env=env, timeout=timeout, cwd=ROOT)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[{module.rsplit('.', 1)[1]}] {time.perf_counter() - t0:.3f} s: {json.dumps(rec)[:600]}")
+    return rec
+
+
+def restart_checks(tmp):
+    """launch.train 6 steps uninterrupted and with --fail-at-step 3 (the two
+    processes at once), and launch.serve --ckpt-dir (its ``main``, in this
+    process) on the uninterrupted run's final checkpoint once it is written,
+    beside the restarted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build_model
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.checkpoint import flatten_with_paths
+    from repro_torch.train import AdamWConfig, train_state_shapes
+    from repro_torch.train.train_step import state_to_jax
+
+    recs = {}
+
+    def train(n, extra):
+        recs[n] = run_cli("repro_torch.launch.train",
+                          [*RESTART_MODEL, *RESTART_ARGS, "--device", CLI_DEVICE,
+                           "--ckpt-dir", str(tmp / n), *extra])
+        if n == "plain":  # the serve command line, in this process (its kernels built)
+            t0 = time.perf_counter()
+            recs["serve"] = serve_cli.main(
+                [*RESTART_MODEL, "--ckpt-dir", str(tmp / "plain"), "--requests", "2",
+                 "--prompt-len", "64", "--max-new-tokens", "8", "--device", CLI_DEVICE])
+            log(f"[serve] --ckpt-dir {time.perf_counter() - t0:.3f} s")
+
+    threads = [threading.Thread(target=train, args=a)
+               for a in (("plain", ()), ("failed", ("--fail-at-step", "3")))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if set(recs) != {"plain", "failed", "serve"}:
+        raise AssertionError(f"a command line failed: {sorted(recs)} came back")
+    plain, failed = recs["plain"], recs["failed"]
+    if (plain["restarts"], failed["restarts"], plain["steps"], failed["steps"]) != (0, 1, 6, 6):
+        raise AssertionError(f"restarts / steps: {plain['restarts']}, {failed['restarts']}, "
+                             f"{plain['steps']}, {failed['steps']}")
+    if failed["losses"] != plain["losses"] or not all(np.isfinite(plain["losses"])):
+        raise AssertionError(f"losses differ: {failed['losses']} vs {plain['losses']}")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    skeleton = build_model(cfg, device="meta", dtype=torch.float32)
+    like = state_to_jax(skeleton, train_state_shapes(skeleton, AdamWConfig()))
+    flats = []
+    for n in ("plain", "failed"):
+        mgr = CheckpointManager(str(tmp / n))
+        if mgr.latest_step() != 6:
+            raise AssertionError(f"{n}: last checkpoint {mgr.latest_step()}")
+        flats.append(flatten_with_paths(mgr.restore(6, like)))
+    a, b = flats
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or differ:
+        raise AssertionError(f"restarted run's final state differs at {differ[:5]}")
+    log(f"[train] restart: 6 steps with a failure at step 3 equal the uninterrupted run bit "
+        f"for bit ({len(a)} leaves, losses {plain['losses']})")
+    served = recs["serve"]
+    toks = [t for o in served["first_tokens"] for t in o]
+    if (served["ckpt_step"] != 6 or served["new_tokens"] != 16
+            or not all(0 <= t < cfg.vocab_size for t in toks)):
+        raise AssertionError(f"serve --ckpt-dir: {served}")
+    return dict(plain=plain, failed=failed, serve=served)
+
+
+def phase12(dev, launches):
+    """qwen1.5-0.5b trained at its published widths and depth: (a) one
+    step's loss and gradient leaves, bf16 compute against float32 compute;
+    (b) TRAIN_STEPS steps of ``make_train_step`` (launch counts zeroed just
+    before, read just after: no kernel runs); (c) the restart and serve
+    command lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedDataPipeline
+    from repro_torch.dist import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step, warmup_cosine
+
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32, compute_dtype=cfg.dtype,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[train] {TRAIN_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {model.cfg.vocab_size}, {model.num_params()} parameters "
+        f"(float32 masters, compute {cfg.dtype}, remat {cfg.remat}), made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    pipe = ShardedDataPipeline(mesh=make_mesh((1,), ("data",), devices=[dev]),
+                               global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               vocab=model.cfg.vocab_size, seed=0)
+    params = model.flat_params()
+
+    # (a) one step's loss and gradient leaves in bf16 and in float32 compute
+    def grads_at(compute_dtype):
+        model.compute_dtype = compute_dtype
+        leaves = {k: v.detach().requires_grad_(k in TRAIN_GRAD_LEAVES) for k, v in params.items()}
+        loss, metrics = model.train_loss(pipe.batch_at(0), leaves)
+        g = torch.autograd.grad(loss, [leaves[k] for k in TRAIN_GRAD_LEAVES])
+        return float(loss.detach()), dict(zip(TRAIN_GRAD_LEAVES, g))
+
+    loss16, g16 = grads_at(torch.bfloat16)
+    loss32, g32 = grads_at(torch.float32)
+    model.compute_dtype = torch.bfloat16
+    rel = {k: float((g16[k] - g32[k]).norm() / g32[k].norm()) for k in TRAIN_GRAD_LEAVES}
+    del g16, g32
+    log(f"[train] step 0 loss bf16 {loss16:.6f} vs float32 {loss32:.6f} (rtol "
+        f"{TRAIN_LOSS_RTOL}); gradient relative L2 errors {json.dumps(rel)} "
+        f"(<= {TRAIN_GRAD_REL_L2})")
+    if not abs(loss16 - loss32) <= TRAIN_LOSS_RTOL * abs(loss32):
+        raise AssertionError(f"bf16 loss {loss16} vs float32 {loss32}")
+    bad = {k: r for k, r in rel.items() if not r <= TRAIN_GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"bf16 gradients off the float32 ones: {bad}")
+
+    # (b) the train step
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 2, TRAIN_STEPS),
+                          moment_dtype=cfg.optimizer_moment_dtype)
+    step_fn = make_train_step(model, opt_cfg)
+    state = TrainState.create(params, opt_cfg)
+    del params
+    batches = [pipe.batch_at(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, losses = [], []
+
+    def train():
+        nonlocal state
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+
+    counted("qwen_train", launches, train)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # One more step (its result dropped), on the host clock and traced: the
+    # device's busy share and its time by kernel.
+    trace = device_breakdown(lambda: step_fn(state, batches[0]), top=12)
+    log(f"[train] traced step: {json.dumps(trace)}")
+    if any(launches["qwen_train"].values()):
+        raise AssertionError(f"training launched kernels: {launches['qwen_train']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"peak memory {peak} bytes over {TRAIN_PEAK_LIMIT:.0f}")
+    bound_ms, reckoning = train_step_bound(model.cfg, TRAIN_BATCH, TRAIN_SEQ)
+    warm = sorted(step_s[1:])
+    step_ms = 1e3 * warm[len(warm) // 2]
+    rec = dict(path="qwen_train", arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               steps=TRAIN_STEPS, step_ms=[1e3 * t for t in step_s], median_step_ms=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), peak_mem_bytes=peak,
+               flash_launches=launches["qwen_train"]["flash_attention"],
+               launches=launches["qwen_train"], losses=losses, bound=reckoning,
+               bound_share=bound_ms / step_ms, model_share=reckoning["model_ms"] / step_ms,
+               loss_bf16=loss16, loss_f32=loss32,
+               grad_rel_l2=rel, trace=trace)
+    log(f"[train] {json.dumps(rec)}")
+    log(f"[train] step {step_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}; first "
+        f"{1e3 * step_s[0]:.3f}), {rec['tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak / 1e9:.3f} GB, flash launches 0; bound {bound_ms:.3f} ms = "
+        f"({reckoning['matmul_flops']:.4e} matmul + {reckoning['attention_flops']:.4e} "
+        f"causal attention flops, the recompute included) / 989e12, "
+        f"{100 * bound_ms / step_ms:.1f}% of it (hardware flops); without the recompute "
+        f"{reckoning['model_ms']:.3f} ms ({reckoning['model_flops']:.4e} flops), "
+        f"{100 * reckoning['model_ms'] / step_ms:.1f}% (model flops)")
+    del state, batches, model
+    torch.cuda.empty_cache()
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        rec["cli"] = restart_checks(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -2717,6 +2977,7 @@ def main():
     mesh_fits, mesh_times, mesh_bin_times = phase("10 device mesh", phase10, dev, launches,
                                                   fits, keep)
     families, family_check = phase("11 other LM families", phase11, dev, launches)
+    training = phase("12 training", phase12, dev, launches)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
@@ -2779,7 +3040,7 @@ def main():
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
                         plan_paths=plan_paths, out_of_core=ooc, multi_host=mh,
                         device_mesh=mesh_fits, families=families,
-                        family_check=family_check)))
+                        family_check=family_check, training=training)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

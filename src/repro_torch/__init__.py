@@ -63,6 +63,16 @@ encoder-decoder) are served by :mod:`repro_torch.serve` over
     >>> from repro_torch.models import build_model
     >>> from repro_torch.serve import Request, ServeEngine
     >>> ServeEngine(build_model(get_config("yi-6b"))).serve([Request([1, 2, 3])])
+
+and trained (:mod:`repro_torch.train`: AdamW, the train step with
+microbatches and data parallelism over a mesh; checkpoints in the JAX
+package's layout, :class:`CheckpointManager`; the step-indexed token
+pipeline, :class:`ShardedDataPipeline`), attending through plain PyTorch:
+
+    >>> model = build_model(get_config("qwen1.5-0.5b"), dtype=torch.float32,
+    ...                     compute_dtype="bfloat16")
+    >>> step = make_train_step(model, AdamWConfig())
+    >>> state = TrainState.create(model.flat_params(), AdamWConfig())
 """
 
 from repro_torch.core.criteria import (
@@ -110,22 +120,28 @@ from repro_torch.data.binning import (
     QuantileSketch,
     fit_binned,
 )
+from repro_torch.data.pipeline import ShardedDataPipeline
 from repro_torch.data.sources import (
     ArraySource,
     CorralSource,
     DataSource,
     NpySource,
+    SyntheticTokenSource,
     as_source,
 )
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.train import AdamWConfig, TrainState, make_train_step
 
 # The JAX package's version: the port follows its API.
 __version__ = "1.6.0"
 
 __all__ = [
+    "AdamWConfig",
     "ArraySource",
     "BinnedSource",
     "CIFECriterion",
     "CMIMCriterion",
+    "CheckpointManager",
     "CorralSource",
     "Criterion",
     "CustomScore",
@@ -146,11 +162,15 @@ __all__ = [
     "QuantileSketch",
     "ScoreFn",
     "SelectionPlan",
+    "ShardedDataPipeline",
+    "SyntheticTokenSource",
+    "TrainState",
     "as_source",
     "available_criteria",
     "available_encodings",
     "cor2mi",
     "fit_binned",
+    "make_train_step",
     "mrmr_alternative",
     "mrmr_conventional",
     "mrmr_custom_score",

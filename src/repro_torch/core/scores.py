@@ -236,6 +236,12 @@ class MIScore(ScoreFn):
             use_kernel=self.use_kernel,
         )
 
+    def redundancy_conditional(
+        self, cands: torch.Tensor, other: torch.Tensor, cls: torch.Tensor
+    ) -> torch.Tensor:
+        """Per-candidate ``I(x_k; other | cls)`` (feature-major cands)."""
+        return cmi_from_counts(self.conditional_tables(cands.T, other, cls), self.use_kernel)
+
     def redundancy_terms(
         self, cands: torch.Tensor, other: torch.Tensor,
         cls: torch.Tensor | None = None, *, conditional: bool = False,

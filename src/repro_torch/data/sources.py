@@ -746,6 +746,31 @@ class CorralSource(DataSource):
         )
 
 
+# ---------------------------------------------------------------------------
+# step-indexed token sources (the LM-pipeline face of the protocol)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTokenSource:
+    """Infinite step-indexed token stream, pure in ``(seed, step)``.
+
+    ``block(step, lo, hi)`` returns rows [lo, hi) of the global batch at
+    ``step``: ``(hi - lo, seq_len + 1)`` int32 tokens with a Zipf-like
+    marginal (a squared uniform, skewed to low ids).  A restart at step k
+    replays the same stream with no loader state to keep.  Bitwise the JAX
+    package's ``SyntheticTokenSource`` (numpy only)."""
+
+    global_batch: int
+    seq_len: int
+    vocab: int
+    seed: int = 0
+
+    def block(self, step: int, lo: int, hi: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, step))
+        u = rng.random((self.global_batch, self.seq_len + 1))[lo:hi]
+        return (u * u * self.vocab).astype(np.int32)
+
+
 __all__ = [
     "ArraySource",
     "ArrowSource",
@@ -756,6 +781,7 @@ __all__ = [
     "ParquetSource",
     "ShardSource",
     "SourceStats",
+    "SyntheticTokenSource",
     "as_source",
     "clear_stats_memo",
 ]

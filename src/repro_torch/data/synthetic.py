@@ -1,5 +1,6 @@
-"""Synthetic data, numpy only — the paper's CorrAL-style generator (Eq. 3)
-and a continuous dataset for the binned and Pearson paths.
+"""Synthetic data — the paper's CorrAL-style generator (Eq. 3), a
+continuous dataset for the binned and Pearson paths (numpy) and the LM
+token batches (torch).
 
 The paper evaluates on binary artificial datasets where the class depends on
 8 features:
@@ -13,7 +14,10 @@ column that agrees with the class 75% of the time.  Same draws as
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 RELEVANT = 8  # features participating in Eq. 3 (placed at indices 0..7)
 _CONT_CHUNK = 65536  # rows generated at a time by continuous_dataset_np
@@ -84,3 +88,37 @@ def continuous_dataset_np(
             shadow = rng.standard_normal(stop - start, dtype=np.float32)
             blk[:, signal_cols] = blk[:, 0] + np.float32(0.1) * shadow
     return X, y
+
+
+def corral_dataset(num_rows: int, num_cols: int, *, seed: int = 0,
+                   flip_prob: float = 0.05) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`corral_dataset_np` under the JAX package's name.  The JAX
+    ``corral_dataset`` draws with ``jax.random``, so its bits differ from
+    these (the same construction, other random numbers)."""
+    return corral_dataset_np(num_rows, num_cols, seed=seed, flip_prob=flip_prob)
+
+
+# ---------------------------------------------------------------------------
+# LM token stream for the architecture workloads
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LMBatch:
+    tokens: torch.Tensor  # (B, S) int32
+    targets: torch.Tensor  # (B, S) int32 (next-token shifted)
+    mask: torch.Tensor  # (B, S) float32 loss mask
+
+
+def lm_token_batches(seed: int, batch: int, seq_len: int, vocab: int,
+                     num_batches: int = 1):
+    """Deterministic synthetic token batches (Zipf-like marginal: a squared
+    uniform times the vocabulary), drawn on the host from a
+    ``torch.Generator`` seeded with ``seed``.  The JAX package draws the
+    same construction with ``jax.random``: the bits differ, the shapes and
+    the marginal do not."""
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(num_batches):
+        u = torch.rand((batch, seq_len + 1), generator=gen)
+        tokens = (u * u * vocab).to(torch.int32)
+        yield LMBatch(tokens=tokens[:, :-1], targets=tokens[:, 1:],
+                      mask=torch.ones((batch, seq_len), dtype=torch.float32))

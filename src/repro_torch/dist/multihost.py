@@ -360,8 +360,9 @@ class HostCollectives:
 
     # -- plumbing --------------------------------------------------------
 
-    def _merged(self, leaves: list, group=None) -> list:
-        """Sum every leaf over the group's hosts; CPU tensors out."""
+    def _merged(self, leaves: list, group=None, op=None) -> list:
+        """Reduce every leaf over the group's hosts (``op``: sum unless
+        given); CPU tensors out."""
         host = [_host_tensor(leaf) for leaf in leaves]
         by_dtype: dict = {}
         for i, t in enumerate(host):
@@ -369,7 +370,7 @@ class HostCollectives:
         out: list = [None] * len(host)
         for idx in by_dtype.values():
             flat = torch.cat([host[i].reshape(-1) for i in idx])  # a copy
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM if op is None else op, group=group)
             off = 0
             for i in idx:
                 k = host[i].numel()
@@ -377,9 +378,9 @@ class HostCollectives:
                 off += k
         return out
 
-    def _tree_merge(self, tree, group=None):
+    def _tree_merge(self, tree, group=None, op=None):
         leaves, rebuild = _flatten(tree)
-        merged = self._merged(leaves, group)
+        merged = self._merged(leaves, group, op)
         return rebuild([_like(m, leaf) for m, leaf in zip(merged, leaves)])
 
     # -- the three reduces ----------------------------------------------
@@ -392,6 +393,13 @@ class HostCollectives:
         if self.spec.is_single_host:
             return tree
         return self._tree_merge(tree)
+
+    def pmax(self, tree):
+        """Elementwise maximum of a tree over EVERY host (the compressed
+        gradient sum's shared scales)."""
+        if self.spec.is_single_host:
+            return tree
+        return self._tree_merge(tree, op=dist.ReduceOp.MAX)
 
     def psum_obs(
         self,

@@ -15,7 +15,7 @@ JAX engines and the port does by hand —
 
 The model-sharding half (``ShardingRules``, ``rules_for``,
 ``logical_to_spec``: model parameters onto a mesh) comes with the
-model-parallel serve path (ROADMAP item 6.3); nothing selection-side
+model-parallel path (ROADMAP.md §1 item 2); nothing selection-side
 calls it.
 """
 

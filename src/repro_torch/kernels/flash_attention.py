@@ -19,6 +19,12 @@ what TMA cannot describe (:func:`tma_readable`).  The output is a new
 contiguous ``(B, S, H, D)`` tensor.  A tensor map the driver refuses to
 encode, like a refused launch, raises.
 
+The kernel has no backward, and its output carries no ``grad_fn``: a
+training forward through it would give every projection a zero gradient
+without a word.  So the wrapper (and ``ops.flash_attention``, on any
+device) raises when grad mode is on and q, k or v requires a gradient;
+training attends through ``repro_torch.models.attention.train_attention``.
+
 The plain version is :func:`repro_torch.kernels.ref.flash_attention`.
 """
 
@@ -52,10 +58,21 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)  # a fresh, aligned copy
 
 
+def check_no_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise if a gradient is asked of the forward-only kernel."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash attention has no backward: q, k or v requires a gradient with grad "
+            "mode on; train through repro_torch.models.attention.train_attention, or "
+            "run inference under torch.inference_mode() / torch.no_grad()"
+        )
+
+
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 ) -> torch.Tensor:
     """(B, S, H, D) x (B, T, KV, D) on the card -> (B, S, H, D) in q's dtype."""
+    check_no_grad(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda needs a CUDA tensor")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:

@@ -30,7 +30,7 @@ from repro_torch.kernels.contingency import (
     conditional_tables_cuda,
     contingency_tables_cuda,
 )
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import check_no_grad, flash_attention_cuda
 from repro_torch.kernels.mi_score import mi_scores_cuda
 from repro_torch.kernels.pearson import pearson_corr_cuda
 
@@ -206,7 +206,10 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     use_kernel="auto",
 ) -> torch.Tensor:
-    """(B, S, H, D) x (B, T, KV, D) -> (B, S, H, D) GQA softmax attention."""
+    """(B, S, H, D) x (B, T, KV, D) -> (B, S, H, D) GQA softmax attention.
+    Forward only: raises when grad mode is on and an input requires a
+    gradient, on every device (the plain version stands in for the kernel)."""
+    check_no_grad(q, k, v)
     if _decide(use_kernel, q):
         return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention(q, k, v, causal=causal)

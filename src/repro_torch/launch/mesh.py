@@ -4,7 +4,7 @@
 mesh; here its positions may repeat a device, so ``devices=["cpu"] * 4``
 gives the CPU tests a 2 x 2 mesh and ``["cuda:0"] * 4`` runs it on one card.
 The production mesh (``make_production_mesh``) comes with the dry-run
-(ROADMAP item 6.4).
+(ROADMAP.md §1 item 3).
 """
 
 from __future__ import annotations

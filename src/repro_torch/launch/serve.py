@@ -16,12 +16,20 @@
     # The reduced same-family config on the CPU (plain attention)
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke --device cpu
 
+    # The weights of a training checkpoint (repro_torch.launch.train, the
+    # same --arch, --preset and overrides)
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke --device cpu \
+        --ckpt-dir build/ckpt_smoke
+
 Every config of ``--arch`` serves.  Decoder-only models serve text prompts
 through ``ServeEngine`` (a VLM's token path; its image embeddings are a
 stub, as in the JAX package); the encoder-decoder (whisper) encodes random
 frame embeddings of ``ENC_FRAMES`` frames (30 s of audio at 50 frames/s)
 and decodes greedily from a ``--prompt-len`` token prompt.  Random weights
-from ``--seed`` (no pretrained weights ship with the repository).  A Mamba
+from ``--seed`` (no pretrained weights ship with the repository), or with
+``--ckpt-dir`` the parameters of the latest checkpoint there (cast to the
+serving dtype); the model-surgery overrides of the train command line
+(``--num-layers`` ...) shape the model as the run that wrote it.  A Mamba
 prompt longer than the SSD chunk must be a multiple of it, and one that
 decodes must hold at least ``ssm_conv - 1`` tokens.  Prints one JSON line:
 the model, the device it ran on, the tokens generated and the time they
@@ -32,23 +40,26 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import device_name, resolve_device
+from repro_torch.launch.model_args import add_model_args, resolve_config
+from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.model import build_model
+from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.serve.engine import Request, ServeEngine
 
 ENC_FRAMES = 1500  # whisper's encoder input: 30 s of audio at 50 frames/s
 
 
 def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
-    ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_model_args(ap)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=16)
@@ -60,15 +71,22 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise SystemExit("--model-parallel: the port serves on one card; model "
-                         "parallelism waits for ROADMAP.md item 6.3")
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir: checkpoints come with training, ROADMAP.md "
-                         "item 6.2; the port serves random weights")
+                         "parallelism is ROADMAP.md §1 item 2")
 
-    cfg = get_config(args.arch) if args.preset == "full" else smoke_config(args.arch)
+    cfg = resolve_config(args)
     dev = resolve_device(args.device)
     model = build_model(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(args.seed))
+    ckpt_step = None
+    if args.ckpt_dir:
+        if not os.path.isdir(args.ckpt_dir):
+            raise SystemExit(f"--ckpt-dir: no checkpoint in {args.ckpt_dir} (no such directory)")
+        ckpt = CheckpointManager(args.ckpt_dir, use_async=False)
+        ckpt_step = ckpt.latest_step()
+        if ckpt_step is None:
+            raise SystemExit(f"--ckpt-dir: no checkpoint in {args.ckpt_dir}")
+        like = params_to_jax(model, {n: p.to("meta") for n, p in model.named_parameters()})
+        params_from_jax(model, ckpt.restore(ckpt_step, {"params": like})["params"])
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
     t0 = time.perf_counter()
@@ -90,7 +108,7 @@ def main(argv=None) -> dict:
     out = {
         "arch": cfg.name, "family": cfg.family, "preset": args.preset,
         "device": device_name(dev), "dtype": str(model.dtype).removeprefix("torch."),
-        "params": model.num_params(), "requests": len(outs),
+        "params": model.num_params(), "ckpt_step": ckpt_step, "requests": len(outs),
         "new_tokens": new_tokens, "seconds": seconds,
         "tokens_per_s": new_tokens / seconds,
         "prefill_s": [w["prefill_s"] for w in stats],

@@ -15,7 +15,11 @@ sinusoidal too, not learned) and use LayerNorm and the GELU MLP.
   flash-attention kernel (one launch each a layer);
 * ``serve_step(tokens, pos, caches)``: one decoder step at cursor ``pos``,
   self-attention K/V written at ``pos``; both attentions over the caches in
-  plain PyTorch (``decode_attention``), as the JAX package computes them.
+  plain PyTorch (``decode_attention``), as the JAX package computes them;
+* ``train_loss(batch, params)``: the JAX ``_encdec_loss`` over
+  ``enc_embeds``, ``dec_tokens`` and ``targets``, every attention through
+  ``train_attention`` (no flash kernel), each layer under ``cfg.remat``;
+  its ``aux_loss`` is 0.
 """
 
 from __future__ import annotations
@@ -27,8 +31,19 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import attention_params
-from repro_torch.models.layers import LMBase, Params, mlp_apply, mlp_params, norm_apply, norm_params, normal
+from repro_torch.models.layers import (
+    LMBase,
+    Params,
+    cross_entropy_loss,
+    mlp_apply,
+    mlp_params,
+    nest,
+    norm_apply,
+    norm_params,
+    normal,
+)
 from repro_torch.models.rope import sinusoidal_positions, sinusoidal_rows
+from repro_torch.models.transformer import remat
 
 
 def _enc_layer_params(cfg, **kw) -> dict:
@@ -90,15 +105,17 @@ class EncDecLM(LMBase):
             x = self._mlp(p, x + attn_mod.out_project(p["attn"], out))
         return self._norm(self.top["enc_final"], x)
 
-    def embed_decoder_tokens(self, tokens: torch.Tensor, pos: int | None = None) -> torch.Tensor:
+    def embed_decoder_tokens(self, tokens: torch.Tensor, pos: int | None = None,
+                             top=None) -> torch.Tensor:
         """Token embeddings plus the sinusoidal rows of their positions:
         ``0 .. S-1`` (``pos`` None), or the one decode row at cursor ``pos``."""
-        tokens = tokens.to(self.device)
-        x = self.top["embed"][tokens].to(self.dtype)
+        table = (self.top if top is None else top)["embed"]
+        tokens = tokens.to(table.device)
+        x = table[tokens].to(self.dtype)
         if pos is None:
-            rows = sinusoidal_positions(tokens.shape[1], self.cfg.d_model, device=self.device)
+            rows = sinusoidal_positions(tokens.shape[1], self.cfg.d_model, device=table.device)
         else:
-            rows = sinusoidal_rows(torch.tensor(pos, device=self.device), self.cfg.d_model)
+            rows = sinusoidal_rows(torch.tensor(pos, device=table.device), self.cfg.d_model)
         return x + rows.to(x.dtype)
 
     def new_caches(self, batch: int, length: int) -> list:
@@ -137,6 +154,40 @@ class EncDecLM(LMBase):
                 outx = attn_mod.decode_attention(qx, cache["xk"], cache["xv"])
             x = self._mlp(p, x + attn_mod.out_project(p["cross"], outx))
         return self._norm(self.top["dec_final"], x)
+
+    def _enc_block_train(self, p, x):
+        q, k, v = attn_mod.qkv_project(p["attn"], self._norm(p["ln1"], x), self.cfg)
+        out = attn_mod.train_attention(q, k, v, causal=False, cfg=self.cfg)
+        return self._mlp(p, x + attn_mod.out_project(p["attn"], out))
+
+    def _dec_block_train(self, p, x, enc_out):
+        cfg = self.cfg
+        q, k, v = attn_mod.qkv_project(p["self"], self._norm(p["ln1"], x), cfg)
+        x = x + attn_mod.out_project(p["self"], attn_mod.train_attention(q, k, v, causal=True,
+                                                                         cfg=cfg))
+        qx, xk, xv = attn_mod.qkv_project(p["cross"], self._norm(p["lnx"], x), cfg, xkv=enc_out)
+        outx = attn_mod.train_attention(qx, xk, xv, causal=False, cfg=cfg)
+        return self._mlp(p, x + attn_mod.out_project(p["cross"], outx))
+
+    def train_loss(self, batch: dict, params: dict | None = None):
+        """-> (loss, {"loss", "aux_loss": 0}) on ``enc_embeds`` (B, S_enc,
+        d), ``dec_tokens`` and ``targets`` (B, S), with the weights
+        ``params`` (a flat dict; default: the model's own parameters)."""
+        cfg = self.cfg
+        tree = nest(dict(self.named_parameters()) if params is None else params)
+        top = tree["top"]
+        x = batch["enc_embeds"].to(self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+        for i in range(len(self.enc_layers)):
+            x = remat(self._enc_block_train, cfg.remat)(tree["enc_layers"][str(i)], x)
+        enc_out = self._norm(top["enc_final"], x)
+        x = self.embed_decoder_tokens(batch["dec_tokens"], top=top)
+        for i in range(len(self.dec_layers)):
+            x = remat(self._dec_block_train, cfg.remat)(tree["dec_layers"][str(i)], x, enc_out)
+        logits = self.unembed(self._norm(top["dec_final"], x), top)
+        loss = cross_entropy_loss(logits, batch["targets"])
+        return loss, {"loss": loss, "aux_loss": torch.zeros((), dtype=torch.float32,
+                                                            device=loss.device)}
 
     @torch.inference_mode()
     def prefill(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor, *,

@@ -7,7 +7,8 @@ recurrence over small (B, H, P, N) states, here a Python loop over the
 S/Q chunks where the JAX package runs ``lax.scan``.  The dtype mix is the
 JAX package's: the products in the model dtype, the decays in float32.
 Decode is the exact one-token recurrence.  No TPU kernel exists for either;
-both are plain PyTorch.
+both are plain PyTorch, and training differentiates the chunked SSD
+through its Python loop.
 
 As in the JAX package the in-projection is split per stream (z, x, B, C,
 dt) and the depthwise causal convolution runs as three small convolutions

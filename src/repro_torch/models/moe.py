@@ -2,7 +2,8 @@
 ``repro.models.moe``).
 
 The JAX package's ``moe_apply`` takes this path whenever there is no mesh
-with a ``model`` axis, which is every serving call on one card:
+with a ``model`` axis, which is every serving and training call on one
+card:
 
 * ``_route``: float32 router logits, the top ``k`` experts a token (ties to
   the lower expert index, as ``lax.top_k`` breaks them), softmax over the
@@ -16,7 +17,7 @@ with a ``model`` axis, which is every serving call on one card:
 * the gated outputs added back to their tokens, plus llama4's shared expert.
 
 The expert-parallel ``shard_map`` path waits for the model-parallel mesh
-(ROADMAP item 6.3).  :func:`moe_dense_reference` is the plain version every
+(ROADMAP.md §1 item 2).  :func:`moe_dense_reference` is the plain version every
 expert computes densely, for the tests.
 """
 
@@ -101,8 +102,10 @@ def _shared_ffn(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_einsum(p, x: torch.Tensor, *, cfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (y (B, S, d), the load-balance loss).  Serving
-    discards the loss; it is returned as the JAX function returns it."""
+    """x (B, S, d) -> (y (B, S, d), the float32 load-balance loss).  Serving
+    discards the loss; training sums it over layers into its aux loss.
+    Differentiable: the buffers written by index are fresh tensors, and the
+    gates reach the router's weights through the top-k softmax."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s

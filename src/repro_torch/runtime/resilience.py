@@ -13,9 +13,9 @@ errors of one call (flaky I/O, a preempted worker):
 * ``retry_with_backoff`` — call-level retry with exponential backoff for
   transient failures; the selection service wraps each engine run in it so
   one wobble never fails a job.
-
-The JAX package's ``elastic_restore`` (a checkpoint restored onto another
-mesh) needs the training stack and comes with it.
+* ``elastic_restore`` — restore a checkpoint onto a DIFFERENT mesh: the
+  checkpoint layout is mesh-agnostic (whole host arrays), so scaling from
+  N to M positions is a restore onto the new mesh.
 """
 
 from __future__ import annotations
@@ -164,9 +164,21 @@ def run_with_restarts(
             time.sleep(min(2.0**attempts, 30.0))
 
 
+def elastic_restore(ckpt, step: int, model, opt_cfg, new_mesh):
+    """Restore checkpoint ``step`` of ``model`` onto ``new_mesh`` (a
+    data-parallel train step over it keeps its state on the first
+    position's device) -> (model, the port ``TrainState`` there)."""
+    from repro_torch.train.train_step import state_from_jax, state_to_jax, train_state_shapes
+
+    like = state_to_jax(model, train_state_shapes(model, opt_cfg))
+    restored = ckpt.restore(step, like, new_mesh)
+    return model, state_from_jax(model, restored)
+
+
 __all__ = [
     "StepWatchdog",
     "TransientError",
+    "elastic_restore",
     "retry_with_backoff",
     "run_with_restarts",
 ]

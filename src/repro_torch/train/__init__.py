@@ -1,0 +1,20 @@
+"""Training: AdamW, the train step and gradient compression (port of
+``repro.train``)."""
+
+from repro_torch.train.compression import (  # noqa: F401
+    GradCompression,
+    compressed_psum,
+    compressed_psum_positions,
+)
+from repro_torch.train.optimizer import (  # noqa: F401
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    global_norm,
+    warmup_cosine,
+)
+from repro_torch.train.train_step import (  # noqa: F401
+    TrainState,
+    make_train_step,
+    train_state_shapes,
+)

@@ -18,7 +18,11 @@ outputs shrink inside that atol, each output row within a relative error of
 non-causal over 1500 frames, cross-attention of 4 tokens); each family's
 smoke model (a two-layer dense, MoE, SSM and VLM decoder, the jamba
 superblock, whisper) prefills through it within ``rtol=1e-4, atol=1e-4`` of
-the plain attention and decodes the same greedy tokens.
+the plain attention and decodes the same greedy tokens.  Training: the
+smoke qwen's AdamW step on the card against the CPU's, flash attention
+raising when asked for a gradient, ``train_loss`` launching no flash
+kernel, and ``launch.train --fail-at-step`` ending bitwise equal to an
+uninterrupted run on the card (deterministic algorithms on).
 """
 
 import numpy as np
@@ -846,3 +850,104 @@ def test_engines_refuse_card_data_on_a_cpu_mesh(cuda, engine):
     with pytest.raises(ValueError, match="mesh positions are cpu devices but device='cuda:0'"):
         call()
     assert _launches() == before
+
+
+# -- training on the card ------------------------------------------------------
+
+def _smoke_qwen(device):
+    model = build_model(smoke_config("qwen1.5-0.5b"), device="cpu", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def _token_batch(vocab, b, s, device, seed=0):
+    from repro_torch.data import SyntheticTokenSource
+
+    blk = torch.from_numpy(SyntheticTokenSource(b, s, vocab, seed).block(0, 0, b)).to(device)
+    return {"tokens": blk[:, :s], "targets": blk[:, 1:]}
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of the smoke qwen in float32 on the card and on the
+    CPU from the same weights: loss and gradient norm within 1e-5; each
+    weight within the sign-flip bound 2 lr (AdamW's normalised step of a
+    near-zero gradient), all but 0.1% of a leaf's elements within 1e-6 but
+    the key biases (a zero gradient in exact arithmetic)."""
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+
+    cfg = AdamWConfig(learning_rate=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = _smoke_qwen(dev)
+        state = TrainState.create(model.flat_params(), cfg)
+        state, metrics = make_train_step(model, cfg)(
+            state, _token_batch(model.cfg.vocab_size, 4, 64, dev))
+        out[str(dev)] = ({k: v.cpu() for k, v in state.params.items()},
+                         {k: float(v) for k, v in metrics.items()})
+    (p_cpu, m_cpu), (p_gpu, m_gpu) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(m_gpu[key], m_cpu[key], rtol=1e-5)
+    for k, want in p_cpu.items():
+        d = (p_gpu[k] - want).abs()
+        assert float(d.max()) <= 2e-3 + 1e-6, k
+        if not k.endswith("bk"):
+            assert float((d > 1e-6).float().mean()) <= 1e-3, k
+
+
+def test_flash_attention_raises_when_asked_for_a_gradient(cuda):
+    q, k, v = _attn(1, 64, 64, 4, 2, 64, torch.bfloat16, 0, cuda)
+    q.requires_grad_(True)
+    for fn in (lambda: ops.flash_attention(q, k, v, causal=True),
+               lambda: flash_attention_cuda(q, k, v, causal=True)):
+        before = flash_attention_cuda.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn()
+        assert flash_attention_cuda.launches == before
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, causal=True).shape == q.shape
+
+
+def test_train_loss_launches_no_flash_kernel(cuda):
+    model = _smoke_qwen(cuda)
+    batch = _token_batch(model.cfg.vocab_size, 2, 64, cuda)
+    flash_attention_cuda.launches = 0
+    leaves = {k: v.requires_grad_(True) for k, v in model.flat_params().items()}
+    loss, _ = model.train_loss(batch, leaves)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == 0
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert float(grads[list(leaves).index("layers.0.attn.wq")].abs().max()) > 0
+    model.prefill(batch["tokens"])
+    assert flash_attention_cuda.launches == model.cfg.num_layers  # serving still does
+
+
+def test_deterministic_restart_on_the_card(cuda, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.checkpoint import flatten_with_paths
+    from repro_torch.train import AdamWConfig, train_state_shapes
+    from repro_torch.train.train_step import state_to_jax
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    recs = {}
+    for name, extra in (("plain", []), ("failed", ["--fail-at-step", "3"])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+               "--steps", "6", "--global-batch", "4", "--seq-len", "64", "--ckpt-every", "2",
+               "--ckpt-dir", str(tmp_path / name), *extra]
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=True,
+                             env=dict(os.environ, PYTHONPATH=src))
+        recs[name] = json.loads(out.stdout.strip().splitlines()[-1])
+    assert recs["failed"]["restarts"] == 1 and recs["plain"]["restarts"] == 0
+    assert recs["failed"]["losses"] == recs["plain"]["losses"]
+    skeleton = build_model(smoke_config("qwen1.5-0.5b"), device="meta", dtype=torch.float32)
+    like = state_to_jax(skeleton, train_state_shapes(skeleton, AdamWConfig()))
+    a, b = (flatten_with_paths(CheckpointManager(str(tmp_path / n)).restore(6, like))
+            for n in ("plain", "failed"))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -243,10 +243,10 @@ def test_hybrid_stacks_map_leaf_i_of_g_j_to_layer_i_times_period_plus_j():
     for i in range(2):
         for j in range(8):
             layer = model.layers[8 * i + j]
-            np.testing.assert_array_equal(layer["ln1"]["w"].numpy(), params[f"g{j}"]["ln1"]["w"][i])
-    np.testing.assert_array_equal(model.layers[12]["attn"]["wq"].numpy(),
+            np.testing.assert_array_equal(layer["ln1"]["w"].detach().numpy(), params[f"g{j}"]["ln1"]["w"][i])
+    np.testing.assert_array_equal(model.layers[12]["attn"]["wq"].detach().numpy(),
                                   params["g4"]["attn"]["wq"][1])
-    np.testing.assert_array_equal(model.layers[9]["moe"]["router"].numpy(),
+    np.testing.assert_array_equal(model.layers[9]["moe"]["router"].detach().numpy(),
                                   params["g1"]["moe"]["router"][1])
     with pytest.raises(ValueError, match="layers"):
         params_from_jax(build_model(smoke_config("jamba-1.5-large-398b"), device="cpu"), params)
@@ -257,9 +257,9 @@ def test_encdec_tree_and_its_checks():
     params = jax.tree.map(np.asarray,
                           jax_build_model(jax_smoke_config(arch), mesh=None).init(jax.random.PRNGKey(0)))
     model = params_from_jax(build_model(smoke_config(arch), device="cpu"), params)
-    np.testing.assert_array_equal(model.dec_layers[1]["cross"]["wk"].numpy(),
+    np.testing.assert_array_equal(model.dec_layers[1]["cross"]["wk"].detach().numpy(),
                                   params["dec_blocks"]["cross"]["wk"][1])
-    np.testing.assert_array_equal(model.top["enc_final"]["b"].numpy(), params["enc_final"]["b"])
+    np.testing.assert_array_equal(model.top["enc_final"]["b"].detach().numpy(), params["enc_final"]["b"])
     with pytest.raises(KeyError, match="not in the JAX tree"):
         params_from_jax(model, {k: v for k, v in params.items() if k != "dec_final"})
     with pytest.raises(KeyError, match="no counterpart"):

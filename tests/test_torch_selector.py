@@ -295,6 +295,11 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.dist.meshes, repro_torch.launch.select_multihost; "
         "import repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.encdec; "
         "import repro_torch.models.rope, repro_torch.models.transformer; "
+        "import repro_torch.core, repro_torch.data, repro_torch.runtime, repro_torch.train; "
+        "import repro_torch.train.optimizer, repro_torch.train.train_step; "
+        "import repro_torch.train.compression, repro_torch.data.pipeline; "
+        "import repro_torch.runtime.checkpoint, repro_torch.launch.train; "
+        "import repro_torch.launch.model_args; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )
