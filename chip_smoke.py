@@ -206,6 +206,28 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    state; the serve command line's ``main`` with ``--ckpt-dir``, in this
    process, decoding from the uninterrupted run's checkpoint.  Its files go under one
    ``tempfile.mkdtemp()`` directory, removed at the end.
+13. Model parallelism for serving, on meshes of positions of ``cuda:0``
+   (they run one after another: the path and its cost, not scaling).  (a)
+   Yi-6B whole in bf16, phase 7's 8 requests, served on one device (the
+   reference) and, ``shard_params`` onto ``(1, 4)`` ``("data", "model")``
+   positions, tensor parallel: each position's heads through the flash
+   kernel (256 launches: 2 waves x 32 layers x 4 positions, each held to
+   the plain version on its own q, k, v), ``wo`` and ``down`` row parallel
+   with psums, the vocabulary split; the float32-compute last prefill
+   logits within ``MESH_F32_TOL`` of one device's, the bf16 ones under
+   phase 7's bf16-vs-float32 error, tokens by the margin rule.  (b) dbrx, 4
+   of 40 layers, bf16, on ``(2, 2)``: the batch over ``data``, sequence
+   chunks and experts over ``model`` (all-to-alls), the experts' d_ff on
+   ``data``; held the same way to a one-device run whose MoE layers run
+   ``moe_blockwise_reference`` (32 flash launches); layer 0's dropped slots
+   a block beside the whole wave's.  (c) ``pipeline_apply`` over 4
+   positions: ``PIPE_STAGES`` stages of ``tanh(h @ W + b)`` with 1, 2, 4
+   and 8 microbatches, each microbatch bitwise the fold of its rows, the
+   whole within ``PIPE_TOL`` of the whole batch's fold, seconds each.  (d) ``python -m repro_torch.launch.serve --preset full --arch
+   qwen1.5-0.5b`` with ``--model-parallel 2`` (``REPRO_DEVICES=4``) and
+   ``1``, at once: their tokens by the margin rule (the one-device margins
+   from the same model and prompts rebuilt in process).  Flash timed at the positions' shapes
+   (B=4, S=T=2048, H=8, KV=1 and B=2, S=T=2048, H=24, KV=4).
 
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
@@ -241,7 +263,9 @@ in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
 launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
 12's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
-llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none); each
+llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
+path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
+16); each
 spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
@@ -2921,6 +2945,387 @@ def phase12(dev, launches):
     return rec
 
 
+# -- phase 13: model parallelism for serving ---------------------------------
+
+MP_PATHS = ("yi6b_tp_serve", "dbrx_ep_serve")
+YI_TP_MESH, DBRX_EP_MESH = (1, 4), (2, 2)  # ("data", "model") positions of the card
+# (c): GPipe over four positions of the card, PIPE_STAGES stages of
+# tanh(h @ W + b) at D = PIPE_D on PIPE_B rows, float32.
+PIPE_STAGES, PIPE_D, PIPE_B = 32, 4096, 64
+PIPE_MICROBATCHES = (1, 2, 4, 8)
+# Each microbatch is held bitwise to the sequential fold of its own rows
+# (the pipeline runs the fold's operations on them), and the whole output to
+# the fold of the whole batch: cuBLAS picks its float32 GEMM by the row
+# count, and a sum of D = 4096 products taken in another order moves by
+# ~sqrt(D) float32 roundings (~2e-6 at these magnitudes; 1.58e-6 read on the
+# H100 at 2-8 microbatches).  md_pipeline.py's 1e-6 is for D = 32.
+PIPE_TOL = dict(rtol=1e-5, atol=1e-5)
+MP_CLI_ARGS = ("--arch", "qwen1.5-0.5b", "--preset", "full", "--device", "cuda")
+
+
+def card_mesh(dev, shape):
+    from repro_torch.dist import make_mesh
+
+    n = int(np.prod(shape))
+    return make_mesh(shape, ("data", "model"), devices=[dev] * n)
+
+
+# The meshed model against the one-device model, both computing in float32
+# from the same bf16 weights: only the row-parallel sums' order differs
+# (~1e-6 relative; the CPU tests hold the smoke models at 1e-5).  A router's
+# near-tie can still flip an expert choice, which moves that token's output
+# by a gate's share of an expert's and, through attention, the later
+# positions' by ~1/S of that: where any dispatch slot differs between the
+# two runs (counted), the float32 logits are held at the bf16 tolerances
+# instead.  In bf16 such flips are common, so bf16 runs are held by their
+# tokens (the margin rule) and, for the dense model, phase 7's bound.
+MESH_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@contextlib.contextmanager
+def recorded_dispatches(seen):
+    """While open, every MoE dispatch's ``buf_tok`` goes to ``seen``, in call
+    order (one a block: layer by layer, blocks in mesh order)."""
+    from repro_torch.models import moe
+
+    inner = moe._dispatch
+
+    def record(x2d, p, cfg):
+        out = inner(x2d, p, cfg)
+        seen.append(out[0])
+        return out
+
+    moe._dispatch = record
+    try:
+        yield
+    finally:
+        moe._dispatch = inner
+
+
+def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
+    """Serve ``reqs`` with ``make_model()`` on one device (the reference:
+    tokens, margins and last prefill logits through the kernel, and the last
+    prefill logits computed in float32 from the same bf16 weights), then
+    shard it onto ``mesh`` (the one-device model freed) and serve again as
+    path ``{tag}_serve``: flash launched once a position an attention layer
+    a wave, every prefill attention of every position held to the plain
+    version on its own q, k, v; the float32-compute last prefill logits
+    within ``MESH_F32_TOL`` of the one-device model's, the bf16 ones within
+    ``bf16_bound`` where given; the tokens held to the one-device run's by
+    ``margin_rule``."""
+    from repro_torch.models.model import shard_params
+    from repro_torch.serve import Request
+
+    def logits_f32(m, dispatched):
+        dtype, m.compute_dtype = m.compute_dtype, torch.float32
+        try:
+            with recorded_dispatches(dispatched):
+                return last_logits(m, reqs, "auto")
+        finally:
+            m.compute_dtype = dtype
+
+    model = make_model()
+    attn = sum(kind == "attn" for kind, _ in model.kinds)
+    one_outs, one_margins, one_rec = serve_run(f"{tag}_one_device", model, reqs, dev, launches)
+    one_logits = last_logits(model, reqs, "auto")
+    one_disp, mesh_disp = [], []
+    one32 = logits_f32(model, one_disp)
+    own = max((a - b).abs().max().item() for a, b in zip(one_logits, one32))
+    t0 = time.perf_counter()
+    meshed = shard_params(model, mesh)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shard_s = time.perf_counter() - t0
+    log(f"[{tag}] sharded onto {mesh.shape} in {shard_s:.3f} s: {meshed.weight_bytes()} weight "
+        f"bytes stored, {torch.cuda.memory_allocated(dev)} bytes allocated")
+    margin_engine(meshed).serve([Request(r.prompt[:64], 2) for r in reqs[:4]])  # warm-up
+    outs, _, rec = serve_run(f"{tag}_serve", meshed, reqs, dev, launches)
+    waves = len({len(r.prompt) for r in reqs})
+    want = attn * mesh.size
+    if rec["flash_launches_per_wave"] != [want] * waves:
+        raise AssertionError(f"{tag}: flash launches per wave {rec['flash_launches_per_wave']}, "
+                             f"want {want} ({attn} attention layers x {mesh.size} positions)")
+    layer_errs = []
+    with held_to_plain(layer_errs):
+        mesh_logits = last_logits(meshed, reqs, "auto")
+    if len(layer_errs) != waves * want:
+        raise AssertionError(f"{tag}: held {len(layer_errs)} prefill attentions, want "
+                             f"{waves * want}")
+    for lg in mesh_logits:
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{tag}: non-finite prefill logits on the mesh")
+    mesh32 = logits_f32(meshed, mesh_disp)
+    if [d.shape for d in mesh_disp] != [d.shape for d in one_disp]:
+        raise AssertionError(f"{tag}: the mesh dispatched {len(mesh_disp)} blocks, the "
+                             f"reference {len(one_disp)}")
+    flipped = sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(mesh_disp, one_disp))
+    slots = sum(d.numel() for d in one_disp)
+    f32_tol = MESH_F32_TOL if flipped == 0 else FLASH_BF16_TOL
+    f32_err = max((a - b).abs().max().item() for a, b in zip(mesh32, one32))
+    for a, b in zip(mesh32, one32):
+        torch.testing.assert_close(a, b, **f32_tol)
+    del one_disp, mesh_disp
+    logit_err = max((a - b).abs().max().item() for a, b in zip(mesh_logits, one_logits))
+    if bf16_bound is not None and not logit_err <= bf16_bound:
+        raise AssertionError(f"{tag}: bf16 mesh vs one-device logits {logit_err} > {bf16_bound}")
+    agree = margin_rule(outs, one_outs, one_margins, logit_err, reqs)
+    check = dict(mesh=mesh.shape, logit_err=logit_err, bf16_bound=bf16_bound,
+                 one_device_bf16_vs_f32=own, f32_err=f32_err, f32_tol=f32_tol,
+                 f32_dispatch_slots=slots, f32_slots_routed_otherwise=flipped,
+                 tokens_equal=outs == one_outs,
+                 agreement=agree, shard_s=shard_s, layer_abs_err=max(e for e, _ in layer_errs),
+                 layer_row_err=max(r for _, r in layer_errs), weight_bytes=meshed.weight_bytes(),
+                 one_device=one_rec)
+    rec.update(arch=meshed.cfg.name, layers=meshed.cfg.num_layers, mesh=mesh.shape,
+               params=meshed.num_params(), weight_bytes=meshed.weight_bytes(),
+               dtype=str(meshed.dtype)[6:])
+    log(f"[{tag}] mesh vs one device, last-position logits: float32 compute {f32_err:.4e} "
+        f"(limit {f32_tol}; {flipped} of {slots} MoE dispatch slots routed otherwise); bf16 {logit_err:.4e} (limit {bf16_bound}; the one-device "
+        f"bf16 vs float32 compute {own:.4e}); each position's prefill attention vs plain: "
+        f"max abs err {check['layer_abs_err']:.3e}, max row err {check['layer_row_err']:.3e}; "
+        f"tokens equal {check['tokens_equal']}: {json.dumps(agree)}")
+    return meshed, rec, check
+
+
+def phase13_yi(dev, launches, bf16_bound):
+    """(a) Yi-6B whole in bf16 on (1, 4) positions: heads, d_ff and the
+    vocabulary over ``model``, phase 7's 8 requests; the bf16 logits within
+    ``bf16_bound`` (phase 7's: the bf16 model against the float32 one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request
+
+    cfg = get_config("yi-6b")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(), 32)
+            for n in [2048] * 4 + [1000] * 4]
+    meshed, rec, check = mesh_serve(
+        "yi6b_tp", lambda: build_model(cfg, device=dev, dtype=torch.bfloat16,
+                                       generator=torch.Generator(device=dev).manual_seed(0)),
+        card_mesh(dev, YI_TP_MESH), reqs, dev, launches, bf16_bound)
+    del meshed
+    torch.cuda.empty_cache()
+    return rec, check
+
+
+def phase13_dbrx(dev, launches):
+    """(b) dbrx at its published widths, 4 of 40 layers, bf16, on (2, 2)
+    positions: the batch over ``data``, sequence chunks and experts over
+    ``model``, the experts' d_ff on ``data`` (``ff_axis``).  The one-device
+    reference runs its MoE layers as ``moe_blockwise_reference`` (the
+    mesh's blocks: 2 batch shards x 2 sequence chunks in prefill, the whole
+    batch in decode).  Layer 0's slots dropped, per block on the mesh and
+    over the whole wave on one device, for the first wave."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, transformer
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=FAMILY_DEPTH["dbrx-132b"])
+    reqs = family_requests(cfg, FAMILY_WAVES["dbrx"])
+    n_data, n_model = DBRX_EP_MESH
+    inner = transformer.moe_einsum
+
+    def blockwise(p, x, *, cfg):
+        return moe.moe_blockwise_reference(p, x, cfg, n_data, n_model)
+
+    transformer.moe_einsum = blockwise
+    try:
+        meshed, rec, check = mesh_serve(
+            "dbrx_ep", lambda: build_family("dbrx-132b", dev, torch.bfloat16),
+            card_mesh(dev, DBRX_EP_MESH), reqs, dev, launches)
+    finally:
+        transformer.moe_einsum = inner
+    # Layer 0 on the first wave (4 x 2048): the mesh's blocks, and the whole
+    # wave's dispatch as one device makes it (phase 11 (a)'s count).
+    records, seen = [], {}
+    inner_apply = moe.moe_apply
+
+    def recording(m, pre, hs, record=None):
+        if pre != "layers.0.moe.":
+            return inner_apply(m, pre, hs, record)
+        seen["x"] = m.ctx.gather_batch(hs, dev)
+        return inner_apply(m, pre, hs, records)
+
+    n = len(reqs[0].prompt)
+    toks = torch.tensor([r.prompt for r in reqs if len(r.prompt) == n], device=dev)
+    transformer.moe_mod.moe_apply = recording
+    try:
+        meshed.prefill(toks)
+    finally:
+        transformer.moe_mod.moe_apply = inner_apply
+    k = cfg.experts_per_token
+    x2d = seen.pop("x").reshape(-1, cfg.d_model)
+    buf_tok = moe._dispatch(x2d, {"router": meshed.weight("layers.0.moe.router")[0]}, cfg)[0]
+    one = dict(tokens=x2d.shape[0], slots=x2d.shape[0] * k, capacity=buf_tok.shape[1],
+               dropped=x2d.shape[0] * k - int((buf_tok >= 0).sum()))
+    blocks = [dict(tokens=r["tokens"], capacity=r["capacity"], dropped=r["dropped"],
+                   slots=r["tokens"] * k) for r in records]
+    check["drops"] = dict(one_device=one, mesh_blocks=blocks)
+    log(f"[dbrx_ep] layer 0 slots dropped at capacity factor {cfg.capacity_factor}, first wave: "
+        f"the whole wave on one device {one['dropped']} of {one['slots']} (capacity "
+        f"{one['capacity']}); the mesh's blocks (dropped, slots, capacity) "
+        f"{[(b['dropped'], b['slots'], b['capacity']) for b in blocks]}")
+    del meshed, x2d, buf_tok
+    torch.cuda.empty_cache()
+    return rec, check
+
+
+def phase13_pipeline(dev):
+    """(c) ``pipeline_apply`` over 4 positions of the card against the
+    sequential fold: within ``PIPE_TOL``, bitwise with one microbatch."""
+    from repro_torch.dist import make_mesh, pipeline_apply
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    w = torch.randn((PIPE_STAGES, PIPE_D, PIPE_D), generator=gen, device=dev) * PIPE_D ** -0.5
+    b = 0.1 * torch.randn((PIPE_STAGES, PIPE_D), generator=gen, device=dev)
+    x = torch.randn((PIPE_B, PIPE_D), generator=gen, device=dev)
+    params = {"w": w, "b": b}
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    def fold(h):
+        for i in range(PIPE_STAGES):
+            h = stage({"w": w[i], "b": b[i]}, h)
+        return h
+
+    mesh = make_mesh((4,), ("stage",), devices=[dev] * 4)
+    want = fold(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fold(x)
+    torch.cuda.synchronize()
+    rec = dict(stages=PIPE_STAGES, d=PIPE_D, batch=PIPE_B, fold_s=time.perf_counter() - t0,
+               runs=[])
+    for mb in PIPE_MICROBATCHES:
+        got = pipeline_apply(stage, params, x, mesh=mesh, microbatches=mb)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = pipeline_apply(stage, params, x, mesh=mesh, microbatches=mb)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, torch.cat([fold(h) for h in x.chunk(mb)])):
+            raise AssertionError(f"pipeline with {mb} microbatches differs from the fold of "
+                                 "each microbatch")
+        torch.testing.assert_close(got, want, **PIPE_TOL)
+        rec["runs"].append(dict(microbatches=mb, seconds=sec, max_abs_err=err))
+    log(f"[pipeline] {json.dumps(rec)}")
+    del w, b, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase13_cli(dev):
+    """(d) ``launch.serve --model-parallel 2`` with ``REPRO_DEVICES=4`` (a
+    (2, 2) mesh of card positions) and ``--model-parallel 1``, both at once
+    as subprocesses; their tokens held to each other by the margin rule
+    (bf16 greedy tokens of random weights flip where two logits nearly
+    tie): the one-device run's margins come from the same model and prompts
+    rebuilt here from the command line's seed (its tokens must equal the
+    ``--model-parallel 1`` line's), the logits error from that model
+    sharded onto the same mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import shard_params
+    from repro_torch.serve import Request
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_DEVICES="4")
+    cmds = {n: [sys.executable, "-m", "repro_torch.launch.serve", *MP_CLI_ARGS,
+                "--model-parallel", n] for n in ("1", "2")}
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env, cwd=ROOT) for n, c in cmds.items()}
+    outs = {}
+    try:
+        for n, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"serve --model-parallel {n} exited {proc.returncode}\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+            outs[n] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[serve cli] both in {time.perf_counter() - t0:.3f} s: "
+        f"{json.dumps({n: {k: o[k] for k in ('mesh', 'new_tokens', 'prefill_s', 'decode_ms_per_step', 'first_tokens')} for n, o in outs.items()})}")
+    if outs["2"]["mesh"] != {"data": 2, "model": 2} or outs["1"]["mesh"] is not None:
+        raise AssertionError(f"the command lines ran on {outs['1']['mesh']}, {outs['2']['mesh']}")
+    cfg = get_config(MP_CLI_ARGS[MP_CLI_ARGS.index("--arch") + 1])
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, model.cfg.vocab_size, size=(8, 32))
+    reqs = [Request(p.tolist(), 16) for p in prompts]
+    engine = margin_engine(model)
+    one = engine.serve(reqs)
+    want = [o[:8] for o in one[:4]]
+    if want != outs["1"]["first_tokens"]:
+        raise AssertionError(f"rebuilt one-device tokens {want} differ from the command "
+                             f"line's {outs['1']['first_tokens']}")
+    one_logits = last_logits(model, reqs, "auto")
+    meshed = shard_params(model, card_mesh(dev, (2, 2)))
+    del model
+    logit_err = max((a - b).abs().max().item()
+                    for a, b in zip(last_logits(meshed, reqs, "auto"), one_logits))
+    del meshed
+    torch.cuda.empty_cache()
+    agree = []
+    for r, (a, b) in enumerate(zip(outs["2"]["first_tokens"], want)):
+        low = [j for j in range(len(b)) if engine.margins[j][r] < 2 * logit_err]
+        first_low = low[0] if low else len(b)
+        first_diff = next((j for j in range(len(b)) if a[j] != b[j]), len(b))
+        if first_diff < first_low:
+            raise AssertionError(f"serve cli request {r}: --model-parallel 2 and 1 differ at "
+                                 f"step {first_diff}, before the first low-margin step {first_low}")
+        agree.append(dict(request=r, first_diff=first_diff, first_low_margin_step=first_low))
+    log(f"[serve cli] --model-parallel 2 vs 1: tokens equal "
+        f"{outs['2']['first_tokens'] == want}; logits error {logit_err:.4e}: {json.dumps(agree)}")
+    return outs, dict(logit_err=logit_err, agreement=agree,
+                      tokens_equal=outs["2"]["first_tokens"] == want)
+
+
+def phase13(dev, launches, bf16_bound):
+    """Model parallelism for serving on a mesh of positions of the card:
+    (a) Yi-6B tensor parallel, (b) dbrx expert parallel, (c) GPipe, (d) the
+    serve command line; and flash at the positions' new shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    recs, checks = [], {}
+    parts = (("a yi-6b tp", lambda: phase13_yi(dev, launches, bf16_bound)),
+             ("b dbrx ep", lambda: phase13_dbrx(dev, launches)))
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        r, c = fn()
+        recs.append(r)
+        checks[name.split()[1]] = c
+        log(f"[phase] 13{name} {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    checks["pipeline"] = phase13_pipeline(dev)
+    log(f"[phase] 13c pipeline {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    cli, cli_check = phase13_cli(dev)
+    checks["serve_cli"] = dict(cli_check, runs={
+        n: {k: o[k] for k in ("mesh", "new_tokens", "seconds", "prefill_s", "decode_ms_per_step")}
+        for n, o in cli.items()})
+    log(f"[phase] 13d serve cli {time.perf_counter() - t0:.3f} s")
+    timings, err = [], 0.0
+    bf = torch.bfloat16
+    for i, (label, b, s, h, kv) in enumerate([
+            ("yi-6b tp=4 position B=4 S=T=2048 H=8 KV=1", 4, 2048, 8, 1),
+            ("dbrx (2, 2) position B=2 S=T=2048 H=24 KV=4", 2, 2048, 24, 4)]):
+        q, k, v = attn_inputs(b, s, s, h, kv, 128, bf, dev, seed=130 + i)
+        e, row = flash_errors(flash_attention_cuda(q, k, v, causal=True),
+                              ref.flash_attention(q, k, v, causal=True), bf)
+        err = max(err, e)
+        log(f"[flash] {label} bf16: max abs err {e:.3e}, max row err {row:.3e}")
+        timings.append(time_flash(q, k, v, label))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return recs, checks, timings, err
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -2978,6 +3383,10 @@ def main():
                                                   fits, keep)
     families, family_check = phase("11 other LM families", phase11, dev, launches)
     training = phase("12 training", phase12, dev, launches)
+    mp_serves, mp_check, mp_flash_times, mp_flash_err = phase(
+        "13 model parallelism", phase13, dev, launches, serve_check["bf16_vs_f32_err"])
+    flash_times += mp_flash_times
+    flash_err = max(flash_err, mp_flash_err)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
@@ -3027,7 +3436,8 @@ def main():
                      "src/repro/kernels/pearson.py:57", ("wide_pearson", "mesh_pearson"), launches,
                      corr_err, corr_times[0], corr_times),
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:79", ("yi6b_serve", *FAMILY_PATHS),
+                     "src/repro/kernels/flash_attention.py:79",
+                     ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS),
                      launches,
                      flash_err, flash_times[0], flash_times),
     ]
@@ -3040,7 +3450,8 @@ def main():
     log(json.dumps(dict(fits=fits, serves=serves, serve_check=serve_check, sass=sass,
                         plan_paths=plan_paths, out_of_core=ooc, multi_host=mh,
                         device_mesh=mesh_fits, families=families,
-                        family_check=family_check, training=training)))
+                        family_check=family_check, training=training,
+                        model_parallel=mp_serves, model_parallel_check=mp_check)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

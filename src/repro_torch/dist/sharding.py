@@ -1,8 +1,16 @@
-"""Shard arithmetic over a :class:`~repro_torch.dist.meshes.Mesh`.
+"""Logical-axis sharding rules and shard arithmetic over a
+:class:`~repro_torch.dist.meshes.Mesh` (port of ``repro.dist.sharding``).
 
-The selection side's half of the JAX package's ``repro.dist.sharding``:
-``axes_tuple`` and ``mesh_extent``, plus what ``shard_map`` does for the
-JAX engines and the port does by hand —
+The model half: parameters declare *logical* axis names
+(``("vocab", "fsdp")``); a :class:`ShardingRules` maps each logical name to
+a mesh axis (or ``None``, replicated), and :func:`logical_to_spec` resolves
+a logical tuple to a :class:`PartitionSpec` for a mesh, dropping any mapping
+whose mesh axis is absent, already used by an earlier dim, or does not
+divide the dim, so one rule set serves every (arch, shape, mesh) cell.
+These functions read only ``mesh.shape``.
+
+The selection half: ``axes_tuple`` and ``mesh_extent``, plus what
+``shard_map`` does for the JAX engines and the port does by hand —
 
 * ``flat_axis_index``: a position's row-major index along a set of axes
   (the JAX engines' ``_flat_axis_index``), which fixes the global ids a
@@ -12,17 +20,74 @@ JAX engines and the port does by hand —
 * ``shard_window``: a shard's rows (or columns) of a padded matrix, a view
   of the unpadded one wherever the shard lies inside it;
 * ``psum``: the cross-shard sum, in mesh order, on one device.
-
-The model-sharding half (``ShardingRules``, ``rules_for``,
-``logical_to_spec``: model parameters onto a mesh) comes with the
-model-parallel path (ROADMAP.md §1 item 2); nothing selection-side
-calls it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+AxisSel = "str | tuple[str, ...] | None"  # a mesh axis, a tuple of them, or None
+
+
+class PartitionSpec(tuple):
+    """A tuple of per-dim entries, each ``None``, a mesh axis name, or a
+    tuple of names (sharded over their product), normalised as JAX's
+    ``PartitionSpec`` normalises: a one-name tuple is the name, an empty
+    one ``None``."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (list, tuple)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical parameter axis -> mesh axis.  The defaults replicate
+    everything (the one-device rules); :func:`rules_for` builds the
+    production mapping from a mesh."""
+
+    fsdp: AxisSel = None        # weight shards spread over data parallelism
+    ff: AxisSel = None          # MLP hidden (Megatron TP)
+    heads: AxisSel = None       # attention query heads
+    kv_heads: AxisSel = None    # attention kv heads
+    ssm_heads: AxisSel = None   # mamba state heads
+    vocab: AxisSel = None       # embed/unembed vocab dim
+    experts: AxisSel = None     # MoE expert parallelism
+    expert_ff: AxisSel = None   # weight-stationary second EP level
+    act_seq: AxisSel = None     # sequence-sharded activations (Megatron-SP)
+
+    def axis_for(self, logical: str) -> AxisSel:
+        if logical == "none":
+            return None
+        return getattr(self, logical, None)
+
+
+def rules_for(mesh, *, fsdp: bool = True, seq_shard: bool = False) -> ShardingRules:
+    """Production rules for a mesh: tensor-parallel dims on ``model``, FSDP
+    weight shards on ``data`` (when enabled and present)."""
+    tp = "model" if "model" in mesh.shape else None
+    dp = "data" if (fsdp and "data" in mesh.shape) else None
+    return ShardingRules(
+        fsdp=dp, ff=tp, heads=tp, kv_heads=tp, ssm_heads=tp, vocab=tp, experts=tp,
+        # Expert matrices keep their d_ff shards in place (tokens move
+        # instead): the ff_axis level of the expert-parallel MoE.
+        expert_ff=dp,
+        act_seq=(tp if seq_shard else None),
+    )
 
 
 def axes_tuple(axes) -> tuple:
@@ -42,6 +107,28 @@ def mesh_extent(mesh, axes) -> int:
     for a in axes_tuple(axes):
         ext *= mesh.shape[a]
     return ext
+
+
+def logical_to_spec(logical: tuple, shape: tuple, mesh, rules: ShardingRules) -> PartitionSpec:
+    """Resolve a logical axis tuple to a :class:`PartitionSpec` for ``mesh``.
+
+    Guards applied per dim, in order: a mapping exists, all its mesh axes
+    are present, no mesh axis was used by an earlier dim, the dim divides
+    by the shard extent.  A dim failing any guard is replicated.
+    """
+    used: set = set()
+    entries = []
+    for name, dim in zip(logical, shape):
+        sel = rules.axis_for(name)
+        axes = (sel,) if isinstance(sel, str) else tuple(sel or ())
+        ok = (axes and all(a in mesh.shape for a in axes) and not (set(axes) & used)
+              and dim % mesh_extent(mesh, axes) == 0)
+        if ok:
+            used.update(axes)
+            entries.append(axes[0] if len(axes) == 1 else axes)
+        else:
+            entries.append(None)
+    return PartitionSpec(*entries)
 
 
 def flat_axis_index(coords: dict, axes, mesh) -> int:
@@ -104,10 +191,14 @@ def psum(parts, device) -> torch.Tensor:
 
 
 __all__ = [
+    "PartitionSpec",
+    "ShardingRules",
     "axes_tuple",
     "flat_axis_index",
     "grid_devices",
+    "logical_to_spec",
     "mesh_extent",
     "psum",
+    "rules_for",
     "shard_window",
 ]

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import numpy as np
@@ -65,16 +64,8 @@ from repro_torch.core.selector import MRMRSelector, available_encodings, check_n
 from repro_torch.data.sources import CSVSource, NpySource
 from repro_torch.data.synthetic import corral_dataset_np
 from repro_torch.device import device_name
-from repro_torch.dist.meshes import local_devices, make_mesh
-
-
-def mesh_positions(device) -> list:
-    """The devices the selector plans over: ``REPRO_DEVICES=N`` (N > 1) mesh
-    positions cycled over the local devices of ``device``, else those
-    devices themselves."""
-    devs = local_devices(device)
-    n = int(os.environ.get("REPRO_DEVICES", "0"))
-    return [devs[i % len(devs)] for i in range(n)] if n > 1 else devs
+from repro_torch.dist.meshes import make_mesh
+from repro_torch.launch.mesh import mesh_positions
 
 
 def _load_input(args) -> tuple:

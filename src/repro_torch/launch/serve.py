@@ -21,6 +21,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --preset smoke --device cpu \
         --ckpt-dir build/ckpt_smoke
 
+    # Tensor and expert parallel on a (2, 2) ("data", "model") mesh of four
+    # positions of the one card
+    REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen1.5-0.5b --preset full --model-parallel 2
+
 Every config of ``--arch`` serves.  Decoder-only models serve text prompts
 through ``ServeEngine`` (a VLM's token path; its image embeddings are a
 stub, as in the JAX package); the encoder-decoder (whisper) encodes random
@@ -31,9 +36,15 @@ from ``--seed`` (no pretrained weights ship with the repository), or with
 serving dtype); the model-surgery overrides of the train command line
 (``--num-layers`` ...) shape the model as the run that wrote it.  A Mamba
 prompt longer than the SSD chunk must be a multiple of it, and one that
-decodes must hold at least ``ssm_conv - 1`` tokens.  Prints one JSON line:
-the model, the device it ran on, the tokens generated and the time they
-took.
+decodes must hold at least ``ssm_conv - 1`` tokens.
+``--model-parallel N`` (N > 1) serves on the JAX package's local mesh,
+``(n // N, N)`` on ``("data", "model")`` over the ``n`` positions
+``REPRO_DEVICES`` gives (``launch.mesh.build_local_mesh``): the batch over
+``data``, heads, ``d_ff``, experts and vocabulary over ``model``
+(``models.model.shard_params``); the dense, MoE and VLM archs only (the
+other families' tensor parallelism is ROADMAP.md §1 item 2c).  Prints
+one JSON line: the model, the device it ran on, the mesh, the tokens
+generated and the time they took.
 """
 
 from __future__ import annotations
@@ -47,9 +58,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import device_name, resolve_device
+from repro_torch.launch.mesh import build_local_mesh
 from repro_torch.launch.model_args import add_model_args, resolve_config
 from repro_torch.models.convert import params_from_jax, params_to_jax
-from repro_torch.models.model import build_model
+from repro_torch.models.model import MESH_FAMILIES, build_model, shard_params
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -69,13 +81,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: the port serves on one card; model "
-                         "parallelism is ROADMAP.md §1 item 2")
 
     cfg = resolve_config(args)
     dev = resolve_device(args.device)
-    model = build_model(cfg, device=dev,
+    mesh = None
+    if args.model_parallel != 1:
+        if cfg.family not in MESH_FAMILIES:
+            raise SystemExit(f"--model-parallel: {cfg.name} is {cfg.family}; a model mesh serves "
+                             f"the {', '.join(MESH_FAMILIES)} archs (SSM, hybrid and "
+                             "encoder-decoder tensor parallelism: ROADMAP.md §1 item 2c)")
+        try:
+            mesh = build_local_mesh(args.model_parallel, device=dev)
+        except ValueError as err:
+            raise SystemExit(f"--model-parallel: {err}") from None
+    model = build_model(cfg, device=dev, mesh=mesh,
                         generator=torch.Generator(device=dev).manual_seed(args.seed))
     ckpt_step = None
     if args.ckpt_dir:
@@ -87,6 +106,8 @@ def main(argv=None) -> dict:
             raise SystemExit(f"--ckpt-dir: no checkpoint in {args.ckpt_dir}")
         like = params_to_jax(model, {n: p.to("meta") for n, p in model.named_parameters()})
         params_from_jax(model, ckpt.restore(ckpt_step, {"params": like})["params"])
+    if mesh is not None:
+        model = shard_params(model)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, size=(args.requests, args.prompt_len))
     t0 = time.perf_counter()
@@ -107,7 +128,8 @@ def main(argv=None) -> dict:
     steps = sum(w["decode_steps"] for w in stats)
     out = {
         "arch": cfg.name, "family": cfg.family, "preset": args.preset,
-        "device": device_name(dev), "dtype": str(model.dtype).removeprefix("torch."),
+        "device": device_name(dev), "mesh": None if mesh is None else mesh.shape,
+        "dtype": str(model.dtype).removeprefix("torch."),
         "params": model.num_params(), "ckpt_step": ckpt_step, "requests": len(outs),
         "new_tokens": new_tokens, "seconds": seconds,
         "tokens_per_s": new_tokens / seconds,

@@ -22,8 +22,9 @@ uninterrupted one (parameters and every step's loss).  On the card the
 command first sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
 ``torch.use_deterministic_algorithms(True)``: the backward of the embedding
 gather accumulates with atomics otherwise.  ``--model-parallel`` other than
-1 is refused (ROADMAP.md §1 item 2).  Prints one JSON line: the device, the
-steps run, every step's loss, the restarts and the seconds a step.
+1 is refused (training on a model mesh is ROADMAP.md §1 item 2b).  Prints
+one JSON line: the device, the steps run, every step's loss, the restarts
+and the seconds a step.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model_parallel != 1:
         raise SystemExit("--model-parallel: the port trains on one card, data parallel; "
-                         "model parallelism is ROADMAP.md §1 item 2")
+                         "training on a model mesh is ROADMAP.md §1 item 2b")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         deterministic_card()

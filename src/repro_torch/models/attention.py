@@ -22,24 +22,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import ParamDef
 
 _NEG = -1e30
 
 
-def attention_params(cfg, *, generator, device, dtype) -> dict:
+def attention_defs(cfg) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kw = dict(generator=generator, device=device, dtype=dtype)
-    p = {
-        "wq": normal((d, h * hd), d ** -0.5, **kw),
-        "wk": normal((d, kv * hd), d ** -0.5, **kw),
-        "wv": normal((d, kv * hd), d ** -0.5, **kw),
-        "wo": normal((h * hd, d), (h * hd) ** -0.5, **kw),
+    defs = {
+        "wq": ParamDef((d, h * hd), ("fsdp", "heads"), scale=d ** -0.5),
+        "wk": ParamDef((d, kv * hd), ("fsdp", "kv_heads"), scale=d ** -0.5),
+        "wv": ParamDef((d, kv * hd), ("fsdp", "kv_heads"), scale=d ** -0.5),
+        "wo": ParamDef((h * hd, d), ("heads", "fsdp"), scale=(h * hd) ** -0.5),
     }
     if cfg.qkv_bias:
-        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            p[name] = torch.zeros(width, device=device, dtype=dtype)
-    return p
+        defs["bq"] = ParamDef((h * hd,), ("heads",), init="zeros")
+        defs["bk"] = ParamDef((kv * hd,), ("kv_heads",), init="zeros")
+        defs["bv"] = ParamDef((kv * hd,), ("kv_heads",), init="zeros")
+    return defs
 
 
 def qkv_project(p: dict, x: torch.Tensor, cfg, xkv: torch.Tensor | None = None):
@@ -74,6 +74,16 @@ def _split_gqa(q: torch.Tensor, num_kv: int) -> torch.Tensor:
     """(B, S, H, D) -> (B, S, KV, G, D)."""
     b, s, h, d = q.shape
     return q.reshape(b, s, num_kv, h // num_kv, d)
+
+
+def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, T, KV, D) -> (B, T, KV * groups, D): each KV head repeated for
+    the ``groups`` query heads that read it (Megatron's KV replication, as
+    the JAX package's ``repeat_kv``)."""
+    if groups == 1:
+        return k
+    b, t, kv, d = k.shape
+    return k[:, :, :, None, :].expand(b, t, kv, groups, d).reshape(b, t, kv * groups, d)
 
 
 def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:

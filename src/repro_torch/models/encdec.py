@@ -30,51 +30,62 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import attention_params
+from repro_torch.models.attention import attention_defs
 from repro_torch.models.layers import (
     LMBase,
+    ParamDef,
     Params,
     cross_entropy_loss,
+    flatten_defs,
+    materialize,
     mlp_apply,
-    mlp_params,
+    mlp_defs,
     nest,
     norm_apply,
-    norm_params,
-    normal,
+    norm_defs,
 )
 from repro_torch.models.rope import sinusoidal_positions, sinusoidal_rows
 from repro_torch.models.transformer import remat
 
 
-def _enc_layer_params(cfg, **kw) -> dict:
-    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
-    return {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-            "attn": attention_params(cfg, **kw),
-            "ln2": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-            "mlp": mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)}
+def _enc_layer_defs(cfg) -> dict:
+    d = cfg.d_model
+    return {"ln1": norm_defs(d, cfg.norm_type), "attn": attention_defs(cfg),
+            "ln2": norm_defs(d, cfg.norm_type),
+            "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.mlp_gated)}
 
 
-def _dec_layer_params(cfg, **kw) -> dict:
-    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
-    return {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-            "self": attention_params(cfg, **kw),
-            "lnx": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-            "cross": attention_params(cfg, **kw),
-            "ln2": norm_params(d, cfg.norm_type, device=dev, dtype=dtype),
-            "mlp": mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)}
+def _dec_layer_defs(cfg) -> dict:
+    d = cfg.d_model
+    return {"ln1": norm_defs(d, cfg.norm_type), "self": attention_defs(cfg),
+            "lnx": norm_defs(d, cfg.norm_type), "cross": attention_defs(cfg),
+            "ln2": norm_defs(d, cfg.norm_type),
+            "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.mlp_gated)}
+
+
+def encdec_defs(cfg) -> dict:
+    """``{"enc_layers": {i: defs}, "dec_layers": ..., "top": ...}``, each
+    layer's defs the JAX stacks' without the layer axis."""
+    d, v = cfg.d_model, cfg.vocab_size
+    top = {"embed": ParamDef((v, d), ("vocab", "fsdp"), scale=0.02),
+           "enc_final": norm_defs(d, cfg.norm_type), "dec_final": norm_defs(d, cfg.norm_type)}
+    if not cfg.tie_embeddings:
+        top["unembed"] = ParamDef((d, v), ("fsdp", "vocab"), scale=d ** -0.5)
+    return {"enc_layers": {str(i): _enc_layer_defs(cfg) for i in range(cfg.encoder_layers)},
+            "dec_layers": {str(i): _dec_layer_defs(cfg) for i in range(cfg.decoder_layers)},
+            "top": top}
 
 
 def build_encdec(cfg, *, generator, device, dtype) -> "EncDecLM":
-    """Random weights for ``cfg`` (vocabulary already padded)."""
+    """Random weights for ``cfg`` (vocabulary already padded), drawn
+    embedding, encoder layers, decoder layers, unembedding."""
+    defs = encdec_defs(cfg)
     kw = dict(generator=generator, device=device, dtype=dtype)
-    d, v = cfg.d_model, cfg.vocab_size
-    top = {"embed": normal((v, d), 0.02, **kw)}
-    enc = [_enc_layer_params(cfg, **kw) for _ in range(cfg.encoder_layers)]
-    top["enc_final"] = norm_params(d, cfg.norm_type, device=device, dtype=dtype)
-    dec = [_dec_layer_params(cfg, **kw) for _ in range(cfg.decoder_layers)]
-    top["dec_final"] = norm_params(d, cfg.norm_type, device=device, dtype=dtype)
-    if not cfg.tie_embeddings:
-        top["unembed"] = normal((d, v), d ** -0.5, **kw)
+    top_defs = defs["top"]
+    top = materialize({"embed": top_defs["embed"]}, **kw)
+    enc = [materialize(p, **kw) for p in defs["enc_layers"].values()]
+    dec = [materialize(p, **kw) for p in defs["dec_layers"].values()]
+    top.update(materialize({k: v for k, v in top_defs.items() if k != "embed"}, **kw))
     return EncDecLM(cfg, enc, dec, top)
 
 
@@ -87,6 +98,10 @@ class EncDecLM(LMBase):
         self.enc_layers = nn.ModuleList(Params(p) for p in enc_layers)
         self.dec_layers = nn.ModuleList(Params(p) for p in dec_layers)
         self.top = Params(top)
+
+    def param_defs(self) -> dict:
+        """name -> :class:`ParamDef` of every weight."""
+        return flatten_defs(encdec_defs(self.cfg))
 
     def _norm(self, p, x):
         return norm_apply(p, x, self.cfg.norm_type, self.cfg.norm_eps)

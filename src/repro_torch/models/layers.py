@@ -8,12 +8,14 @@ separate: a served model stores its weights in the dtype it computes in,
 a trained one keeps float32 masters and computes in ``cfg.dtype`` (bf16 for
 every published config), as the JAX package does.
 
-Parameters are created from an explicit ``torch.Generator`` with the
-scales of the JAX ``ParamDef``s: normal weights ``N(0, scale^2)`` drawn in
-float32 and cast to the storage dtype once, norm weights one, biases zero.
-The JAX package draws from ``jax.random`` keyed by the parameter path, so
-the two packages share weights only through
-:func:`repro_torch.models.convert.params_from_jax`.  :class:`Params` holds
+Every weight is declared once as a :class:`ParamDef`, as in the JAX
+package: its shape, its *logical* axes (named as JAX names them, resolved
+to a mesh by :func:`param_specs`), its init and scale.  :func:`materialize`
+draws a def tree from an explicit ``torch.Generator``: normal weights
+``N(0, scale^2)`` drawn in float32 and cast to the storage dtype once, in
+the tree's order, norm weights one, biases zero.  The JAX package draws
+from ``jax.random`` keyed by the parameter path, so the two packages share
+weights only through :func:`repro_torch.models.convert.params_from_jax`.  :class:`Params` holds
 a nested dict of weights as modules named by the JAX parameter paths;
 :class:`LMBase` is what every model shares (dtypes, device, counts, the
 unembedding, the flat parameter dict training works on).
@@ -22,9 +24,74 @@ unembedding, the flat parameter dict training works on).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.dist.sharding import (
+    PartitionSpec,
+    ShardingRules,
+    logical_to_spec,
+    mesh_extent,
+    rules_for,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """One weight: its full shape, one logical axis name a dim (``"none"``:
+    never sharded), its init (``normal``, ``zeros`` or ``ones``) and the
+    normal init's scale."""
+
+    shape: tuple
+    logical: tuple
+    init: str = "normal"
+    scale: float = 0.02
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes {self.logical} differ in rank")
+
+
+def materialize(defs: dict, *, generator, device, dtype) -> dict:
+    """The tensors of a (nested) def tree, drawn in the tree's order."""
+    out = {}
+    for name, d in defs.items():
+        if isinstance(d, dict):
+            out[name] = materialize(d, generator=generator, device=device, dtype=dtype)
+        elif d.init == "normal":
+            out[name] = normal(d.shape, d.scale, generator=generator, device=device, dtype=dtype)
+        else:
+            out[name] = torch.full(d.shape, float(d.init == "ones"), device=device, dtype=dtype)
+    return out
+
+
+def flatten_defs(tree: dict, prefix: str = "") -> dict:
+    """A nested def tree -> ``{"a.b.c": ParamDef}``, the names of
+    ``named_parameters`` of the model it builds."""
+    out = {}
+    for name, d in tree.items():
+        if isinstance(d, dict):
+            out.update(flatten_defs(d, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = d
+    return out
+
+
+def param_specs(model, mesh, rules=None) -> dict:
+    """name -> :class:`~repro_torch.dist.sharding.PartitionSpec` of every
+    weight of ``model`` on ``mesh`` (port of the JAX ``param_specs``).  A
+    per-layer weight's spec is the JAX stacked leaf's with the leading
+    layer axis dropped (that axis is ``"none"``: it uses no mesh axis).
+    ``rules`` default to ``rules_for(mesh)`` with the config's ``fsdp`` and
+    ``seq_shard_activations``, as ``build_model`` picks them."""
+    cfg = model.cfg
+    if rules is None:
+        rules = rules_for(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard_activations)
+    return {name: logical_to_spec(d.logical, d.shape, mesh, rules)
+            for name, d in model.param_defs().items()}
 
 
 class Params(nn.Module):
@@ -72,6 +139,73 @@ class LMBase(nn.Module):
     cfg = None
     top: Params
     compute_dtype: torch.dtype | None = None
+    mesh = None  # build_model(..., mesh=) keeps the mesh and its rules
+    rules = ShardingRules()
+
+    def specs(self) -> dict:
+        """name -> PartitionSpec of every weight (``ModelBundle.specs``):
+        all replicated without a mesh."""
+        if self.mesh is None:
+            return {name: PartitionSpec() for name in self.param_defs()}
+        return param_specs(self, self.mesh, self.rules)
+
+    def _batch_axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in ("pod", "data") if a in self.mesh.shape)
+
+    def cache_specs(self, shape) -> list:
+        """The decode caches' PartitionSpecs (the JAX ``_cache_specs``), one
+        entry a layer as ``new_caches`` lays them out, each the JAX stacked
+        spec without its layer axis: ``{"k", "v"}`` of attention
+        (``{"k", "v", "xk", "xv"}`` for the encoder-decoder), the Mamba
+        cache's four leaves.  The batch axes shard the batch when it divides;
+        the kv heads go on ``model`` when they divide, else the sequence
+        does (with the batch axes too where the batch did not divide)."""
+        from repro_torch.models.mamba import mamba_dims
+
+        cfg, mesh, ba = self.cfg, self.mesh, self._batch_axes()
+        b, s = shape.global_batch, shape.seq_len
+        batch_ax = ba if (ba and b % mesh_extent(mesh, ba) == 0) else None
+        model_ok = mesh is not None and "model" in mesh.shape
+        kv_ax = "model" if model_ok and cfg.num_kv_heads % mesh.shape["model"] == 0 else None
+        seq_axes = ["model"] if model_ok and kv_ax is None else []
+        if batch_ax is None and ba:
+            seq_axes = list(ba) + seq_axes
+        seq_ax = tuple(seq_axes) if seq_axes and s % mesh_extent(mesh, seq_axes) == 0 else None
+        kv = PartitionSpec(batch_ax, seq_ax, kv_ax, None)
+        if cfg.is_encdec:
+            return [{"k": kv, "v": kv, "xk": kv, "xv": kv} for _ in self.dec_layers]
+        d_in, h, _ = mamba_dims(cfg)
+        h_ax = "model" if model_ok and h % mesh.shape["model"] == 0 else None
+        c_ax = "model" if model_ok and d_in % mesh.shape["model"] == 0 else None
+        ssm = {"state": PartitionSpec(batch_ax, h_ax, None, None),
+               "conv_x": PartitionSpec(batch_ax, None, c_ax),
+               "conv_b": PartitionSpec(batch_ax, None, None),
+               "conv_c": PartitionSpec(batch_ax, None, None)}
+        return [{"k": kv, "v": kv} if kind == "attn" else dict(ssm) for kind, _ in self.kinds]
+
+    def input_shardings(self, shape) -> dict:
+        """PartitionSpecs of a shape cell's inputs (the JAX
+        ``input_shardings``): ``train`` and ``prefill`` batches by the
+        family's input keys, ``decode`` the tokens, cursor and caches."""
+        cfg, mesh, ba = self.cfg, self.mesh, self._batch_axes()
+        batch_ax = ba if (ba and shape.global_batch % mesh_extent(mesh, ba) == 0) else None
+        sa = ("model" if mesh is not None and "model" in mesh.shape
+              and cfg.seq_shard_activations and shape.seq_len % mesh.shape["model"] == 0
+              else None)
+        tok, emb = PartitionSpec(batch_ax, None), PartitionSpec(batch_ax, sa, None)
+        if shape.kind == "decode":
+            return {"tokens": tok, "pos": PartitionSpec(), "caches": self.cache_specs(shape)}
+        if cfg.is_encdec:
+            out = {"enc_embeds": emb, "dec_tokens": tok}
+        else:
+            out = {"embeds": emb} if cfg.input_mode == "embeddings" else {"tokens": tok}
+            if cfg.mrope_sections:
+                out["positions"] = PartitionSpec(batch_ax, None, None)
+        if shape.kind == "train":
+            out["targets"] = tok
+        return out
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -112,28 +246,29 @@ def normal(shape, scale: float, *, generator, device, dtype) -> torch.Tensor:
     return (w * scale).to(dtype)
 
 
-def dense(d_in: int, d_out: int, **kw) -> torch.Tensor:
-    """``(d_in, d_out)`` weight at the ``dense_def`` scale ``d_in ** -0.5``."""
-    return normal((d_in, d_out), d_in ** -0.5, **kw)
+def dense_def(d_in: int, d_out: int, logical=("fsdp", "ff")) -> ParamDef:
+    """A ``(d_in, d_out)`` weight at the scale ``d_in ** -0.5``."""
+    return ParamDef((d_in, d_out), logical, scale=d_in ** -0.5)
 
 
-def norm_params(d: int, norm_type: str, *, device, dtype) -> dict:
-    p = {"w": torch.ones(d, device=device, dtype=dtype)}
+def norm_defs(d: int, norm_type: str = "rms") -> dict:
+    defs = {"w": ParamDef((d,), ("none",), init="ones")}
     if norm_type == "ln":
-        p["b"] = torch.zeros(d, device=device, dtype=dtype)
-    return p
+        defs["b"] = ParamDef((d,), ("none",), init="zeros")
+    return defs
 
 
-def mlp_params(d_model: int, d_ff: int, *, gated: bool, generator, device, dtype) -> dict:
-    kw = dict(generator=generator, device=device, dtype=dtype)
+def mlp_defs(d_model: int, d_ff: int, *, gated: bool = True) -> dict:
     if gated:
-        return {"gate": dense(d_model, d_ff, **kw), "up": dense(d_model, d_ff, **kw),
-                "down": dense(d_ff, d_model, **kw)}
+        return {"gate": dense_def(d_model, d_ff, ("fsdp", "ff")),
+                "up": dense_def(d_model, d_ff, ("fsdp", "ff")),
+                "down": dense_def(d_ff, d_model, ("ff", "fsdp"))}
     # The non-gated MLP always carries biases (``bias=not gated`` in the JAX
     # layer defs).
-    return {"in": dense(d_model, d_ff, **kw), "out": dense(d_ff, d_model, **kw),
-            "b_in": torch.zeros(d_ff, device=device, dtype=dtype),
-            "b_out": torch.zeros(d_model, device=device, dtype=dtype)}
+    return {"in": dense_def(d_model, d_ff, ("fsdp", "ff")),
+            "out": dense_def(d_ff, d_model, ("ff", "fsdp")),
+            "b_in": ParamDef((d_ff,), ("ff",), init="zeros"),
+            "b_out": ParamDef((d_model,), ("none",), init="zeros")}
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

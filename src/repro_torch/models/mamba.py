@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import ParamDef
 
 
 def mamba_dims(cfg):
@@ -31,28 +31,23 @@ def mamba_dims(cfg):
     return d_in, d_in // cfg.ssm_headdim, 1
 
 
-def mamba_params(cfg, *, generator, device, dtype) -> dict:
+def mamba_defs(cfg) -> dict:
     d, n, k = cfg.d_model, cfg.ssm_state, cfg.ssm_conv
     d_in, h, g = mamba_dims(cfg)
-    kw = dict(generator=generator, device=device, dtype=dtype)
-
-    def const(shape, value):
-        return torch.full(shape, value, device=device, dtype=dtype)
-
     return {
-        "in_z": normal((d, d_in), d ** -0.5, **kw),
-        "in_x": normal((d, d_in), d ** -0.5, **kw),
-        "in_b": normal((d, g * n), d ** -0.5, **kw),
-        "in_c": normal((d, g * n), d ** -0.5, **kw),
-        "in_dt": normal((d, h), d ** -0.5, **kw),
-        "conv_x": normal((k, d_in), k ** -0.5, **kw),
-        "conv_b": normal((k, g * n), k ** -0.5, **kw),
-        "conv_c": normal((k, g * n), k ** -0.5, **kw),
-        "dt_bias": const((h,), 0.0),
-        "a_log": const((h,), 0.0),
-        "d_skip": const((h,), 1.0),
-        "norm": const((d_in,), 1.0),
-        "out": normal((d_in, d), d_in ** -0.5, **kw),
+        "in_z": ParamDef((d, d_in), ("fsdp", "ff"), scale=d ** -0.5),
+        "in_x": ParamDef((d, d_in), ("fsdp", "ff"), scale=d ** -0.5),
+        "in_b": ParamDef((d, g * n), ("fsdp", "none"), scale=d ** -0.5),
+        "in_c": ParamDef((d, g * n), ("fsdp", "none"), scale=d ** -0.5),
+        "in_dt": ParamDef((d, h), ("fsdp", "ssm_heads"), scale=d ** -0.5),
+        "conv_x": ParamDef((k, d_in), ("none", "ff"), scale=k ** -0.5),
+        "conv_b": ParamDef((k, g * n), ("none", "none"), scale=k ** -0.5),
+        "conv_c": ParamDef((k, g * n), ("none", "none"), scale=k ** -0.5),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "a_log": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "d_skip": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "norm": ParamDef((d_in,), ("ff",), init="ones"),
+        "out": ParamDef((d_in, d), ("ff", "fsdp"), scale=d_in ** -0.5),
     }
 
 

@@ -33,28 +33,41 @@ The vocabulary is padded to a multiple of 16 as the JAX package pads it.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import flat_axis_index, mesh_extent, rules_for
 from repro_torch.models import encdec
-from repro_torch.models.attention import attention_params
+from repro_torch.models.attention import attention_defs
 from repro_torch.models.layers import (
     LMBase,
+    ParamDef,
     Params,
     cross_entropy_loss,
-    mlp_params,
+    flatten_defs,
+    materialize,
+    mlp_defs,
     nest,
     norm_apply,
-    norm_params,
-    normal,
+    norm_defs,
+    param_specs,
 )
-from repro_torch.models.mamba import mamba_cache, mamba_params
-from repro_torch.models.moe import moe_params
+from repro_torch.models.mamba import mamba_cache, mamba_defs
+from repro_torch.models.moe import moe_defs
 from repro_torch.models.rope import rope_cos_sin
-from repro_torch.models.transformer import block_apply, group_pattern, remat
+from repro_torch.models.transformer import (
+    RunCtx,
+    attn_heads,
+    block_apply,
+    group_pattern,
+    is_sharded,
+    mesh_block_apply,
+    remat,
+)
 
 AUX_COEF = 0.01  # weight of the MoE load-balance loss in the training loss
 
@@ -74,6 +87,10 @@ class DecoderLM(LMBase):
         self.kinds = [pattern[i % len(pattern)] for i in range(len(layers))]
         self.layers = nn.ModuleList(Params(p) for p in layers)
         self.top = Params(top)
+
+    def param_defs(self) -> dict:
+        """name -> :class:`ParamDef` of every weight."""
+        return flatten_defs(decoder_defs(self.cfg))
 
     def new_caches(self, batch: int, length: int) -> list:
         """Zeroed per-layer caches: ``{"k", "v"}`` of ``(B, length, KV, D)``
@@ -156,26 +173,44 @@ class DecoderLM(LMBase):
         return self._logits(x), caches
 
 
-def layer_params(cfg: ModelConfig, kind: str, ffn_kind: str, **kw) -> dict:
+def layer_defs(cfg: ModelConfig, kind: str, ffn_kind: str) -> dict:
     """One decoder layer's weights, named as the JAX ``layer_defs``."""
-    d, dev, dtype = cfg.d_model, kw["device"], kw["dtype"]
-    p = {"ln1": norm_params(d, cfg.norm_type, device=dev, dtype=dtype)}
+    d = cfg.d_model
+    defs = {"ln1": norm_defs(d, cfg.norm_type)}
     if kind == "attn":
-        p["attn"] = attention_params(cfg, **kw)
+        defs["attn"] = attention_defs(cfg)
     else:
-        p["ssm"] = mamba_params(cfg, **kw)
+        defs["ssm"] = mamba_defs(cfg)
     if ffn_kind != "none":
-        p["ln2"] = norm_params(d, cfg.norm_type, device=dev, dtype=dtype)
+        defs["ln2"] = norm_defs(d, cfg.norm_type)
     if ffn_kind == "dense":
-        p["mlp"] = mlp_params(d, cfg.d_ff, gated=cfg.mlp_gated, **kw)
+        defs["mlp"] = mlp_defs(d, cfg.d_ff, gated=cfg.mlp_gated)
     elif ffn_kind == "moe":
-        p["moe"] = moe_params(cfg, **kw)
-    return p
+        defs["moe"] = moe_defs(cfg)
+    return defs
+
+
+def decoder_defs(cfg: ModelConfig) -> dict:
+    """``{"layers": {i: defs}, "top": defs}``: layer ``i`` has the kinds of
+    position ``i % len(pattern)``; ``top`` holds the embedding table (kept by
+    embedding-input archs too: their decode steps embed tokens), the final
+    norm and the unembedding unless tied."""
+    pattern = group_pattern(cfg)
+    if cfg.num_layers % len(pattern):
+        raise ValueError(f"{cfg.num_layers} layers is not a whole number of "
+                         f"{len(pattern)}-layer groups")
+    d, v = cfg.d_model, cfg.vocab_size
+    top = {"embed": ParamDef((v, d), ("vocab", "fsdp"), scale=0.02),
+           "final_norm": norm_defs(d, cfg.norm_type)}
+    if not cfg.tie_embeddings:
+        top["unembed"] = ParamDef((d, v), ("fsdp", "vocab"), scale=d ** -0.5)
+    return {"layers": {str(i): layer_defs(cfg, *pattern[i % len(pattern)])
+                       for i in range(cfg.num_layers)}, "top": top}
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", dtype: torch.dtype | None = None,
                 compute_dtype: torch.dtype | str | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, mesh=None):
     """A randomly initialised model for ``cfg`` on ``device``: a
     :class:`DecoderLM`, or an :class:`~repro_torch.models.encdec.EncDecLM`
     for the encoder-decoder family.
@@ -184,6 +219,12 @@ def build_model(cfg: ModelConfig, *, device="cuda", dtype: torch.dtype | None = 
     to ``dtype``; weights come from ``generator`` (default: seed 0 on
     ``device``) with the JAX package's init scales.  On the ``meta`` device
     the model is a skeleton: names, shapes and dtypes, nothing allocated.
+
+    ``mesh`` (anything with a ``shape`` mapping axis names to extents) is
+    kept with the sharding rules ``rules_for(mesh, fsdp=cfg.fsdp,
+    seq_shard=cfg.seq_shard_activations)``, as the JAX ``build_model``
+    keeps them: ``specs()``, ``cache_specs()`` and ``input_shardings()``
+    read them, and :func:`shard_params` carries the weights onto the mesh.
     """
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
@@ -195,20 +236,272 @@ def build_model(cfg: ModelConfig, *, device="cuda", dtype: torch.dtype | None = 
         compute_dtype = getattr(torch, compute_dtype)
     model = encdec.build_encdec(cfg, **kw) if cfg.is_encdec else _build_decoder(cfg, **kw)
     model.compute_dtype = compute_dtype
+    if mesh is not None:
+        model.mesh = mesh
+        model.rules = rules_for(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard_activations)
     return model
 
 
 def _build_decoder(cfg: ModelConfig, **kw) -> DecoderLM:
-    pattern = group_pattern(cfg)
-    if cfg.num_layers % len(pattern):
-        raise ValueError(f"{cfg.num_layers} layers is not a whole number of "
-                         f"{len(pattern)}-layer groups")
-    layers = [layer_params(cfg, *pattern[i % len(pattern)], **kw)
-              for i in range(cfg.num_layers)]
-    d, v = cfg.d_model, cfg.vocab_size
-    # Embedding-input archs still decode text: the table serves serve_step.
-    top = {"embed": normal((v, d), 0.02, **kw),
-           "final_norm": norm_params(d, cfg.norm_type, device=kw["device"], dtype=kw["dtype"])}
-    if not cfg.tie_embeddings:
-        top["unembed"] = normal((d, v), d ** -0.5, **kw)
-    return DecoderLM(cfg, layers, top)
+    defs = decoder_defs(cfg)
+    layers = [materialize(p, **kw) for p in defs["layers"].values()]
+    return DecoderLM(cfg, layers, materialize(defs["top"], **kw))
+
+
+# -- the model mesh ------------------------------------------------------------
+
+MESH_FAMILIES = ("dense", "moe", "vlm")  # the families a model mesh serves
+
+
+class MeshLM:
+    """A decoder-only LM of an attention family, served on a mesh
+    (:func:`shard_params` builds it from a one-device model).
+
+    Every position holds its shard of every weight, as ``param_specs``
+    lays it out, on its own device; positions may repeat a device.  The
+    batch goes over the batch axes (``pod``, ``data``): a position takes
+    its batch shard's rows and each position's decode cache holds those
+    rows.  Attention heads, the MLP's ``d_ff``, the experts and the
+    vocabulary go over ``model``; weights sharded over ``data`` (``fsdp``)
+    are gathered over ``data`` at their use.  The residual stream stays
+    replicated over ``model``: the values of JAX's sequence-sharded residual
+    (``constrain_residual``), without its reduce-scatter.
+
+    ``prefill`` and ``serve_step`` have :class:`DecoderLM`'s signatures and
+    return the logits gathered over the mesh onto ``device`` (the first
+    position's), so :class:`~repro_torch.serve.engine.ServeEngine` drives a
+    meshed model unchanged; the caches it hands back are one list of
+    per-layer caches a position.  The row-parallel sums (``wo``, ``down``,
+    the experts) add the partials in mesh order, not in the one-device
+    product's order: the logits match the one-device model's within float
+    rounding, not bit for bit.
+    """
+
+    def __init__(self, cfg, mesh, specs: dict, shapes: dict, shards: list, kinds,
+                 param_dtype, compute_dtype=None):
+        self.cfg, self.mesh, self.kinds = cfg, mesh, kinds
+        self.param_dtype, self.compute_dtype = param_dtype, compute_dtype
+        self.ctx = RunCtx(mesh)
+        self.device = self.ctx.devices[0]
+        self.specs, self.shapes, self.shards = specs, shapes, shards
+        self._children: dict = {}  # prefix -> the weight names under it
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (``compute_dtype``, else the weights')."""
+        return self.compute_dtype or self.param_dtype
+
+    def spec(self, name: str):
+        return self.specs[name]
+
+    def local(self, name: str) -> list:
+        """Each position's stored shard of ``name``."""
+        return [sh[name] for sh in self.shards]
+
+    def weight(self, name: str, full: bool = False) -> list:
+        """``name`` at every position as it is used: its ``data``-sharded
+        dims gathered (every sharded dim with ``full``)."""
+        vals = self.local(name)
+        for dim, entry in enumerate(self.specs[name]):
+            if entry is not None and (full or entry in self.ctx.batch_axes):
+                vals = self.ctx.all_gather(vals, entry, dim)
+        return vals
+
+    def weights(self, prefix: str) -> list:
+        """The weights under ``prefix`` as one dict a position (leaf name ->
+        tensor)."""
+        if prefix not in self._children:
+            self._children[prefix] = [n for n in self.specs if n.startswith(prefix + ".")]
+        cols = {n[len(prefix) + 1:]: self.weight(n) for n in self._children[prefix]}
+        return [{k: v[i] for k, v in cols.items()} for i in range(self.ctx.n)]
+
+    def num_params(self) -> int:
+        return sum(math.prod(s) for s in self.shapes.values())
+
+    def weight_bytes(self) -> int:
+        """Bytes the positions store (a tensor shared by positions on one
+        device counted once)."""
+        seen = {}
+        for sh in self.shards:
+            for t in sh.values():
+                seen[(t.device, t.data_ptr())] = t.numel() * t.element_size()
+        return sum(seen.values())
+
+    def new_caches(self, batch: int, length: int) -> list:
+        """Zeroed caches, one list of per-layer ``{"k", "v"}`` a position:
+        ``(batch / n_batch, length, KV heads, D)``, the KV heads
+        ``attn_heads`` gives a position."""
+        cfg, ctx = self.cfg, self.ctx
+        kv = attn_heads(cfg, ctx.tp)[1]
+        shape = (batch // ctx.n_batch, length, kv, cfg.head_dim)
+        return [[{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=self.dtype, device=dev)} for _ in self.kinds]
+                for dev in ctx.devices]
+
+    def _embed(self, tokens: list) -> list:
+        """The vocabulary-parallel lookup: each position looks up the rows
+        of its vocabulary shard (zeros for another shard's tokens), then a
+        psum over ``model`` (exact: one nonzero term)."""
+        ctx = self.ctx
+        tables = self.weight("top.embed")
+        if not is_sharded(self.spec("top.embed"), 0, ctx.model_axis):
+            return [tab[t].to(self.dtype) for tab, t in zip(tables, tokens)]
+        out = []
+        for tab, t, j in zip(tables, tokens, ctx.model_index):
+            loc = t - j * tab.shape[0]
+            hit = (loc >= 0) & (loc < tab.shape[0])
+            rows = tab[loc.clamp(0, tab.shape[0] - 1)].to(self.dtype)
+            out.append(torch.where(hit[..., None], rows, 0))
+        return ctx.psum(out, ctx.model_axis)
+
+    def _logits(self, xs: list) -> torch.Tensor:
+        """Final norm and the vocabulary-column-parallel unembedding (the
+        embedding table transposed when tied), gathered over the mesh ->
+        (B, S, V) on ``device``."""
+        cfg, ctx = self.cfg, self.ctx
+        norms = self.weights("top.final_norm")
+        hs = [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for p, x in zip(norms, xs)]
+        if cfg.tie_embeddings:
+            name, dim = "top.embed", 0
+            out = [h @ w.to(h.dtype).T for h, w in zip(hs, self.weight(name))]
+        else:
+            name, dim = "top.unembed", 1
+            out = [h @ w.to(h.dtype) for h, w in zip(hs, self.weight(name))]
+        if is_sharded(self.spec(name), dim, ctx.model_axis):
+            out = ctx.all_gather(out, ctx.model_axis, -1)
+        return ctx.gather_batch(out, self.device)
+
+    def _run(self, xs, positions, caches, pos, use_kernel) -> list:
+        cfg = self.cfg
+        ropes = [rope_cos_sin(p, cfg.head_dim, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+                 for p in positions]
+        for l, (_, ffn) in enumerate(self.kinds):
+            xs = mesh_block_apply(self, l, xs, ffn, ropes, [c[l] for c in caches], pos,
+                                  use_kernel)
+        return xs
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor | None = None, *, embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None, cache_len: int | None = None,
+                use_kernel="auto"):
+        """:meth:`DecoderLM.prefill` on the mesh -> (logits (B, V) on
+        ``device``, each position's caches)."""
+        if (tokens is None) == (embeds is None):
+            raise ValueError("prefill takes tokens or embeds, not both")
+        ctx = self.ctx
+        x = tokens if embeds is None else embeds
+        b, s = x.shape[:2]
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        xs = (self._embed(ctx.split_batch(tokens)) if embeds is None
+              else [e.to(self.dtype) for e in ctx.split_batch(embeds)])
+        caches = self.new_caches(b, s if cache_len is None else cache_len)
+        xs = self._run(xs, ctx.split_batch(positions), caches, None, use_kernel)
+        return self._logits([x[:, -1:] for x in xs])[:, 0], caches
+
+    @torch.inference_mode()
+    def serve_step(self, tokens: torch.Tensor, pos: int, caches: list):
+        """:meth:`DecoderLM.serve_step` on the mesh -> (logits (B, 1, V) on
+        ``device``, the caches with this step's K/V written at ``pos``)."""
+        ctx = self.ctx
+        b = tokens.shape[0]
+        shape = (b, 1, 3) if self.cfg.mrope_sections else (b, 1)
+        positions = ctx.split_batch(torch.full(shape, pos, device=tokens.device))
+        xs = self._run(self._embed(ctx.split_batch(tokens)), positions, caches, int(pos), "auto")
+        return self._logits(xs), caches
+
+
+def _shard_index(ctx, i: int, spec, shape) -> tuple:
+    """Position ``i``'s slices of a weight of ``shape`` laid out by ``spec``."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            out.append(slice(None))
+        else:
+            n = dim // mesh_extent(ctx.mesh, entry)
+            lo = flat_axis_index(ctx.coords[i], entry, ctx.mesh) * n
+            out.append(slice(lo, lo + n))
+    return tuple(out)
+
+
+def shard_params(model, mesh=None) -> MeshLM:
+    """Carry a one-device model's weights onto ``mesh`` (default: the mesh
+    ``build_model(..., mesh=)`` kept): each position stores its shard of
+    every weight by ``param_specs``, a fresh contiguous copy on its device,
+    so the shards together hold one device's bytes.  A weight replicated
+    over the mesh is stored once a device (on the model's own device, the
+    model's tensor itself).  One-device weights may come from
+    ``params_from_jax``.  The SSM, hybrid and encoder-decoder families
+    are refused: their tensor-parallel forms are ROADMAP.md §1 item 2c."""
+    mesh = model.mesh if mesh is None else mesh
+    cfg = model.cfg
+    if mesh is None:
+        raise ValueError("shard_params needs a mesh (build_model(..., mesh=) or mesh=)")
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): a model mesh serves the {', '.join(MESH_FAMILIES)} "
+            "families; SSM, hybrid and encoder-decoder tensor parallelism is ROADMAP.md §1 "
+            "item 2c")
+    ctx = RunCtx(mesh)
+    specs = param_specs(model, mesh)
+    shards = [{} for _ in range(ctx.n)]
+    shapes = {}
+    for name, p in model.named_parameters():
+        w, spec = p.detach(), specs[name]
+        shapes[name] = tuple(w.shape)
+        per_device: dict = {}
+        for i, dev in enumerate(ctx.devices):
+            if all(e is None for e in spec):
+                shards[i][name] = per_device.setdefault(dev, w.to(dev))
+            else:
+                part = w[_shard_index(ctx, i, spec, w.shape)]
+                shards[i][name] = torch.empty(part.shape, dtype=part.dtype,
+                                              device=dev).copy_(part)
+    return MeshLM(cfg, mesh, specs, shapes, shards, model.kinds, model.param_dtype,
+                  model.compute_dtype)
+
+
+def gather_params(meshed: MeshLM, device=None) -> dict:
+    """The inverse of :func:`shard_params`: name -> the whole weight on
+    ``device`` (default the mesh's first), assembled from the shards."""
+    device = meshed.device if device is None else device
+    ctx, out = meshed.ctx, {}
+    for name, shape in meshed.shapes.items():
+        parts = meshed.local(name)
+        whole = torch.empty(shape, dtype=parts[0].dtype, device=device)
+        for i, part in enumerate(parts):
+            whole[_shard_index(ctx, i, meshed.spec(name), shape)] = part.to(device)
+        out[name] = whole
+    return out
+
+
+def gather_caches(meshed: MeshLM, caches: list, device=None) -> list:
+    """Each position's caches -> :class:`DecoderLM`'s layout, one
+    ``{"k", "v"}`` of (B, L, KV, D) a layer on ``device``: the batch shards
+    concatenated, the KV heads from the positions that hold them (a
+    repeated head from the first position holding it)."""
+    device = meshed.device if device is None else device
+    cfg, ctx = meshed.cfg, meshed.ctx
+    hq, kv_loc = attn_heads(cfg, ctx.tp)
+    g = cfg.num_heads // cfg.num_kv_heads
+    by_shard = {}  # batch shard -> its positions by model index
+    for i in range(ctx.n):
+        by_shard.setdefault(ctx.batch_index[i], {}).setdefault(ctx.model_index[i], i)
+    out = []
+    for l in range(len(meshed.kinds)):
+        layer = {}
+        for key in ("k", "v"):
+            rows = []
+            for k in range(ctx.n_batch):
+                at = by_shard[k]
+                if hq == cfg.num_heads:  # every head on every position
+                    rows.append(caches[at[0]][l][key].to(device))
+                elif kv_loc * ctx.tp == cfg.num_kv_heads:  # KV / tp heads a position
+                    rows.append(torch.cat([caches[at[j]][l][key].to(device)
+                                           for j in range(ctx.tp)], 2))
+                else:  # H / tp repeated heads a position: KV head c is query head c * g's
+                    rows.append(torch.stack([caches[at[c * g // hq]][l][key][:, :, c * g % hq]
+                                             .to(device) for c in range(cfg.num_kv_heads)], 2))
+            layer[key] = torch.cat(rows, 0)
+        out.append(layer)
+    return out

@@ -9,7 +9,6 @@ families, ``attn_period`` layers for the hybrid (Jamba: attention at offset
 4, MoE on odd layers).  Layer ``l`` has the kinds of position
 ``l % len(pattern)``.  The JAX package scans the groups with ``lax.scan``
 over stacked weights; here the model loops over its layers in Python.
-No mesh or sharding constraint exists (one device).
 
 A block returns its MoE load-balance loss beside its output (0 for other
 FFNs); training sums it over the layers in layer order, as the scan does.
@@ -23,17 +22,27 @@ written in place: prefill fills slots ``[0, S)``, each decode step the slot
 at its cursor.  (The JAX engine pads its immutable caches after prefill
 instead.)  A Mamba layer's cache (:mod:`repro_torch.models.mamba`) is
 replaced, entry by entry, by prefill and by every step.
+
+On a mesh (:class:`RunCtx`, :func:`mesh_block_apply`) the attention
+families run tensor parallel: every value is a list with one tensor a mesh
+position, and the collectives between them are explicit tensor operations
+in mesh order (a psum is a sum, an all-gather a ``cat``, a move between
+devices a ``.to``), differentiable as they stand.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt_mod
 
+from repro_torch.dist.sharding import flat_axis_index, mesh_extent, psum
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import mlp_apply, norm_apply
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import linear, mlp_apply, norm_apply
 from repro_torch.models.mamba import mamba_apply
 from repro_torch.models.moe import moe_einsum
 from repro_torch.models.rope import rotate
@@ -121,3 +130,228 @@ def remat(fn, mode: str):
         ctx = functools.partial(ckpt_mod.create_selective_checkpoint_contexts, _dots_policy)
         return functools.partial(ckpt_mod.checkpoint, fn, use_reentrant=False, context_fn=ctx)
     raise ValueError(f"remat must be none, dots or full; got {mode!r}")
+
+
+# -- the model mesh ------------------------------------------------------------
+
+
+class RunCtx:
+    """Where a meshed model runs (port of the JAX ``RunCtx``): the mesh, the
+    batch axes present (``pod``, ``data``) and the ``model`` axis (None
+    without one), with the collectives between positions.
+
+    A value of a meshed model is a list, one tensor a position in the
+    mesh's row-major order.  Each collective runs once a group (the
+    positions that differ only along its axes), in mesh order, on the
+    group's first device, and hands every member its result with ``.to``:
+    positions that repeat a device share one tensor.
+    """
+
+    def __init__(self, mesh, batch_axes=("pod", "data"), model_axis="model"):
+        self.mesh = mesh
+        self.batch_axes = tuple(a for a in batch_axes if a in mesh.shape)
+        self.model_axis = model_axis if model_axis in mesh.shape else None
+        self.n_batch = mesh_extent(mesh, self.batch_axes)
+        self.tp = mesh_extent(mesh, self.model_axis)
+        self.shape = mesh.devices.shape
+        self.devices = list(mesh.devices.flat)
+        self.n = len(self.devices)
+        self.coords = [dict(zip(mesh.axis_names, c)) for c in np.ndindex(self.shape)]
+        self.batch_index = [flat_axis_index(c, self.batch_axes, mesh) for c in self.coords]
+        self.model_index = [flat_axis_index(c, self.model_axis, mesh) for c in self.coords]
+
+    def group(self, i: int, axes) -> list:
+        """The positions through ``i`` along ``axes``, in mesh order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        base = [self.coords[i][a] for a in self.mesh.axis_names]
+        at = [self.mesh.axis_names.index(a) for a in axes]
+        out = []
+        for combo in np.ndindex(*[self.shape[k] for k in at]):
+            pos = list(base)
+            for k, c in zip(at, combo):
+                pos[k] = c
+            out.append(int(np.ravel_multi_index(pos, self.shape)))
+        return out
+
+    def _groupwise(self, vals: list, axes, fn) -> list:
+        """``fn(members' values, first device) -> one result per member``,
+        once a group."""
+        out = [None] * self.n
+        for i in range(self.n):
+            if out[i] is None:
+                g = self.group(i, axes)
+                for j, r in zip(g, fn([vals[j] for j in g], self.devices[g[0]])):
+                    out[j] = r.to(self.devices[j])
+        return out
+
+    def psum(self, vals: list, axes) -> list:
+        """The sum over ``axes``, in mesh order."""
+        return self._groupwise(vals, axes, lambda parts, dev: [psum(parts, dev)] * len(parts))
+
+    def all_gather(self, vals: list, axes, dim: int) -> list:
+        """The members' values concatenated along ``dim``, in mesh order."""
+        def gather(parts, dev):
+            whole = parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts], dim)
+            return [whole] * len(parts)
+        return self._groupwise(vals, axes, gather)
+
+    def psum_scatter(self, vals: list, axes, dim: int) -> list:
+        """The sum over ``axes``, member ``k`` of a group keeping chunk ``k``
+        of ``dim``."""
+        return self._groupwise(vals, axes, lambda parts, dev: psum(parts, dev).chunk(len(parts),
+                                                                                      dim))
+
+    def all_to_all(self, vals: list, axes, split: int, concat: int) -> list:
+        """Member ``k`` gets chunk ``k`` (of ``split``) of every member's
+        value, concatenated along ``concat`` in mesh order (JAX's tiled
+        ``all_to_all``)."""
+        def a2a(parts, dev):
+            chunks = [p.chunk(len(parts), split) for p in parts]
+            return [torch.cat([c[k].to(dev) for c in chunks], concat) for k in range(len(parts))]
+        return self._groupwise(vals, axes, a2a)
+
+    def split_batch(self, x: torch.Tensor) -> list:
+        """Each position's rows of the batch ``x`` (its batch shard), on its
+        device.  A batch that does not divide by the batch axes raises, as
+        JAX's ``shard_map`` does."""
+        b = x.shape[0]
+        if b % self.n_batch:
+            raise ValueError(f"a batch of {b} rows does not divide over the batch axes "
+                             f"{dict((a, self.mesh.shape[a]) for a in self.batch_axes)}")
+        rows = b // self.n_batch
+        return [x[k * rows:(k + 1) * rows].to(dev)
+                for k, dev in zip(self.batch_index, self.devices)]
+
+    def gather_batch(self, vals: list, device) -> torch.Tensor:
+        """A value replicated over every axis but the batch axes, its batch
+        shards concatenated in order on ``device``."""
+        firsts = {}
+        for i, k in enumerate(self.batch_index):
+            firsts.setdefault(k, i)
+        return torch.cat([vals[firsts[k]].to(device) for k in range(self.n_batch)], 0)
+
+
+def is_sharded(spec, dim: int, axis) -> bool:
+    """Whether ``spec`` shards dim ``dim`` over the mesh axis ``axis``."""
+    return axis is not None and spec[dim] == axis
+
+
+def attn_heads(cfg, tp: int) -> tuple[int, int]:
+    """(query heads, cached KV heads) of one position of a ``tp``-way
+    ``model`` axis: ``H / tp`` query heads where they divide (JAX's rule),
+    with ``KV / tp`` KV heads where those divide too, else the ``H / tp``
+    repeated heads they read; every head where ``H`` does not divide."""
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    if not (cfg.tp_style == "megatron" and tp > 1 and h % tp == 0):
+        return h, kv
+    return h // tp, (kv // tp if kv % tp == 0 else h // tp)
+
+
+def mesh_attn(m, pre: str, hs: list, ropes: list, caches, pos, use_kernel) -> list:
+    """Attention on the mesh (``attn_block`` of the JAX package under its
+    sharding rules) -> each position's share of the output projection,
+    psummed over ``model``.
+
+    Where the query heads divide by the model extent (``H % tp == 0``,
+    ``tp > 1``) each position computes its ``H / tp`` heads: its columns of
+    ``wq``; its KV heads when ``KV % tp == 0``, else the K and V projections
+    gathered over ``model`` and repeated to the query heads
+    (``attention.repeat_kv``), its heads of those.  Prefill runs the flash
+    kernel on the position's heads, decode attends over the position's own
+    cache, which holds the KV heads its query heads read: ``KV / tp`` heads,
+    or ``H / tp`` repeated heads where ``KV % tp != 0`` (JAX's
+    ``_cache_specs`` shards such a cache's sequence over ``model`` instead).
+    Otherwise every position computes every head.  ``wo`` is row parallel
+    where its rows are sharded: each position's heads times its rows, the
+    partials summed in mesh order.
+    """
+    cfg, ctx = m.cfg, m.ctx
+    h, kvh, hd, tp, ax = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ctx.tp, ctx.model_axis
+    hq = attn_heads(cfg, tp)[0]
+    heads = hq < h
+
+    def project(w, b):
+        out = [linear(x, wi) for x, wi in zip(hs, m.weight(pre + w))]
+        if cfg.qkv_bias:
+            out = [o + bi.to(o.dtype) for o, bi in zip(out, m.weight(pre + b))]
+        if not heads and is_sharded(m.spec(pre + w), 1, ax):
+            out = ctx.all_gather(out, ax, -1)
+        return out
+
+    q, k, v = project("wq", "bq"), project("wk", "bk"), project("wv", "bv")
+    bsz, s = hs[0].shape[:2]
+    q = [t.view(bsz, s, hq, hd) for t in q]
+    if heads and kvh % tp:  # KV heads not whole on a position: gather, repeat
+        k, v = (ctx.all_gather(t, ax, -1) if is_sharded(m.spec(pre + w), 1, ax) else t
+                for t, w in ((k, "wk"), (v, "wv")))
+        k, v = ([attn_mod.repeat_kv(x.view(bsz, s, kvh, hd), h // kvh)
+                 [:, :, j * hq:(j + 1) * hq] for x, j in zip(t, ctx.model_index)]
+                for t in (k, v))
+    else:
+        k, v = ([x.view(bsz, s, -1, hd) for x in t] for t in (k, v))
+    if cfg.use_rope:
+        q = [rotate(t, *r) for t, r in zip(q, ropes)]
+        k = [rotate(t, *r) for t, r in zip(k, ropes)]
+    outs = []
+    for i in range(ctx.n):
+        cache, start = caches[i], 0 if pos is None else pos
+        cache["k"][:, start:start + s] = k[i]
+        cache["v"][:, start:start + s] = v[i]
+        if pos is None:
+            o = attn_mod.attention(q[i], k[i], v[i], causal=True, use_kernel=use_kernel)
+        else:
+            o = attn_mod.decode_attention(q[i], cache["k"], cache["v"], pos)
+        outs.append(o.reshape(bsz, s, hq * hd))
+    row = is_sharded(m.spec(pre + "wo"), 0, ax)
+    if row and not heads:  # every head here, a row shard of wo: its heads' columns
+        width = h * hd // tp
+        outs = [o[..., j * width:(j + 1) * width] for o, j in zip(outs, ctx.model_index)]
+    partial = [o @ w.to(o.dtype) for o, w in zip(outs, m.weight(pre + "wo"))]
+    return ctx.psum(partial, ax) if row else partial
+
+
+def mesh_mlp(m, pre: str, hs: list) -> list:
+    """The MLP: its first products (``gate`` and ``up``, or ``in`` and its
+    bias) column parallel on ``ff``, the last (``down`` or ``out``) row
+    parallel, its partials psummed over ``model``, then the output bias
+    (all replicated where ``d_ff`` does not divide)."""
+    cfg, ctx = m.cfg, m.ctx
+    if cfg.mlp_gated:
+        gate, up, down = (m.weight(pre + n) for n in ("gate", "up", "down"))
+        partial = [linear(F.silu(linear(x, g)) * linear(x, u), d)
+                   for x, g, u, d in zip(hs, gate, up, down)]
+        last = "down"
+    else:
+        w_in, b_in, w_out = (m.weight(pre + n) for n in ("in", "b_in", "out"))
+        # jax.nn.gelu defaults to the tanh approximation.
+        partial = [linear(F.gelu(linear(x, wi, bi), approximate="tanh"), wo)
+                   for x, wi, bi, wo in zip(hs, w_in, b_in, w_out)]
+        last = "out"
+    if is_sharded(m.spec(pre + last), 0, ctx.model_axis):
+        partial = ctx.psum(partial, ctx.model_axis)
+    if cfg.mlp_gated:
+        return partial
+    return [y + b.to(y.dtype) for y, b in zip(partial, m.weight(pre + "b_out"))]
+
+
+def mesh_block_apply(m, l: int, xs: list, ffn_kind: str, ropes: list, caches: list,
+                     pos: int | None, use_kernel="auto") -> list:
+    """Layer ``l`` of a meshed model (an attention layer) on the per-position
+    residual ``xs``, replicated over ``model``; ``caches`` holds each
+    position's cache of the layer; ``pos`` None is prefill."""
+    cfg, pre = m.cfg, f"layers.{l}."
+
+    def norm(name, ts):
+        return [norm_apply(p, t, cfg.norm_type, cfg.norm_eps)
+                for t, p in zip(ts, m.weights(pre + name))]
+
+    mix = mesh_attn(m, pre + "attn.", norm("ln1", xs), ropes, caches, pos, use_kernel)
+    xs = [x + y for x, y in zip(xs, mix)]
+    if ffn_kind == "none":
+        return xs
+    hs = norm("ln2", xs)
+    if ffn_kind == "moe":
+        ys = moe_mod.moe_apply(m, pre + "moe.", hs)[0]
+    else:
+        ys = mesh_mlp(m, pre + "mlp.", hs)
+    return [x + y for x, y in zip(xs, ys)]

@@ -15,6 +15,7 @@ from repro_torch.train.optimizer import (  # noqa: F401
 )
 from repro_torch.train.train_step import (  # noqa: F401
     TrainState,
+    make_train_state_specs,
     make_train_step,
     train_state_shapes,
 )

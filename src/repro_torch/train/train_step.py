@@ -27,7 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import grid_devices, psum
+from repro_torch.dist.sharding import PartitionSpec, grid_devices, psum
 from repro_torch.models.convert import jax_ndims, params_from_jax_tree, params_to_jax
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -73,7 +73,7 @@ def _data_devices(mesh) -> list:
     others = {a: n for a, n in mesh.shape.items() if a not in axes and n > 1}
     if others:
         raise ValueError(f"mesh axes {others} would shard the model; the port trains data "
-                         "parallel only (model parallelism: ROADMAP.md §1 item 2)")
+                         "parallel (training on a model mesh: ROADMAP.md §1 item 2b)")
     return [row[0] for row in grid_devices(mesh, axes, ())]
 
 
@@ -142,6 +142,16 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, mesh=None):
         return TrainState(params=new_params, opt=new_opt, step=state.step + 1), metrics
 
     return train_step
+
+
+def make_train_state_specs(model) -> TrainState:
+    """The PartitionSpecs of a ``TrainState`` of ``model`` on its mesh: the
+    moments inherit the parameters' specs (``model.specs()``), the counters
+    are replicated.  A spec tree only: the port trains data parallel
+    (training on a model mesh is ROADMAP.md §1 item 2b)."""
+    specs = model.specs()
+    return TrainState(params=specs, opt={"m": specs, "v": specs, "count": PartitionSpec()},
+                      step=PartitionSpec())
 
 
 def train_state_shapes(model, opt_cfg: AdamWConfig) -> TrainState:

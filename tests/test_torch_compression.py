@@ -105,6 +105,11 @@ def _worker() -> None:
         assert torch.equal(got[k], want[k]), k
         assert torch.equal(state.residual[k], want_states[rank].residual[k]), k
     print(json.dumps(dict(rank=rank, ok=True)), flush=True)
+    # Leave the group together, as launch.select_multihost does: a process
+    # that exits with its gloo group alive can abort in the group's teardown
+    # ("terminate called without an active exception").
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 
 
 def test_compressed_psum_over_two_gloo_processes(tmp_path):

@@ -22,7 +22,11 @@ the plain attention and decodes the same greedy tokens.  Training: the
 smoke qwen's AdamW step on the card against the CPU's, flash attention
 raising when asked for a gradient, ``train_loss`` launching no flash
 kernel, and ``launch.train --fail-at-step`` ending bitwise equal to an
-uninterrupted run on the card (deterministic algorithms on).
+uninterrupted run on the card (deterministic algorithms on).  The model
+mesh: the smoke models sharded on four positions of ``cuda:0`` against a
+mesh of CPU positions and the one-device card model, flash launched once a
+position an attention layer at the position's heads, and
+``pipeline_apply`` on card positions.
 """
 
 import numpy as np
@@ -951,3 +955,93 @@ def test_deterministic_restart_on_the_card(cuda, tmp_path):
     assert sorted(a) == sorted(b)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the model mesh: smoke models on four positions of one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen2-vl-2b", "dbrx-132b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_meshed_smoke_model_on_one_card(cuda, arch, shape):
+    """A smoke model (float32, MoE at capacity factor 8: no slot dropped)
+    sharded on four positions of ``cuda:0``: prefill launches flash once a
+    position an attention layer; its logits within ``1e-4`` of the same
+    weights on a mesh of CPU positions and of the one-device card model;
+    greedy tokens equal the one-device card model's."""
+    import dataclasses
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.model import shard_params
+
+    cfg = smoke_config(arch)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    host = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    meshed = shard_params(card, make_mesh(shape, ("data", "model"), devices=[cuda] * 4))
+    on_cpu = shard_params(host, make_mesh(shape, ("data", "model"), devices=["cpu"] * 4))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 64)))
+    before = flash_attention_cuda.launches
+    got, _ = meshed.prefill(tokens.to(cuda))
+    assert flash_attention_cuda.launches - before == 4 * cfg.num_layers
+    assert all(t.device.type == "cuda" for sh in meshed.shards for t in sh.values())
+    torch.testing.assert_close(got.cpu(), on_cpu.prefill(tokens)[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, card.prefill(tokens.to(cuda))[0], rtol=1e-4, atol=1e-4)
+    reqs = [Request(tokens[i, : 64 if i < 2 else 32].tolist(), 6) for i in range(4)]
+    assert ServeEngine(meshed).serve(reqs) == ServeEngine(card).serve(reqs)
+
+
+def test_flash_launches_once_a_position_an_attention(cuda):
+    """yi-6b's smoke model on (1, 2) and (1, 4) positions: each prefill
+    attention of each position is one launch, at the position's own heads."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.model import shard_params
+
+    cfg = smoke_config("yi-6b")
+    model = build_model(cfg, device=cuda)
+    tokens = torch.zeros((2, 40), dtype=torch.int64, device=cuda)
+    seen = []
+    inner = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return inner(q, k, v, **kw)
+
+    for tp in (2, 4):
+        meshed = shard_params(model, make_mesh((1, tp), ("data", "model"), devices=[cuda] * tp))
+        seen.clear()
+        ops.flash_attention = spy
+        try:
+            before = flash_attention_cuda.launches
+            meshed.prefill(tokens)
+        finally:
+            ops.flash_attention = inner
+        assert flash_attention_cuda.launches - before == tp * cfg.num_layers
+        kv = cfg.num_kv_heads // tp if cfg.num_kv_heads % tp == 0 else cfg.num_heads // tp
+        assert set(seen) == {((2, 40, cfg.num_heads // tp, cfg.head_dim),
+                              (2, 40, kv, cfg.head_dim))}
+
+
+def test_pipeline_apply_on_card_positions(cuda):
+    from repro_torch.dist import make_mesh, pipeline_apply
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn((8, 256, 256), generator=gen, device=cuda) * 256 ** -0.5
+    b = 0.1 * torch.randn((8, 256), generator=gen, device=cuda)
+    x = torch.randn((32, 256), generator=gen, device=cuda)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    want = x
+    for s in range(8):
+        want = stage({"w": w[s], "b": b[s]}, want)
+    mesh = make_mesh((4,), ("stage",), devices=[cuda] * 4)
+    for mb in (1, 2, 4, 8):
+        got = pipeline_apply(stage, {"w": w, "b": b}, x, mesh=mesh, microbatches=mb)
+        assert got.device.type == "cuda"
+        if mb == 1:
+            assert torch.equal(got, want)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)

@@ -5,8 +5,8 @@ import MRMRSelector``), and ``MIScore.redundancy_conditional`` against
 JAX's on the same counts.
 
 ``WAITING`` lists the names the port does not have, each with its reason:
-model parallelism (ROADMAP.md §1 item 2) and what is not ported by design
-(§1 item 3's "Not to port": XLA's jit builders and ``shard_map`` shims).
+what is not ported by design (ROADMAP.md §1 item 3's "Not to port": XLA's
+jit builders and ``shard_map`` shims).
 A name that lands in the port must be struck from it (the test fails
 until it is).
 """
@@ -23,16 +23,14 @@ from repro.core import MIScore as JaxMIScore
 
 from repro_torch.core import MIScore
 
-ITEM_2 = "model parallelism, ROADMAP.md §1 item 2"
 NOT_PORTED = "XLA only, not ported (ROADMAP.md §1 item 3, 'Not to port')"
 WAITING = {
     "core": {"build_engine_fn": NOT_PORTED, "make_alternative_fn": NOT_PORTED,
              "make_conventional_fn": NOT_PORTED, "make_grid_fn": NOT_PORTED},
     "data": {},
     "runtime": {},
-    "train": {"make_train_state_specs": ITEM_2 + " (PartitionSpecs of the sharding rules)"},
-    "dist": {"ShardingRules": ITEM_2, "rules_for": ITEM_2, "logical_to_spec": ITEM_2,
-             "pvary": NOT_PORTED, "shard_map": NOT_PORTED},
+    "train": {},
+    "dist": {"pvary": NOT_PORTED, "shard_map": NOT_PORTED},
 }
 
 
@@ -59,7 +57,8 @@ def test_import_from_the_subpackages():
     from repro_torch.core.selector import get_engine
     from repro_torch.data import ShardedDataPipeline, SyntheticTokenSource  # noqa: F401
     from repro_torch.runtime import CheckpointManager  # noqa: F401
-    from repro_torch.train import TrainState, make_train_step  # noqa: F401
+    from repro_torch.dist import ShardingRules, logical_to_spec, pipeline_apply  # noqa: F401
+    from repro_torch.train import TrainState, make_train_state_specs, make_train_step  # noqa: F401
 
     assert get_engine("streaming") is not None  # core imports streaming last
 

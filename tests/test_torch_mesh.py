@@ -78,6 +78,12 @@ def _gloo_worker() -> None:
         plan=[sel.plan_.obs_axes, sel.plan_.mesh_shape, sel.plan_.block_obs],
         hosts=sel.result_.io["hosts"], grid_selected=res.selected.tolist(),
         grid_gains=[float(g) for g in res.gains])), flush=True)
+    # Leave the group together, as launch.select_multihost does: a process
+    # that exits with its gloo group alive can abort in the group's teardown.
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

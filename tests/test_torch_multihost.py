@@ -425,6 +425,10 @@ def _collectives_worker() -> None:
     assert rows.dtype == np.int64
     np.testing.assert_array_equal(rows, [[r, 2**40 + r, 3] for r in range(4)])
     print(json.dumps(dict(rank=rank, ok=True)), flush=True)
+    # Leave the group together, as launch.select_multihost does: a process
+    # that exits with its gloo group alive can abort in the group's teardown.
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
 
 
 def test_collectives_over_four_gloo_processes(tmp_path):

@@ -102,11 +102,12 @@ def test_cli_prints_one_json_line_naming_the_device():
 
 @pytest.mark.parametrize("argv", [
     ["--ckpt-dir", "ckpt", "--device", "cpu"],
-    ["--model-parallel", "2", "--device", "cpu"],
+    ["--model-parallel", "2", "--arch", "mamba2-1.3b", "--device", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):
     # Checkpoints are ported (a directory without one is refused; loading
-    # one is held in test_torch_train_cli.py); model parallelism is not.
+    # one is held in test_torch_train_cli.py); model parallelism is ported
+    # for the attention families (test_torch_model_parallel.py), not the SSM's.
     match = "no checkpoint" if "--ckpt-dir" in argv else "ROADMAP"
     with pytest.raises(SystemExit, match=match):
         serve_cli.main(argv)
