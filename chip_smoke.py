@@ -229,6 +229,28 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    from the same model and prompts rebuilt in process).  Flash timed at the positions' shapes
    (B=4, S=T=2048, H=8, KV=1 and B=2, S=T=2048, H=24, KV=4).
 
+14. Training on a model mesh of ``MESH_TRAIN_MESH`` = (2, 2) positions of
+   ``cuda:0`` (the path, its launches and copies; not scaling).  (a)
+   qwen1.5-0.5b at its published widths and depth: one step in float32
+   compute on the mesh and on one device from the same weights and batch
+   (4 x 2048), the loss within ``TRAIN_LOSS_RTOL`` and the gradient leaves
+   of ``TRAIN_GRAD_LEAVES`` by ``TRAIN_GRAD_REL_L2``; then 5 steps of
+   ``make_train_step(mesh=)`` in bf16 compute (float32 masters, remat
+   full) on ``ShardedDataPipeline.shards_at`` with the launch counts zeroed
+   just before and read just after (all 0: no flash kernel in training),
+   step ms, tokens/s, peak memory, one step traced.  (b) llama4-scout at
+   its published widths, 1 of 48 layers (experts over ``model``, their
+   d_ff over ``data``, bf16 moments), 2 x 2048: the float32-compute loss,
+   aux loss and router gradient against a one-device run through
+   ``moe_blockwise_reference``, dispatch slots routed otherwise and slots
+   dropped a block, then 3 bf16 steps (the state donated), all launch
+   counts 0.  (c) ``python
+   -m repro_torch.launch.train --model-parallel 2`` with
+   ``REPRO_DEVICES=4``, 2 of 24 layers, twice at once (one with
+   ``--fail-at-step 3``): the same losses and bitwise the same final
+   checkpoint, restored by ``elastic_restore`` onto (1, 4) positions and
+   onto one device bitwise.
+
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
@@ -262,7 +284,7 @@ kernel; the streaming binned fit encodes each of its 160 blocks once, the
 in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
 launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
-12's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
+12's and phase 14's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
 llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
 path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
 16); each
@@ -2758,9 +2780,10 @@ def train_step_bound(cfg, b, s):
                     model_flops=model_flops, model_ms=model_ms)
 
 
-def run_cli(module, args, timeout=600):
-    """``python -m module args`` from the repo root; its one JSON line."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def run_cli(module, args, timeout=600, env=None):
+    """``python -m module args`` from the repo root (``env`` added to the
+    environment); its one JSON line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
                          env=env, timeout=timeout, cwd=ROOT)
@@ -3326,6 +3349,365 @@ def phase13(dev, launches, bf16_bound):
     return recs, checks, timings, err
 
 
+# -- phase 14: training on a model mesh ---------------------------------------
+
+MESH_TRAIN_MESH = (2, 2)  # ("data", "model") positions of the card
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 4, 2048, 5
+# (b): llama4-scout at its published widths, 1 of 48 layers, experts over
+# ``model`` and their d_ff over ``data``.  Its config accumulates 4
+# microbatches; a batch of 2 rows on 2 data shards is one row a shard, so
+# the phase takes one batch (microbatches=1).
+MOE_TRAIN_ARCH = "llama4-scout-17b-a16e"
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 1, 2, 2048, 3
+MESH_TRAIN_PEAK_LIMIT = 78e9  # bytes
+# (c): the train command line at 2 of 24 layers on REPRO_DEVICES positions.
+MESH_CLI_DEVICES = "4"
+MESH_CLI_ARGS = ("--model-parallel", "2")
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def phase14_qwen(dev, launches):
+    """(a) qwen1.5-0.5b at published widths and depth on MESH_TRAIN_MESH:
+    one step in float32 compute on the mesh and on one device from the same
+    weights and batch (the loss within ``TRAIN_LOSS_RTOL``, the gradient
+    leaves of ``TRAIN_GRAD_LEAVES`` by ``TRAIN_GRAD_REL_L2``), then
+    MESH_TRAIN_STEPS bf16 steps of ``make_train_step(mesh=)`` on the
+    pipeline's shards, launch counts zeroed just before and read just after
+    (all 0), the first step's loss within ``TRAIN_LOSS_RTOL`` of the float32
+    one, one more step traced."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedDataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.model import gather_leaves, mesh_model, shard_leaves
+    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
+                                   mesh_value_and_grad, warmup_cosine)
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = card_mesh(dev, MESH_TRAIN_MESH)
+    model = build_model(cfg, device=dev, dtype=torch.float32, compute_dtype=torch.float32,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    pipe = ShardedDataPipeline(mesh=mesh, global_batch=MESH_TRAIN_BATCH, seq_len=MESH_TRAIN_SEQ,
+                               vocab=model.cfg.vocab_size, seed=0)
+    params = model.flat_params()
+    leaves = {k: v.detach().requires_grad_(k in TRAIN_GRAD_LEAVES) for k, v in params.items()}
+    loss, _ = model.train_loss(pipe.batch_at(0), leaves)
+    one = dict(zip(TRAIN_GRAD_LEAVES, torch.autograd.grad(
+        loss, [leaves[k] for k in TRAIN_GRAD_LEAVES])))
+    loss_one = float(loss.detach())
+    del leaves, loss
+    meshed = mesh_model(model, mesh)
+    shards = shard_leaves(meshed, params)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_mesh, _, grads = mesh_value_and_grad(model, mesh)(shards, pipe.shards_at(0))
+    loss_mesh = float(loss_mesh)
+    f32_s = time.perf_counter() - t0
+    got = gather_leaves(meshed, [{k: g[k] for k in TRAIN_GRAD_LEAVES} for g in grads])
+    del grads
+    rel = {k: rel_l2(got[k], one[k]) for k in TRAIN_GRAD_LEAVES}
+    del got, one
+    log(f"[mesh train] {TRAIN_ARCH} float32 step 0 on {mesh.shape}: loss {loss_mesh:.7f} vs one "
+        f"device {loss_one:.7f} (rtol {TRAIN_LOSS_RTOL}); gradient relative L2 errors "
+        f"{json.dumps(rel)} (<= {TRAIN_GRAD_REL_L2}); the meshed float32 step {f32_s:.3f} s")
+    if not abs(loss_mesh - loss_one) <= TRAIN_LOSS_RTOL * abs(loss_one):
+        raise AssertionError(f"meshed float32 loss {loss_mesh} vs one device {loss_one}")
+    bad = {k: r for k, r in rel.items() if not r <= TRAIN_GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"meshed gradients off the one-device ones: {bad}")
+
+    model.compute_dtype = torch.bfloat16  # the config's compute dtype, float32 masters
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 2, MESH_TRAIN_STEPS),
+                          moment_dtype=cfg.optimizer_moment_dtype)
+    step_fn = make_train_step(model, opt_cfg, mesh=mesh)
+    del model
+    state = TrainState.create(shards, opt_cfg)
+    del shards
+    batches = [pipe.shards_at(i) for i in range(MESH_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, losses = [], []
+
+    def train():
+        nonlocal state
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+
+    counted("qwen_mesh_train", launches, train)
+    peak = torch.cuda.max_memory_allocated(dev)
+    trace = device_breakdown(lambda: step_fn(state, batches[0]), top=12)
+    if any(launches["qwen_mesh_train"].values()):
+        raise AssertionError(f"meshed training launched kernels: {launches['qwen_mesh_train']}")
+    # The first step's loss is step 0's float32 one in bf16 compute.
+    if not all(np.isfinite(losses)) or not abs(losses[0] - loss_mesh) <= \
+            TRAIN_LOSS_RTOL * abs(loss_mesh):
+        raise AssertionError(f"meshed losses {losses}, the float32 step 0's {loss_mesh}")
+    warm = sorted(step_s[1:])
+    step_ms = 1e3 * warm[len(warm) // 2]
+    bound_ms, reckoning = train_step_bound(get_config(TRAIN_ARCH), MESH_TRAIN_BATCH,
+                                           MESH_TRAIN_SEQ)
+    rec = dict(path="qwen_mesh_train", arch=TRAIN_ARCH, mesh=mesh.shape, batch=MESH_TRAIN_BATCH,
+               seq_len=MESH_TRAIN_SEQ, steps=MESH_TRAIN_STEPS, step_ms=[1e3 * t for t in step_s],
+               median_step_ms=step_ms, tokens_per_s=MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+               / (step_ms / 1e3), peak_mem_bytes=peak, launches=launches["qwen_mesh_train"],
+               flash_launches=launches["qwen_mesh_train"]["flash_attention"], losses=losses,
+               bound_ms=bound_ms, bound_share=bound_ms / step_ms, loss_f32_mesh=loss_mesh,
+               loss_f32_one_device=loss_one, grad_rel_l2=rel, f32_mesh_step_s=f32_s,
+               trace=trace)
+    log(f"[mesh train] {json.dumps(rec)}")
+    log(f"[mesh train] {TRAIN_ARCH} on {mesh.shape}: step {step_ms:.3f} ms (median of steps "
+        f"2-{MESH_TRAIN_STEPS}; first {1e3 * step_s[0]:.3f}), {rec['tokens_per_s']:.1f} "
+        f"tokens/s, peak {peak / 1e9:.3f} GB, 0 kernel launches, device busy "
+        f"{100 * trace['device_busy_share']:.1f}% of a traced step; bound {bound_ms:.3f} ms "
+        f"({100 * bound_ms / step_ms:.2f}%)")
+    del state, batches, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase14_moe(dev, launches):
+    """(b) llama4-scout at its published widths, MOE_TRAIN_LAYERS of 48
+    layers, on MESH_TRAIN_MESH: the float32-compute loss, aux and router
+    gradient against a one-device run whose MoE layers run
+    ``moe_blockwise_reference`` over the mesh's blocks; the dispatch slots
+    routed otherwise and the slots dropped a block; then MOE_TRAIN_STEPS
+    bf16 steps (bf16 moments, as the config says), launch counts zeroed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedDataPipeline
+    from repro_torch.models import build_model, moe, transformer
+    from repro_torch.models.model import gather_leaves, mesh_model, shard_leaves
+    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
+                                   mesh_value_and_grad, warmup_cosine)
+
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), num_layers=MOE_TRAIN_LAYERS,
+                              microbatches=1)
+    mesh = card_mesh(dev, MESH_TRAIN_MESH)
+    n_data, n_model = MESH_TRAIN_MESH
+    model = build_model(cfg, device=dev, dtype=torch.float32, compute_dtype=torch.float32,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = model.num_params()
+    routers = [k for k, _ in model.named_parameters() if k.endswith("moe.router")]
+    pipe = ShardedDataPipeline(mesh=mesh, global_batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+                               vocab=model.cfg.vocab_size, seed=0)
+    inner = transformer.moe_einsum
+
+    def blockwise(p, x, *, cfg):
+        return moe.moe_blockwise_reference(p, x, cfg, n_data, n_model)
+
+    one_disp, mesh_disp = [], []
+    params = model.flat_params()
+    leaves = {k: v.detach().requires_grad_(k in routers) for k, v in params.items()}
+    transformer.moe_einsum = blockwise
+    try:
+        with recorded_dispatches(one_disp):
+            loss, metrics = model.train_loss(pipe.batch_at(0), leaves)
+            one = dict(zip(routers, torch.autograd.grad(loss, [leaves[k] for k in routers])))
+    finally:
+        transformer.moe_einsum = inner
+    loss_one, aux_one = float(metrics["loss"]), float(metrics["aux_loss"])
+    del leaves, loss, metrics
+    meshed = mesh_model(model, mesh)
+    shards = shard_leaves(meshed, params)
+    skeleton = build_model(cfg, device="meta", dtype=torch.float32, compute_dtype=torch.float32)
+    del params, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    records, inner_apply = [], moe.moe_apply
+
+    def recording(m, pre, hs, record=None):
+        if records:  # the first call only: remat's recompute routes again
+            return inner_apply(m, pre, hs, record)
+        rec = []
+        out = inner_apply(m, pre, hs, rec)
+        records.extend(rec)
+        return out
+
+    transformer.moe_mod.moe_apply = recording
+    try:
+        with recorded_dispatches(mesh_disp):
+            _, metrics, grads = mesh_value_and_grad(skeleton, mesh)(shards, pipe.shards_at(0))
+    finally:
+        transformer.moe_mod.moe_apply = inner_apply
+    loss_mesh, aux_mesh = float(metrics["loss"]), float(metrics["aux_loss"])
+    got = gather_leaves(meshed, [{k: g[k] for k in routers} for g in grads])
+    del grads
+    rel = {k: rel_l2(got[k], one[k]) for k in routers}
+    if [d.shape for d in mesh_disp] != [d.shape for d in one_disp]:
+        raise AssertionError(f"the mesh dispatched {len(mesh_disp)} blocks, the reference "
+                             f"{len(one_disp)}")
+    flipped = sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(mesh_disp, one_disp))
+    slots = sum(d.numel() for d in one_disp)
+    del one_disp, mesh_disp, got, one
+    k = cfg.experts_per_token
+    blocks = [dict(tokens=r["tokens"], slots=r["tokens"] * k, capacity=r["capacity"],
+                   dropped=r["dropped"]) for r in records]
+    log(f"[moe mesh train] {MOE_TRAIN_ARCH}, {MOE_TRAIN_LAYERS} layer, {n_params} parameters, "
+        f"float32 compute on {mesh.shape}: loss {loss_mesh:.7f} vs blockwise one device "
+        f"{loss_one:.7f}, aux {aux_mesh:.7f} vs {aux_one:.7f}; router gradient relative L2 "
+        f"{json.dumps(rel)}; {flipped} of {slots} dispatch slots routed otherwise; slots "
+        f"dropped a block (dropped, slots, capacity) "
+        f"{[(b['dropped'], b['slots'], b['capacity']) for b in blocks]}")
+    for name, got_v, want in (("loss", loss_mesh, loss_one), ("aux", aux_mesh, aux_one)):
+        if not abs(got_v - want) <= TRAIN_LOSS_RTOL * abs(want):
+            raise AssertionError(f"meshed float32 {name} {got_v} vs blockwise {want}")
+    bad = {k: r for k, r in rel.items() if not r <= TRAIN_GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"meshed router gradients off the blockwise ones: {bad}")
+
+    skeleton.compute_dtype = torch.bfloat16
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 1, MOE_TRAIN_STEPS),
+                          moment_dtype=cfg.optimizer_moment_dtype)
+    # The state is donated, as the train command line (and JAX's) does: the
+    # old and the new 34 GB states are never both whole.
+    step_fn = make_train_step(skeleton, opt_cfg, mesh=mesh, donate=True)
+    state = TrainState.create(shards, opt_cfg)
+    del shards
+    state_bytes = sum(t.numel() * t.element_size() for tree in
+                      (state.params, state.opt["m"], state.opt["v"]) for sh in tree
+                      for t in sh.values())
+    batches = [pipe.shards_at(i) for i in range(MOE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, losses, auxes = [], [], []
+
+    def train():
+        nonlocal state
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            auxes.append(float(metrics["aux_loss"]))
+            step_s.append(time.perf_counter() - t0)
+
+    counted("llama4_mesh_train", launches, train)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(launches["llama4_mesh_train"].values()):
+        raise AssertionError(f"meshed MoE training launched kernels: "
+                             f"{launches['llama4_mesh_train']}")
+    if not all(np.isfinite(losses + auxes)):
+        raise AssertionError(f"meshed MoE losses {losses}, aux {auxes}")
+    if peak > MESH_TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"peak memory {peak} bytes over {MESH_TRAIN_PEAK_LIMIT:.0f}")
+    step_ms = 1e3 * sorted(step_s[1:])[len(step_s[1:]) // 2]
+    rec = dict(path="llama4_mesh_train", arch=MOE_TRAIN_ARCH, layers=MOE_TRAIN_LAYERS,
+               params=n_params, mesh=mesh.shape, batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ,
+               steps=MOE_TRAIN_STEPS, step_ms=[1e3 * t for t in step_s], median_step_ms=step_ms,
+               tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (step_ms / 1e3),
+               peak_mem_bytes=peak, state_bytes=state_bytes,
+               launches=launches["llama4_mesh_train"], losses=losses, aux=auxes,
+               loss_f32_mesh=loss_mesh, loss_f32_blockwise=loss_one, aux_f32_mesh=aux_mesh,
+               aux_f32_blockwise=aux_one, router_grad_rel_l2=rel, dispatch_slots=slots,
+               slots_routed_otherwise=flipped, drops=blocks)
+    log(f"[moe mesh train] {json.dumps(rec)}")
+    log(f"[moe mesh train] step {step_ms:.3f} ms (first {1e3 * step_s[0]:.3f}), "
+        f"{rec['tokens_per_s']:.1f} tokens/s, state {state_bytes / 1e9:.3f} GB, peak "
+        f"{peak / 1e9:.3f} GB, 0 kernel launches")
+    del state, batches, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase14_cli(dev, tmp):
+    """(c) ``launch.train --model-parallel 2`` with ``REPRO_DEVICES=4`` (a
+    (2, 2) mesh of card positions), 2 of 24 layers, uninterrupted and with
+    ``--fail-at-step 3``, both at once: the same losses and bitwise the same
+    final checkpoint; that checkpoint restored by ``elastic_restore`` onto
+    (1, 4) positions and onto one device, each state gathered bitwise the
+    saved one."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.checkpoint import flatten_with_paths
+    from repro_torch.runtime.resilience import elastic_restore
+    from repro_torch.train import AdamWConfig, gather_train_state, train_state_shapes
+    from repro_torch.train.train_step import state_to_jax
+
+    recs = {}
+
+    def train(n, extra):
+        recs[n] = run_cli("repro_torch.launch.train",
+                          [*RESTART_MODEL, *RESTART_ARGS, *MESH_CLI_ARGS, "--device", CLI_DEVICE,
+                           "--ckpt-dir", str(tmp / n), *extra],
+                          env=dict(REPRO_DEVICES=MESH_CLI_DEVICES))
+
+    threads = [threading.Thread(target=train, args=a)
+               for a in (("plain", ()), ("failed", ("--fail-at-step", "3")))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if set(recs) != {"plain", "failed"}:
+        raise AssertionError(f"a command line failed: {sorted(recs)} came back")
+    plain, failed = recs["plain"], recs["failed"]
+    if plain["mesh"] != {"data": 2, "model": 2} or failed["mesh"] != plain["mesh"]:
+        raise AssertionError(f"the command lines ran on {plain['mesh']}, {failed['mesh']}")
+    if (plain["restarts"], failed["restarts"], plain["steps"], failed["steps"]) != (0, 1, 6, 6):
+        raise AssertionError(f"restarts / steps: {plain['restarts']}, {failed['restarts']}, "
+                             f"{plain['steps']}, {failed['steps']}")
+    if failed["losses"] != plain["losses"] or not all(np.isfinite(plain["losses"])):
+        raise AssertionError(f"losses differ: {failed['losses']} vs {plain['losses']}")
+    arch = RESTART_MODEL[RESTART_MODEL.index("--arch") + 1]
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    skeleton = build_model(cfg, device="meta", dtype=torch.float32)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
+    like = state_to_jax(skeleton, train_state_shapes(skeleton, opt_cfg))
+    saved = []
+    for n in ("plain", "failed"):
+        mgr = CheckpointManager(str(tmp / n))
+        if mgr.latest_step() != 6:
+            raise AssertionError(f"{n}: last checkpoint {mgr.latest_step()}")
+        saved.append(flatten_with_paths(mgr.restore(6, like)))
+    a, b = saved
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or differ:
+        raise AssertionError(f"restarted meshed run's final state differs at {differ[:5]}")
+    mgr = CheckpointManager(str(tmp / "plain"))
+    restores = {}
+    for name, target in (("(1, 4)", card_mesh(dev, (1, 4))), ("one device", dev)):
+        t0 = time.perf_counter()
+        _, state = elastic_restore(mgr, 6, skeleton, opt_cfg, target)
+        if name != "one device":
+            state = gather_train_state(skeleton, state, target, "cpu")
+        got = flatten_with_paths(state_to_jax(skeleton, state))
+        differ = [k for k in a if not torch.equal(got[k].cpu(), a[k])]
+        if sorted(got) != sorted(a) or differ:
+            raise AssertionError(f"elastic restore onto {name} differs at {differ[:5]}")
+        restores[name] = time.perf_counter() - t0
+        del state, got
+    torch.cuda.empty_cache()
+    log(f"[mesh train cli] --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: 6 steps with "
+        f"a failure at step 3 equal the uninterrupted run bit for bit ({len(a)} leaves, losses "
+        f"{plain['losses']}); its step-6 checkpoint restored onto (1, 4) and one device "
+        f"bitwise in {json.dumps(restores)} s")
+    return dict(plain=plain, failed=failed, elastic_restore_s=restores)
+
+
+def phase14(dev, launches):
+    """Training on a model mesh of positions of the card: (a) qwen1.5-0.5b
+    whole, (b) llama4-scout's MoE, (c) the train command line."""
+    out = {}
+    for name, fn in (("a qwen", phase14_qwen), ("b llama4", phase14_moe)):
+        t0 = time.perf_counter()
+        out[name.split()[1]] = fn(dev, launches)
+        log(f"[phase] 14{name} {time.perf_counter() - t0:.3f} s")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
+    t0 = time.perf_counter()
+    try:
+        out["cli"] = phase14_cli(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase] 14c train cli {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=sum(launches[p][name] for p in paths),
@@ -3381,16 +3763,18 @@ def main():
         raise AssertionError(f"phases 8 and 9 left {tmp} behind")
     mesh_fits, mesh_times, mesh_bin_times = phase("10 device mesh", phase10, dev, launches,
                                                   fits, keep)
+    del keep  # phase 10 was its last reader; phase 14 needs ~60 GB of the card
+    torch.cuda.empty_cache()
     families, family_check = phase("11 other LM families", phase11, dev, launches)
     training = phase("12 training", phase12, dev, launches)
     mp_serves, mp_check, mp_flash_times, mp_flash_err = phase(
         "13 model parallelism", phase13, dev, launches, serve_check["bf16_vs_f32_err"])
+    mesh_training = phase("14 training on a model mesh", phase14, dev, launches)
     flash_times += mp_flash_times
     flash_err = max(flash_err, mp_flash_err)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
-    del keep
     rng = np.random.default_rng(1)
 
     def tables(*shape):
@@ -3451,7 +3835,8 @@ def main():
                         plan_paths=plan_paths, out_of_core=ooc, multi_host=mh,
                         device_mesh=mesh_fits, families=families,
                         family_check=family_check, training=training,
-                        model_parallel=mp_serves, model_parallel_check=mp_check)))
+                        model_parallel=mp_serves, model_parallel_check=mp_check,
+                        mesh_training=mesh_training)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -65,9 +65,11 @@ encoder-decoder) are served by :mod:`repro_torch.serve` over
     >>> ServeEngine(build_model(get_config("yi-6b"))).serve([Request([1, 2, 3])])
 
 and trained (:mod:`repro_torch.train`: AdamW, the train step with
-microbatches and data parallelism over a mesh; checkpoints in the JAX
-package's layout, :class:`CheckpointManager`; the step-indexed token
-pipeline, :class:`ShardedDataPipeline`), attending through plain PyTorch:
+microbatches, data parallelism over a mesh and, for the dense, MoE and VLM
+families, tensor and expert parallelism on a ``("data", "model")`` mesh;
+checkpoints in the JAX package's layout, :class:`CheckpointManager`; the
+step-indexed token pipeline, :class:`ShardedDataPipeline`), attending
+through plain PyTorch:
 
     >>> model = build_model(get_config("qwen1.5-0.5b"), dtype=torch.float32,
     ...                     compute_dtype="bfloat16")

@@ -57,7 +57,9 @@ class ShardedDataPipeline:
     def shards_at(self, step: int) -> list:
         """Each batch position's ``{"tokens", "targets"}`` (rows, S) int32 on
         its device, in mesh order: tokens are a row's first S ids, targets
-        the S after the first."""
+        the S after the first.  A train step on a model mesh takes these
+        shards as they are (each position's rows never pass through one
+        device)."""
         per = self.global_batch // len(self._devices)
         out = []
         for i, dev in enumerate(self._devices):

@@ -19,7 +19,10 @@ The selection half: ``axes_tuple`` and ``mesh_extent``, plus what
   pair, read off the mesh;
 * ``shard_window``: a shard's rows (or columns) of a padded matrix, a view
   of the unpadded one wherever the shard lies inside it;
-* ``psum``: the cross-shard sum, in mesh order, on one device.
+* ``psum``: the cross-shard sum, in mesh order, on one device;
+* ``shard_slices`` and :class:`ShardedArray`: a tensor's blocks as a
+  spec lays them out, and a tensor held as its blocks (what a training
+  state on a model mesh checkpoints and restores).
 """
 
 from __future__ import annotations
@@ -139,6 +142,73 @@ def flat_axis_index(coords: dict, axes, mesh) -> int:
     return idx
 
 
+def spec_axes(spec) -> set:
+    """The mesh axes a :class:`PartitionSpec` shards over."""
+    return {a for e in spec if e is not None for a in axes_tuple(e)}
+
+
+def shard_slices(mesh, coords: dict, spec, shape) -> tuple:
+    """The block of a tensor of ``shape`` laid out by ``spec`` that the
+    position at ``coords`` holds: one slice a dim."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            out.append(slice(None))
+        else:
+            n = dim // mesh_extent(mesh, entry)
+            lo = flat_axis_index(coords, entry, mesh) * n
+            out.append(slice(lo, lo + n))
+    return tuple(out)
+
+
+def _positions(mesh) -> list:
+    """Each position's coordinates (axis name -> index), row-major."""
+    return [dict(zip(mesh.axis_names, c)) for c in np.ndindex(mesh.devices.shape)]
+
+
+class ShardedArray:
+    """A tensor laid out over a mesh as ``spec`` lays it out (what a JAX
+    array with a ``NamedSharding`` is): ``parts[i]`` is the block the
+    position ``i`` (row-major) holds, on its device, or None where the
+    position repeats a block an earlier position holds (only each block's
+    first holder is needed to assemble the whole).  A checkpoint writes it
+    whole (:meth:`whole`) and restores it block by block
+    (:meth:`from_whole`)."""
+
+    __slots__ = ("parts", "mesh", "spec", "shape")
+
+    def __init__(self, parts: list, mesh, spec):
+        self.parts, self.mesh, self.spec = list(parts), mesh, PartitionSpec(*spec)
+        first = next(p for p in self.parts if p is not None)
+        self.shape = tuple(d * mesh_extent(mesh, e) for d, e in zip(first.shape, self.spec))
+
+    def whole(self, device="cpu") -> torch.Tensor:
+        """The tensor assembled on ``device`` from each block's first holder."""
+        first = next(p for p in self.parts if p is not None)
+        out = torch.empty(self.shape, dtype=first.dtype, device=device)
+        done = set()
+        for part, coords in zip(self.parts, _positions(self.mesh)):
+            sl = shard_slices(self.mesh, coords, self.spec, self.shape)
+            key = tuple((s.start, s.stop) for s in sl)
+            if part is not None and key not in done:
+                out[sl] = part.to(device)
+                done.add(key)
+        return out
+
+    @classmethod
+    def from_whole(cls, t: torch.Tensor, mesh, spec) -> "ShardedArray":
+        """``t`` laid out over ``mesh``: every position a fresh contiguous
+        copy of its block on its device (``meta`` blocks for a ``meta``
+        tensor)."""
+        spec = PartitionSpec(*spec)
+        parts = []
+        for dev, coords in zip(mesh.devices.flat, _positions(mesh)):
+            block = t[shard_slices(mesh, coords, spec, t.shape)]
+            part = torch.empty(block.shape, dtype=t.dtype, device="meta" if t.is_meta else dev)
+            parts.append(part if t.is_meta else part.copy_(block))
+        return cls(parts, mesh, spec)
+
+
 def grid_devices(mesh, obs_axes, feat_axes) -> list:
     """``[i][j]``: the device holding observation shard ``i`` of feature
     shard ``j`` — the position whose flat index along ``obs_axes`` is ``i``
@@ -192,6 +262,7 @@ def psum(parts, device) -> torch.Tensor:
 
 __all__ = [
     "PartitionSpec",
+    "ShardedArray",
     "ShardingRules",
     "axes_tuple",
     "flat_axis_index",
@@ -200,5 +271,7 @@ __all__ = [
     "mesh_extent",
     "psum",
     "rules_for",
+    "shard_slices",
     "shard_window",
+    "spec_axes",
 ]

@@ -21,10 +21,21 @@ loop restores the latest checkpoint and the run ends bit-identical to an
 uninterrupted one (parameters and every step's loss).  On the card the
 command first sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
 ``torch.use_deterministic_algorithms(True)``: the backward of the embedding
-gather accumulates with atomics otherwise.  ``--model-parallel`` other than
-1 is refused (training on a model mesh is ROADMAP.md §1 item 2b).  Prints
-one JSON line: the device, the steps run, every step's loss, the restarts
-and the seconds a step.
+gather accumulates with atomics otherwise.
+
+``--model-parallel N`` (N > 1) trains the dense, MoE and VLM archs on the
+local mesh ``launch.mesh.build_local_mesh(N)``: ``(positions / N, N)`` on
+``("data", "model")`` over ``REPRO_DEVICES`` positions of the device, the
+state held as each position's blocks, the batch read a data shard a
+position (``ShardedDataPipeline.shards_at``); checkpoints are the same
+whole-array files, restored onto the mesh.  The SSM, hybrid and
+encoder-decoder archs are refused (ROADMAP.md §1 item 2c)::
+
+    REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --model-parallel 2 --steps 6 --global-batch 4 --seq-len 32
+
+Prints one JSON line: the device, the mesh, the steps run, every step's
+loss, the restarts and the seconds a step.
 """
 
 from __future__ import annotations
@@ -41,12 +52,13 @@ import torch
 from repro_torch.data.pipeline import ShardedDataPipeline
 from repro_torch.device import device_name, resolve_device
 from repro_torch.dist.meshes import make_mesh
+from repro_torch.launch.mesh import build_local_mesh
 from repro_torch.launch.model_args import add_model_args, resolve_config
-from repro_torch.models.model import build_model
+from repro_torch.models.model import MESH_FAMILIES, build_model
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.resilience import StepWatchdog, run_with_restarts
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
-from repro_torch.train.train_step import (TrainState, make_train_step, state_from_jax,
+from repro_torch.train.train_step import (init_train_state, make_train_step, state_from_jax,
                                           state_to_jax, train_state_shapes)
 
 log = logging.getLogger("repro_torch.train")
@@ -87,21 +99,27 @@ def deterministic_card() -> None:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: the port trains on one card, data parallel; "
-                         "training on a model mesh is ROADMAP.md §1 item 2b")
     dev = resolve_device(args.device)
+    cfg = resolve_config(args)
+    mesh = None
+    if args.model_parallel != 1:
+        if cfg.family not in MESH_FAMILIES:
+            raise SystemExit(f"--model-parallel: {cfg.name} ({cfg.family}) does not train on a "
+                             f"model mesh; the {', '.join(MESH_FAMILIES)} families do (SSM, "
+                             "hybrid and encoder-decoder tensor parallelism is ROADMAP.md §1 "
+                             "item 2c)")
+        mesh = build_local_mesh(args.model_parallel, device=dev)
     if dev.type == "cuda":
         deterministic_card()
-    cfg = resolve_config(args)
     model = build_model(cfg, device=dev, dtype=torch.float32, compute_dtype=cfg.dtype,
                         generator=torch.Generator(device=dev).manual_seed(args.seed))
     opt_cfg = AdamWConfig(learning_rate=warmup_cosine(args.lr, args.warmup, args.steps),
                           moment_dtype=cfg.optimizer_moment_dtype)
-    step_fn = make_train_step(model, opt_cfg)
-    pipe = ShardedDataPipeline(mesh=make_mesh((1,), ("data",), devices=[dev]),
+    step_fn = make_train_step(model, opt_cfg, mesh=mesh, donate=True)  # as JAX's jit donates
+    pipe = ShardedDataPipeline(mesh=mesh or make_mesh((1,), ("data",), devices=[dev]),
                                global_batch=args.global_batch, seq_len=args.seq_len,
                                vocab=cfg.vocab_size, seed=args.seed)
+    batch_at = pipe.batch_at if mesh is None else pipe.shards_at
     if args.ckpt_dir is None:
         args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)
@@ -115,15 +133,16 @@ def main(argv=None) -> dict:
     restarts = {"n": -1}
 
     def make_state():
-        return TrainState.create(model.flat_params(), opt_cfg)
+        return init_train_state(model, opt_cfg, mesh)
 
     def state_like():
-        return state_to_jax(model, train_state_shapes(model, opt_cfg))
+        return state_to_jax(model, train_state_shapes(model, opt_cfg, mesh), mesh)
 
     def run_from(state):
         restarts["n"] += 1
-        if any(isinstance(v, dict) for v in state.params.values()):  # restored: JAX layout
-            state = state_from_jax(model, state, dev)
+        if isinstance(state.params, dict) and any(isinstance(v, dict)
+                                                  for v in state.params.values()):
+            state = state_from_jax(model, state, None if mesh else dev)  # restored: JAX layout
         start = int(state.step)
         try:
             with StepWatchdog(timeout_s=args.watchdog_s) as dog:
@@ -132,7 +151,7 @@ def main(argv=None) -> dict:
                         failed_once["done"] = True
                         raise RuntimeError(f"injected failure at step {step}")
                     t0 = time.perf_counter()
-                    state, metrics = step_fn(state, pipe.batch_at(step))
+                    state, metrics = step_fn(state, batch_at(step))
                     loss = float(metrics["loss"])  # waits for the step
                     times.append(time.perf_counter() - t0)
                     losses[step] = loss
@@ -140,15 +159,16 @@ def main(argv=None) -> dict:
                     if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
                         log.info("step %d loss %.4f %.3f s/step", step + 1, loss, times[-1])
                     if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-                        ckpt.save(step + 1, state_to_jax(model, state))
+                        ckpt.save(step + 1, state_to_jax(model, state, mesh))
         finally:
             ckpt.wait()  # a restart reads the checkpoint this attempt saved last
         return state
 
     t0 = time.perf_counter()
     state = run_with_restarts(make_state, run_from, ckpt=ckpt, state_like_fn=state_like,
-                              shardings=dev, max_restarts=args.max_restarts)
+                              shardings=mesh or dev, max_restarts=args.max_restarts)
     out = {"arch": cfg.name, "preset": args.preset, "device": device_name(dev),
+           "mesh": None if mesh is None else mesh.shape,
            "params": model.num_params(), "compute_dtype": cfg.dtype,
            "steps": int(state.step), "losses": [losses[s] for s in sorted(losses)],
            "restarts": restarts["n"], "seconds": time.perf_counter() - t0,

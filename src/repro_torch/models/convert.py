@@ -59,7 +59,7 @@ def _as_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(leaf))  # a writable copy
 
 
-def _jax_paths(model) -> dict:
+def jax_paths(model) -> dict:
     """port name -> (JAX path, layer index within its stack or None)."""
     by_attr: dict = {}  # layer list attribute -> {position in the group: stack}
     for stack, (attr, _, j) in _stacks(model).items():
@@ -79,7 +79,7 @@ def jax_ndims(model) -> dict:
     """port name -> the number of axes of its leaf in the JAX layout (one
     more than here for a leaf of a layer stack)."""
     return {name: p.dim() + (paths[name][1] is not None)
-            for paths in [_jax_paths(model)] for name, p in model.named_parameters()}
+            for paths in [jax_paths(model)] for name, p in model.named_parameters()}
 
 
 def params_from_jax_tree(model, tree: dict, device=None) -> dict:
@@ -134,7 +134,7 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def params_to_jax(model, params: dict) -> dict:
     """A flat port dict (names of ``model.named_parameters()``) -> the JAX
     tree on the host: layer stacks restacked along a leading axis."""
-    paths = _jax_paths(model)
+    paths = jax_paths(model)
     if set(params) != set(paths):
         raise KeyError(f"params and the model differ in {sorted(set(params) ^ set(paths))[:5]}")
     groups: dict = {}

@@ -19,7 +19,8 @@ weights only through :func:`repro_torch.models.convert.params_from_jax`.  :class
 a nested dict of weights as modules named by the JAX parameter paths;
 :class:`LMBase` is what every model shares (dtypes, device, counts, the
 unembedding, the flat parameter dict training works on).
-:func:`cross_entropy_loss` is the training loss.
+:func:`cross_entropy_loss` is the training loss, :func:`vocab_parallel_nll`
+its form on vocabulary-sharded logits (a model mesh).
 """
 
 from __future__ import annotations
@@ -328,3 +329,38 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if mask is None:
         return nll.mean()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _reduce_in_order(vals: list, op: str) -> list:
+    """The max or sum of ``vals`` in list order on the first one's device,
+    handed to each (one group of vocabulary shards)."""
+    dev = vals[0].device
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.maximum(out, v.to(dev)) if op == "max" else out + v.to(dev)
+    return [out.to(v.device) for v in vals]
+
+
+def vocab_parallel_nll(logits: list, targets: list, starts: list,
+                       reduce=_reduce_in_order) -> list:
+    """Next-token negative log-likelihood from vocabulary-sharded logits,
+    without gathering them: ``logits[i]`` (B, S, V_i) holds the columns
+    ``[starts[i], starts[i] + V_i)`` of the (B, S, V) logits, ``targets[i]``
+    (B, S) the rows' targets.  ``reduce(values, "max" | "sum")`` reduces
+    over the shards that share rows and hands every shard the result (by
+    default: all of them, in list order).  The row max is a max over the
+    shards (held out of the gradient: the logsumexp's own max cancels), the
+    sum of exponentials and the target's logit are sums, so the logsumexp
+    covers every column, padding included, as :func:`cross_entropy_loss`'s
+    does.  -> each shard's float32 (B, S) nll."""
+    lf = [x.to(torch.float32) for x in logits]
+    mx = reduce([x.detach().amax(dim=-1) for x in lf], "max")
+    sumexp = reduce([torch.exp(x - m[..., None]).sum(dim=-1) for x, m in zip(lf, mx)], "sum")
+    gold = []
+    for x, t, lo in zip(lf, targets, starts):
+        loc = t.long() - lo
+        hit = (loc >= 0) & (loc < x.shape[-1])
+        g = torch.gather(x, -1, loc.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        gold.append(torch.where(hit, g, 0))
+    gold = reduce(gold, "sum")
+    return [torch.log(s) + m - g for s, m, g in zip(sumexp, mx, gold)]

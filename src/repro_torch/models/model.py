@@ -32,6 +32,7 @@ The vocabulary is padded to a multiple of 16 as the JAX package pads it.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -40,7 +41,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import flat_axis_index, mesh_extent, rules_for
+from repro_torch.dist.sharding import ShardedArray, rules_for, spec_axes
 from repro_torch.models import encdec
 from repro_torch.models.attention import attention_defs
 from repro_torch.models.layers import (
@@ -55,6 +56,7 @@ from repro_torch.models.layers import (
     norm_apply,
     norm_defs,
     param_specs,
+    vocab_parallel_nll,
 )
 from repro_torch.models.mamba import mamba_cache, mamba_defs
 from repro_torch.models.moe import moe_defs
@@ -250,12 +252,13 @@ def _build_decoder(cfg: ModelConfig, **kw) -> DecoderLM:
 
 # -- the model mesh ------------------------------------------------------------
 
-MESH_FAMILIES = ("dense", "moe", "vlm")  # the families a model mesh serves
+MESH_FAMILIES = ("dense", "moe", "vlm")  # the families a model mesh serves and trains
 
 
 class MeshLM:
-    """A decoder-only LM of an attention family, served on a mesh
-    (:func:`shard_params` builds it from a one-device model).
+    """A decoder-only LM of an attention family, served and trained on a
+    mesh (:func:`shard_params` builds it from a one-device model,
+    :func:`mesh_model` its structure alone).
 
     Every position holds its shard of every weight, as ``param_specs``
     lays it out, on its own device; positions may repeat a device.  The
@@ -275,6 +278,9 @@ class MeshLM:
     the experts) add the partials in mesh order, not in the one-device
     product's order: the logits match the one-device model's within float
     rounding, not bit for bit.
+
+    ``train_loss(batch, shards)`` is :meth:`DecoderLM.train_loss` on the
+    mesh, differentiable in the per-position weights ``shards``.
     """
 
     def __init__(self, cfg, mesh, specs: dict, shapes: dict, shards: list, kinds,
@@ -293,6 +299,25 @@ class MeshLM:
 
     def spec(self, name: str):
         return self.specs[name]
+
+    def replica_axes(self, name: str) -> tuple:
+        """The mesh axes ``name`` is replicated over: the positions that
+        differ only along them hold the same block."""
+        used = spec_axes(self.specs[name])
+        return tuple(a for a in self.mesh.axis_names if a not in used)
+
+    def owners(self, name: str) -> list:
+        """The positions holding a distinct block of ``name``, in mesh
+        order: each block's first holder."""
+        rep = self.replica_axes(name)
+        return [i for i, c in enumerate(self.ctx.coords) if not any(c[a] for a in rep)]
+
+    def with_shards(self, shards: list) -> "MeshLM":
+        """This model reading its weights from ``shards`` (one flat dict a
+        position, as a training state holds them)."""
+        out = copy.copy(self)
+        out.shards = shards
+        return out
 
     def local(self, name: str) -> list:
         """Each position's stored shard of ``name``."""
@@ -354,10 +379,11 @@ class MeshLM:
             out.append(torch.where(hit[..., None], rows, 0))
         return ctx.psum(out, ctx.model_axis)
 
-    def _logits(self, xs: list) -> torch.Tensor:
+    def _vocab_logits(self, xs: list) -> tuple[list, bool]:
         """Final norm and the vocabulary-column-parallel unembedding (the
-        embedding table transposed when tied), gathered over the mesh ->
-        (B, S, V) on ``device``."""
+        embedding table transposed when tied) -> (each position's logits
+        (B / n_batch, S, V or V / tp), whether they are its vocabulary
+        shard)."""
         cfg, ctx = self.cfg, self.ctx
         norms = self.weights("top.final_norm")
         hs = [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for p, x in zip(norms, xs)]
@@ -367,9 +393,14 @@ class MeshLM:
         else:
             name, dim = "top.unembed", 1
             out = [h @ w.to(h.dtype) for h, w in zip(hs, self.weight(name))]
-        if is_sharded(self.spec(name), dim, ctx.model_axis):
-            out = ctx.all_gather(out, ctx.model_axis, -1)
-        return ctx.gather_batch(out, self.device)
+        return out, is_sharded(self.spec(name), dim, ctx.model_axis)
+
+    def _logits(self, xs: list) -> torch.Tensor:
+        """The logits gathered over the mesh -> (B, S, V) on ``device``."""
+        out, sharded = self._vocab_logits(xs)
+        if sharded:
+            out = self.ctx.all_gather(out, self.ctx.model_axis, -1)
+        return self.ctx.gather_batch(out, self.device)
 
     def _run(self, xs, positions, caches, pos, use_kernel) -> list:
         cfg = self.cfg
@@ -377,8 +408,73 @@ class MeshLM:
                  for p in positions]
         for l, (_, ffn) in enumerate(self.kinds):
             xs = mesh_block_apply(self, l, xs, ffn, ropes, [c[l] for c in caches], pos,
-                                  use_kernel)
+                                  use_kernel)[0]
         return xs
+
+    def split_inputs(self, batch) -> list:
+        """Each position's rows of a batch on its device: ``batch`` is the
+        global batch (a dict of (B, ...) tensors, split over the batch
+        axes) or one dict a batch shard in order, as
+        ``ShardedDataPipeline.shards_at`` gives them."""
+        ctx = self.ctx
+        if isinstance(batch, dict):
+            cols = {k: ctx.split_batch(v) for k, v in batch.items()}
+            return [{k: v[i] for k, v in cols.items()} for i in range(ctx.n)]
+        if len(batch) != ctx.n_batch:
+            raise ValueError(f"{len(batch)} batch shards for {ctx.n_batch} batch positions")
+        return [{k: v.to(dev) for k, v in batch[j].items()}
+                for j, dev in zip(ctx.batch_index, ctx.devices)]
+
+    def train_loss(self, batch, shards: list | None = None):
+        """:meth:`DecoderLM.train_loss` on the mesh -> (loss + AUX_COEF *
+        aux, {"loss", "aux_loss"}), scalars on ``device``, with the
+        weights ``shards`` (one flat dict a position; default the model's
+        own).  ``batch`` as :meth:`split_inputs` takes it.
+
+        Each layer runs under ``cfg.remat``.  The cross-entropy is taken on
+        each position's vocabulary shard of the logits
+        (:func:`~repro_torch.models.layers.vocab_parallel_nll`, the
+        reductions over ``model``), never on the gathered (B, S, V) logits;
+        each batch shard's mean is summed in mesh order and divided by the
+        shard count.  The MoE aux loss is each layer's mean over the
+        expert-parallel blocks, summed over layers.  The loss reads only
+        the first position's values: the psums carry every position's part
+        of them, so the gradient of every position's weights follows."""
+        m = self if shards is None else self.with_shards(shards)
+        return m.train_loss_positions(self.split_inputs(batch))
+
+    def train_loss_positions(self, parts: list):
+        """:meth:`train_loss` of inputs already split: one dict a position,
+        as :meth:`split_inputs` gives them."""
+        cfg, ctx = self.cfg, self.ctx
+        targets = [p["targets"] for p in parts]
+        b, s = targets[0].shape
+        if "embeds" in parts[0]:
+            xs = [p["embeds"].to(self.dtype) for p in parts]
+        else:
+            xs = self._embed([p["tokens"] for p in parts])
+        positions = [p["positions"] if "positions" in p
+                     else torch.arange(s, device=x.device).expand(b, s) for p, x in zip(parts, xs)]
+        ropes = [rope_cos_sin(p, cfg.head_dim, theta=cfg.rope_theta, sections=cfg.mrope_sections)
+                 for p in positions]
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+        for l, (_, ffn) in enumerate(self.kinds):
+            xs, aux_l = remat(mesh_block_apply, cfg.remat)(self, l, xs, ffn, ropes, None, None)
+            aux = [a + b for a, b in zip(aux, aux_l)]
+        logits, sharded = self._vocab_logits(xs)
+        if sharded and ctx.tp > 1:
+            ax = ctx.model_axis
+
+            def reduce(vals, op):
+                return ctx.pmax(vals, ax) if op == "max" else ctx.psum(vals, ax)
+
+            starts = [j * x.shape[-1] for x, j in zip(logits, ctx.model_index)]
+            means = [n.mean() for n in vocab_parallel_nll(logits, targets, starts, reduce)]
+        else:
+            means = [cross_entropy_loss(x, t) for x, t in zip(logits, targets)]
+        loss = ctx.psum(means, ctx.batch_axes)[0].to(self.device) / ctx.n_batch
+        aux = aux[0].to(self.device)
+        return loss + AUX_COEF * aux, {"loss": loss, "aux_loss": aux}
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor | None = None, *, embeds: torch.Tensor | None = None,
@@ -411,17 +507,56 @@ class MeshLM:
         return self._logits(xs), caches
 
 
-def _shard_index(ctx, i: int, spec, shape) -> tuple:
-    """Position ``i``'s slices of a weight of ``shape`` laid out by ``spec``."""
-    out = []
-    for dim, entry in zip(shape, spec):
-        if entry is None:
-            out.append(slice(None))
+def mesh_model(model, mesh=None) -> MeshLM:
+    """The structure of ``model`` on ``mesh`` (default: the mesh
+    ``build_model(..., mesh=)`` kept): its weights' specs by
+    ``param_specs`` and whole shapes, no weights (``model`` may be a
+    ``meta`` skeleton).  The SSM, hybrid and encoder-decoder families are
+    refused: their tensor-parallel forms are ROADMAP.md §1 item 2c."""
+    mesh = model.mesh if mesh is None else mesh
+    cfg = model.cfg
+    if mesh is None:
+        raise ValueError("a model mesh needs a mesh (build_model(..., mesh=) or mesh=)")
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): a model mesh serves and trains the "
+            f"{', '.join(MESH_FAMILIES)} families; SSM, hybrid and encoder-decoder tensor "
+            "parallelism is ROADMAP.md §1 item 2c")
+    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    return MeshLM(cfg, mesh, param_specs(model, mesh), shapes, None, model.kinds,
+                  model.param_dtype, model.compute_dtype)
+
+
+def shard_leaves(meshed: MeshLM, flat: dict, share_replicated: bool = False) -> list:
+    """A one-device flat dict (weights, or anything shaped as them: the
+    AdamW moments, meta tensors) -> one flat dict a position, each leaf the
+    block its spec gives the position, a fresh contiguous copy on the
+    position's device (``ShardedArray.from_whole``).  With
+    ``share_replicated`` a leaf replicated over the whole mesh is stored
+    once a device (the one-device tensor itself on its own device), as a
+    served model keeps it; a training state holds a copy a position, whose
+    gradient the step sums over the positions."""
+    ctx = meshed.ctx
+    shards = [{} for _ in range(ctx.n)]
+    for name, w in flat.items():
+        w, spec = w.detach(), meshed.spec(name)
+        if share_replicated and not spec_axes(spec):
+            per_device: dict = {}
+            parts = [per_device.setdefault(dev, w.to(dev)) for dev in ctx.devices]
         else:
-            n = dim // mesh_extent(ctx.mesh, entry)
-            lo = flat_axis_index(ctx.coords[i], entry, ctx.mesh) * n
-            out.append(slice(lo, lo + n))
-    return tuple(out)
+            parts = ShardedArray.from_whole(w, ctx.mesh, spec).parts
+        for sh, part in zip(shards, parts):
+            sh[name] = part
+    return shards
+
+
+def gather_leaves(meshed: MeshLM, shards: list, device=None) -> dict:
+    """The inverse of :func:`shard_leaves`: name -> the whole tensor on
+    ``device`` (default the mesh's first), assembled from each block's
+    first holder."""
+    device = meshed.device if device is None else device
+    return {name: ShardedArray([sh[name] for sh in shards], meshed.mesh,
+                               meshed.spec(name)).whole(device) for name in shards[0]}
 
 
 def shard_params(model, mesh=None) -> MeshLM:
@@ -431,48 +566,16 @@ def shard_params(model, mesh=None) -> MeshLM:
     so the shards together hold one device's bytes.  A weight replicated
     over the mesh is stored once a device (on the model's own device, the
     model's tensor itself).  One-device weights may come from
-    ``params_from_jax``.  The SSM, hybrid and encoder-decoder families
-    are refused: their tensor-parallel forms are ROADMAP.md §1 item 2c."""
-    mesh = model.mesh if mesh is None else mesh
-    cfg = model.cfg
-    if mesh is None:
-        raise ValueError("shard_params needs a mesh (build_model(..., mesh=) or mesh=)")
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): a model mesh serves the {', '.join(MESH_FAMILIES)} "
-            "families; SSM, hybrid and encoder-decoder tensor parallelism is ROADMAP.md §1 "
-            "item 2c")
-    ctx = RunCtx(mesh)
-    specs = param_specs(model, mesh)
-    shards = [{} for _ in range(ctx.n)]
-    shapes = {}
-    for name, p in model.named_parameters():
-        w, spec = p.detach(), specs[name]
-        shapes[name] = tuple(w.shape)
-        per_device: dict = {}
-        for i, dev in enumerate(ctx.devices):
-            if all(e is None for e in spec):
-                shards[i][name] = per_device.setdefault(dev, w.to(dev))
-            else:
-                part = w[_shard_index(ctx, i, spec, w.shape)]
-                shards[i][name] = torch.empty(part.shape, dtype=part.dtype,
-                                              device=dev).copy_(part)
-    return MeshLM(cfg, mesh, specs, shapes, shards, model.kinds, model.param_dtype,
-                  model.compute_dtype)
+    ``params_from_jax``.  Refuses what :func:`mesh_model` refuses."""
+    meshed = mesh_model(model, mesh)
+    meshed.shards = shard_leaves(meshed, model.flat_params(), share_replicated=True)
+    return meshed
 
 
 def gather_params(meshed: MeshLM, device=None) -> dict:
     """The inverse of :func:`shard_params`: name -> the whole weight on
     ``device`` (default the mesh's first), assembled from the shards."""
-    device = meshed.device if device is None else device
-    ctx, out = meshed.ctx, {}
-    for name, shape in meshed.shapes.items():
-        parts = meshed.local(name)
-        whole = torch.empty(shape, dtype=parts[0].dtype, device=device)
-        for i, part in enumerate(parts):
-            whole[_shard_index(ctx, i, meshed.spec(name), shape)] = part.to(device)
-        out[name] = whole
-    return out
+    return gather_leaves(meshed, meshed.shards, device)
 
 
 def gather_caches(meshed: MeshLM, caches: list, device=None) -> list:

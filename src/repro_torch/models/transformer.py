@@ -27,7 +27,8 @@ On a mesh (:class:`RunCtx`, :func:`mesh_block_apply`) the attention
 families run tensor parallel: every value is a list with one tensor a mesh
 position, and the collectives between them are explicit tensor operations
 in mesh order (a psum is a sum, an all-gather a ``cat``, a move between
-devices a ``.to``), differentiable as they stand.
+devices a ``.to``), differentiable as they stand: a meshed layer trains
+under autograd and :func:`remat` as a one-device layer does.
 """
 
 from __future__ import annotations
@@ -188,6 +189,15 @@ class RunCtx:
         """The sum over ``axes``, in mesh order."""
         return self._groupwise(vals, axes, lambda parts, dev: [psum(parts, dev)] * len(parts))
 
+    def pmax(self, vals: list, axes) -> list:
+        """The elementwise max over ``axes``."""
+        def pmax(parts, dev):
+            out = parts[0].to(dev)
+            for p in parts[1:]:
+                out = torch.maximum(out, p.to(dev))
+            return [out] * len(parts)
+        return self._groupwise(vals, axes, pmax)
+
     def all_gather(self, vals: list, axes, dim: int) -> list:
         """The members' values concatenated along ``dim``, in mesh order."""
         def gather(parts, dev):
@@ -256,7 +266,9 @@ def mesh_attn(m, pre: str, hs: list, ropes: list, caches, pos, use_kernel) -> li
     ``tp > 1``) each position computes its ``H / tp`` heads: its columns of
     ``wq``; its KV heads when ``KV % tp == 0``, else the K and V projections
     gathered over ``model`` and repeated to the query heads
-    (``attention.repeat_kv``), its heads of those.  Prefill runs the flash
+    (``attention.repeat_kv``), its heads of those.  Training (``caches``
+    None) attends through ``train_attention`` on the position's heads, as
+    the one-device ``train_loss`` does; prefill runs the flash
     kernel on the position's heads, decode attends over the position's own
     cache, which holds the KV heads its query heads read: ``KV / tp`` heads,
     or ``H / tp`` repeated heads where ``KV % tp != 0`` (JAX's
@@ -294,6 +306,10 @@ def mesh_attn(m, pre: str, hs: list, ropes: list, caches, pos, use_kernel) -> li
         k = [rotate(t, *r) for t, r in zip(k, ropes)]
     outs = []
     for i in range(ctx.n):
+        if caches is None:  # training: the JAX package's attention, no kernel
+            o = attn_mod.train_attention(q[i], k[i], v[i], causal=True, cfg=cfg)
+            outs.append(o.reshape(bsz, s, hq * hd))
+            continue
         cache, start = caches[i], 0 if pos is None else pos
         cache["k"][:, start:start + s] = k[i]
         cache["v"][:, start:start + s] = v[i]
@@ -337,8 +353,11 @@ def mesh_mlp(m, pre: str, hs: list) -> list:
 def mesh_block_apply(m, l: int, xs: list, ffn_kind: str, ropes: list, caches: list,
                      pos: int | None, use_kernel="auto") -> list:
     """Layer ``l`` of a meshed model (an attention layer) on the per-position
-    residual ``xs``, replicated over ``model``; ``caches`` holds each
-    position's cache of the layer; ``pos`` None is prefill."""
+    residual ``xs``, replicated over ``model`` -> (the new residual, each
+    position's MoE load-balance loss, averaged over the expert-parallel
+    blocks; float32 zeros but for MoE).  ``caches`` holds each position's
+    cache of the layer (None: training, no cache); ``pos`` None is
+    prefill."""
     cfg, pre = m.cfg, f"layers.{l}."
 
     def norm(name, ts):
@@ -347,11 +366,12 @@ def mesh_block_apply(m, l: int, xs: list, ffn_kind: str, ropes: list, caches: li
 
     mix = mesh_attn(m, pre + "attn.", norm("ln1", xs), ropes, caches, pos, use_kernel)
     xs = [x + y for x, y in zip(xs, mix)]
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     if ffn_kind == "none":
-        return xs
+        return xs, aux
     hs = norm("ln2", xs)
     if ffn_kind == "moe":
-        ys = moe_mod.moe_apply(m, pre + "moe.", hs)[0]
+        ys, aux = moe_mod.moe_apply(m, pre + "moe.", hs)
     else:
         ys = mesh_mlp(m, pre + "mlp.", hs)
-    return [x + y for x, y in zip(xs, ys)]
+    return [x + y for x, y in zip(xs, ys)], aux

@@ -13,8 +13,14 @@ a crash mid-write never corrupts the latest checkpoint, and the two
 packages read each other's checkpoints: the port's trainer saves
 ``train.train_step.state_to_jax(model, state)``, the JAX stacked layout.
 
-Leaves are numpy arrays or tensors (taken to the host when ``save`` is
-called; the file is written on a background thread when ``use_async``).
+Leaves are numpy arrays, tensors or
+:class:`~repro_torch.dist.sharding.ShardedArray` s (a state on a model
+mesh: each leaf assembled whole on the host, as a single JAX process
+writes it, so the files equal those of the same state on one device),
+taken to the host when ``save`` is called; the file is written on a
+background thread when ``use_async``.  ``restore(..., shardings=mesh)``
+lays each leaf that ``like`` gives as a ``ShardedArray`` out onto the
+mesh's positions by its spec, a copy of its block a position.
 bfloat16 leaves are stored as the JAX package stores them, 2-byte void
 (``|V2``) records of their bits; a ``|V2`` record read back is bfloat16.
 """
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist.multihost import process_count, process_index
+from repro_torch.dist.sharding import ShardedArray
 
 SEP = "\x1e"  # record separator: flat pytree key
 
@@ -84,7 +91,10 @@ def unflatten_like(like, values: dict):
 
 
 def to_host(leaf) -> np.ndarray:
-    """A leaf as the numpy array the file stores (bfloat16 as ``|V2``)."""
+    """A leaf as the numpy array the file stores (bfloat16 as ``|V2``; a
+    sharded leaf whole)."""
+    if isinstance(leaf, ShardedArray):
+        leaf = leaf.whole()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -100,15 +110,18 @@ def from_host(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _place(shardings):
-    """restore's target: None (the host), a device, or a Mesh (its first
-    position's device)."""
+def _place(t: torch.Tensor, like, shardings):
+    """restore's placement of the stored tensor ``t``: on the host (None),
+    a device, or a Mesh (laid out over it where ``like`` is a
+    ``ShardedArray``, else on its first position's device)."""
     if shardings is None:
-        return torch.device("cpu")
+        return t
     devices = getattr(shardings, "devices", None)
-    if devices is not None:
-        return devices.flat[0]
-    return torch.device(shardings)
+    if devices is None:
+        return t.to(torch.device(shardings))
+    if isinstance(like, ShardedArray):
+        return ShardedArray.from_whole(t, shardings, like.spec)
+    return t.to(devices.flat[0])
 
 
 class CheckpointManager:
@@ -211,14 +224,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, like, shardings=None):
-        """Restore into the structure of ``like`` (a tree of tensors, arrays
-        or ``meta`` tensors; only its keys matter): tensors in the stored
-        dtypes, on ``shardings`` (a device, a Mesh — its first position's
-        device — or None for the host).  Only ``like``'s keys are read."""
+        """Restore into the structure of ``like`` (a tree of tensors, arrays,
+        ``meta`` tensors or ``ShardedArray`` s of them; only its keys and
+        the sharded leaves' specs matter): tensors in the stored dtypes, on
+        ``shardings`` (a device; a Mesh, over which a ``ShardedArray`` leaf
+        is laid out by its spec and any other leaf goes to its first
+        position's device; or None for the host).  Only ``like``'s keys are
+        read."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        want = set(flatten_with_paths(like))
+        flat_like = flatten_with_paths(like)
+        want = set(flat_like)
         data = {}
         for i in range(manifest["num_processes"]):
             fp = os.path.join(path, f"proc_{i}.npz")
@@ -228,8 +245,8 @@ class CheckpointManager:
         missing = want - set(data)
         if missing:
             raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]}...")
-        device = _place(shardings)
-        return unflatten_like(like, {k: from_host(v).to(device) for k, v in data.items()})
+        return unflatten_like(like, {k: _place(from_host(v), flat_like[k], shardings)
+                                     for k, v in data.items()})
 
 
 __all__ = ["SEP", "CheckpointManager", "flatten_with_paths", "unflatten_like"]

@@ -15,7 +15,8 @@ errors of one call (flaky I/O, a preempted worker):
   one wobble never fails a job.
 * ``elastic_restore`` — restore a checkpoint onto a DIFFERENT mesh: the
   checkpoint layout is mesh-agnostic (whole host arrays), so scaling from
-  N to M positions is a restore onto the new mesh.
+  N to M positions, a model mesh or one device, is a restore onto the new
+  layout.
 """
 
 from __future__ import annotations
@@ -165,12 +166,16 @@ def run_with_restarts(
 
 
 def elastic_restore(ckpt, step: int, model, opt_cfg, new_mesh):
-    """Restore checkpoint ``step`` of ``model`` onto ``new_mesh`` (a
-    data-parallel train step over it keeps its state on the first
-    position's device) -> (model, the port ``TrainState`` there)."""
+    """Restore checkpoint ``step`` of ``model`` onto ``new_mesh`` -> (model,
+    the port ``TrainState`` there).  A mesh with a ``model`` axis gets each
+    position's blocks, as ``make_train_step(model, opt_cfg, mesh=new_mesh)``
+    trains them; a mesh of batch axes only keeps the state on its first
+    position's device, as a data-parallel step does; a device (or None,
+    the host) holds the state whole.  The checkpoint itself is whole
+    arrays, so any of these restores any checkpoint."""
     from repro_torch.train.train_step import state_from_jax, state_to_jax, train_state_shapes
 
-    like = state_to_jax(model, train_state_shapes(model, opt_cfg))
+    like = state_to_jax(model, train_state_shapes(model, opt_cfg, mesh=new_mesh), new_mesh)
     restored = ckpt.restore(step, like, new_mesh)
     return model, state_from_jax(model, restored)
 

@@ -7,6 +7,11 @@ Python constants rounded to float32 where the JAX package's weak types
 round them.  Parameter, gradient and moment trees are flat dicts name ->
 tensor (the port's parameter names).  ``moment_dtype="bfloat16"`` stores the
 moments in half the bytes; all update math runs in float32.
+
+On a model mesh each position holds a flat dict of its blocks: the update
+is elementwise, so it runs block by block (``adamw_update`` a position,
+with the norm of :func:`shard_global_norm` passed in), as JAX's runs on
+sharded arrays.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import math
 from typing import Callable
 
 import torch
+
+from repro_torch.dist.sharding import psum
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
@@ -69,17 +76,36 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
+def shard_global_norm(shards: list, owners: dict, device) -> torch.Tensor:
+    """:func:`global_norm` of a tree held as blocks over a mesh:
+    ``shards[i]`` is position ``i``'s flat dict, ``owners[name]`` the
+    positions holding a distinct block of ``name`` (so a block replicated
+    over positions is counted once).  One float32 sum of squares a block,
+    the blocks summed in mesh order on ``device``, the names in sorted
+    order."""
+    leaves = [psum([torch.sum(torch.square(shards[i][k].to(torch.float32))) for i in owners[k]],
+                   device) for k in sorted(shards[0])]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
 def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: AdamWConfig,
-                 decay: dict | None = None):
+                 decay: dict | None = None, grad_norm: torch.Tensor | None = None,
+                 donate: bool = False):
     """-> (new params, new optimizer state, ``{"grad_norm", "lr"}``).
 
     ``decay[name]`` says whether a parameter takes weight decay; by default
     a parameter of two or more dimensions does (matrices, not norms or
     biases).  The JAX package decides on its stacked layout, where a
     layer's norm weights and biases are ``(L, d)``: a train step passes
-    that rule (``train_step.decay_mask``)."""
+    that rule (``train_step.decay_mask``).  ``grad_norm`` (default: the
+    :func:`global_norm` of ``grads``) is the norm the gradients are
+    clipped by: a position of a mesh updates its blocks by the whole
+    tree's norm.  ``donate`` consumes the inputs, as ``jax.jit(...,
+    donate_argnums=0)`` does the JAX trainer's state: each leaf's
+    parameter, moments and gradient leave their dicts as its update is
+    made, so the old and the new state are never both whole."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     # A tensor numerator: ``float / tensor`` would be a reciprocal times the
     # float in torch, one rounding more than the JAX package's division.
     clip = torch.tensor(cfg.grad_clip_norm, dtype=torch.float32, device=gnorm.device)
@@ -89,10 +115,13 @@ def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: AdamWConfig,
     b1c = 1 - cfg.b1 ** count.to(torch.float32)
     b2c = 1 - cfg.b2 ** count.to(torch.float32)
     new_p, new_m, new_v = {}, {}, {}
-    for name, p in params.items():
-        g = grads[name].to(torch.float32) * scale
-        m32 = cfg.b1 * opt_state["m"][name].to(torch.float32) + (1 - cfg.b1) * g
-        v32 = cfg.b2 * opt_state["v"][name].to(torch.float32) + (1 - cfg.b2) * g * g
+    take = dict.pop if donate else dict.__getitem__
+    for name in list(params):
+        p, m, v = (take(tree, name) for tree in (params, opt_state["m"], opt_state["v"]))
+        g = take(grads, name).to(torch.float32) * scale
+        m32 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
+        v32 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g * g
+        del m, v
         mhat = m32 / b1c
         vhat = v32 / b2c
         step = mhat / (torch.sqrt(vhat) + cfg.eps)
@@ -105,4 +134,35 @@ def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: AdamWConfig,
     return new_p, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gnorm, "lr": lr}
 
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "warmup_cosine"]
+def shard_adamw_update(grads: list, opt_state: dict, params: list, cfg: AdamWConfig,
+                       owners: dict, decay: dict | None = None, donate: bool = False):
+    """:func:`adamw_update` of a tree held as blocks over a mesh: ``grads``
+    and ``params`` one flat dict a position (every holder of a block with
+    its whole gradient), ``opt_state = {"m": [...], "v": [...], "count"}``
+    likewise, ``owners`` as :func:`shard_global_norm` takes it.  Every
+    block is clipped by the whole tree's norm and updated on its device.
+    Each position's gradients are released (``grads[i] = None``) once its
+    blocks are updated, so the whole gradient and the whole new state are
+    never held at once; ``donate`` consumes ``params`` and the moments as
+    :func:`adamw_update` does.  -> (new params, new state, ``{"grad_norm",
+    "lr"}``), the count and the metrics on the first position's device."""
+    lead = opt_state["count"].device
+    gnorm = shard_global_norm(grads, owners, lead)
+    new_p, new_m, new_v = [], [], []
+    for i, (g, p) in enumerate(zip(grads, params)):
+        dev = next(iter(p.values())).device
+        state_i = {"m": opt_state["m"][i], "v": opt_state["v"][i],
+                   "count": opt_state["count"].to(dev)}
+        p, o, metrics_i = adamw_update(g, state_i, p, cfg, decay, grad_norm=gnorm.to(dev),
+                                       donate=donate)
+        grads[i] = g = None
+        new_p.append(p)
+        new_m.append(o["m"])
+        new_v.append(o["v"])
+        if i == 0:
+            count, metrics = o["count"].to(lead), {k: v.to(lead) for k, v in metrics_i.items()}
+    return new_p, {"m": new_m, "v": new_v, "count": count}, metrics
+
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "shard_adamw_update",
+           "shard_global_norm", "warmup_cosine"]

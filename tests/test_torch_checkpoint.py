@@ -2,7 +2,9 @@
 (the seven cases of ``tests/test_checkpoint_multiproc.py``, N writers
 simulated on one directory through ``process_index``/``process_count``),
 checkpoints read across the two packages in both directions, bfloat16
-leaves included, and ``elastic_restore`` onto another mesh."""
+leaves included, ``elastic_restore`` onto another mesh, and a state on a
+model mesh: its files are the gathered state's, byte for byte, and it
+restores onto the mesh, onto another one and onto one device bitwise."""
 
 import os
 import threading
@@ -23,7 +25,8 @@ from repro_torch.dist import make_mesh
 from repro_torch.runtime import CheckpointManager
 from repro_torch.runtime.checkpoint import flatten_with_paths
 from repro_torch.runtime.resilience import elastic_restore
-from repro_torch.train import AdamWConfig, TrainState, global_norm, train_state_shapes
+from repro_torch.train import (AdamWConfig, TrainState, gather_train_state, global_norm,
+                               init_train_state, make_train_step, train_state_shapes)
 from repro_torch.train.train_step import state_from_jax, state_to_jax
 
 from torch_train_cases import batch_for, jax_pair
@@ -233,3 +236,89 @@ def test_a_restored_state_keeps_the_model_order(tmp_path, arch):
         g.view(-1)[0] = 4096.0 if i == 0 else 1.0
     reordered = {k: grads[k] for k in reversed(order)}
     assert torch.equal(global_norm(reordered), global_norm(grads))
+
+
+# -- a state on a model mesh ---------------------------------------------------
+
+def _mesh(shape):
+    return make_mesh(shape, ("data", "model"), devices=["cpu"] * 4)
+
+
+def _meshed_state(arch, moment_dtype, mesh):
+    """A smoke model's state on ``mesh`` after one step (moments non-zero)."""
+    _, _, model = jax_pair(arch, fsdp=True, microbatches=1)
+    cfg = AdamWConfig(moment_dtype=moment_dtype)
+    state = init_train_state(model, cfg, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(model.cfg, 4, 16, seed=1).items()}
+    state, _ = make_train_step(model, cfg, mesh=mesh)(state, batch)
+    return model, cfg, state
+
+
+def _files(d):
+    with np.load(d / "step_00000001" / "proc_0.npz") as z:
+        return {k: z[k] for k in z.files}, (d / "step_00000001" / "manifest.json").read_text()
+
+
+@pytest.mark.parametrize("arch,moment_dtype", [("qwen1.5-0.5b", "float32"),
+                                               ("llama4-scout-17b-a16e", "bfloat16")])
+def test_a_meshed_checkpoint_is_the_gathered_states_bytes(tmp_path, arch, moment_dtype):
+    """(2, 2) with fsdp: blocks over both axes, norms on all four positions;
+    every leaf written whole, as one JAX process writes it."""
+    mesh = _mesh((2, 2))
+    model, _, state = _meshed_state(arch, moment_dtype, mesh)
+    CheckpointManager(str(tmp_path / "mesh"), use_async=False).save(
+        1, state_to_jax(model, state, mesh))
+    CheckpointManager(str(tmp_path / "one"), use_async=False).save(
+        1, state_to_jax(model, gather_train_state(model, state, mesh, "cpu")))
+    (got, got_manifest), (want, want_manifest) = _files(tmp_path / "mesh"), _files(tmp_path / "one")
+    assert got_manifest == want_manifest and list(got) == list(want)
+    for k, a in want.items():
+        assert got[k].dtype == a.dtype and got[k].shape == a.shape, k
+        np.testing.assert_array_equal(_bits(got[k]), _bits(a), err_msg=k)
+
+
+def test_restore_onto_the_mesh_gives_each_position_its_block(tmp_path):
+    mesh = _mesh((2, 2))
+    model, cfg, state = _meshed_state("qwen1.5-0.5b", "float32", mesh)
+    mgr = CheckpointManager(str(tmp_path), use_async=False)
+    mgr.save(1, state_to_jax(model, state, mesh))
+    like = state_to_jax(model, train_state_shapes(model, cfg, mesh=mesh), mesh)
+    restored = state_from_jax(model, mgr.restore(1, like, shardings=mesh))
+    assert int(restored.step) == 1 and int(restored.opt["count"]) == 1
+    for got, want in ((restored.params, state.params), (restored.opt["m"], state.opt["m"]),
+                      (restored.opt["v"], state.opt["v"])):
+        assert len(got) == 4
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert list(g) == list(w)
+            for k in w:
+                assert g[k].device == mesh.devices.flat[i]
+                assert torch.equal(g[k], w[k]), (i, k)
+    ptrs = {restored.params[i]["top.final_norm.w"].data_ptr() for i in range(4)}
+    assert len(ptrs) == 4  # each position its own copy of a replicated leaf
+
+
+def test_elastic_restore_from_22_onto_14_and_one_device(tmp_path):
+    """(2, 2) -> (1, 4) -> one device, each state gathered bitwise the
+    saved one, and a step on (1, 4) from the restored state runs."""
+    mesh = _mesh((2, 2))
+    model, cfg, state = _meshed_state("dbrx-132b", "float32", mesh)
+    whole = gather_train_state(model, state, mesh, "cpu")
+    mgr = CheckpointManager(str(tmp_path / "a"), use_async=False)
+    mgr.save(1, state_to_jax(model, state, mesh))
+    wide = _mesh((1, 4))
+    same, on14 = elastic_restore(mgr, 1, model, cfg, wide)
+    assert same is model and len(on14.params) == 4
+    assert on14.params[0]["layers.0.attn.wq"].shape[1] == model.cfg.num_heads * \
+        model.cfg.head_dim // 4
+    mgr2 = CheckpointManager(str(tmp_path / "b"), use_async=False)
+    mgr2.save(1, state_to_jax(model, on14, wide))
+    _, one = elastic_restore(mgr2, 1, model, cfg, torch.device("cpu"))
+    for got in (gather_train_state(model, on14, wide, "cpu"), one):
+        assert int(got.step) == 1
+        for k in whole.params:
+            assert torch.equal(got.params[k], whole.params[k]), k
+            assert torch.equal(got.opt["m"][k], whole.opt["m"][k])
+            assert torch.equal(got.opt["v"][k], whole.opt["v"][k])
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(model.cfg, 4, 16, seed=2).items()}
+    _, metrics = make_train_step(model, cfg, mesh=wide)(on14, batch)
+    assert np.isfinite(float(metrics["loss"]))

@@ -1045,3 +1045,77 @@ def test_pipeline_apply_on_card_positions(cuda):
         if mb == 1:
             assert torch.equal(got, want)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b"])
+def test_model_mesh_gradients_on_card_positions_match_one_device(cuda, arch, monkeypatch):
+    """A (2, 2) ("data", "model") mesh of ``cuda:0`` positions against the
+    one-device model on the card, float32, from the same weights and batch:
+    the loss within 1e-5 and every gradient leaf within 1e-5 of its largest
+    value plus 1e-8 (the CPU tests' rule).  dbrx's one-device MoE layers run
+    ``moe_blockwise_reference`` over the mesh's blocks: the meshed aux loss
+    is the blocks' mean, and its gradient reaches every weight.  Then one
+    meshed AdamW step: finite, no kernel launched."""
+    import dataclasses
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.model import gather_leaves, mesh_model, shard_leaves
+    from repro_torch.train import (AdamWConfig, init_train_state, make_train_step,
+                                   mesh_value_and_grad)
+
+    cfg = dataclasses.replace(smoke_config(arch), capacity_factor=8.0, microbatches=1)
+    model = build_model(cfg, device="cpu", dtype=torch.float32,
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[cuda] * 4)
+    batch = _token_batch(model.cfg.vocab_size, 4, 64, cuda)
+    monkeypatch.setattr(transformer, "moe_einsum",
+                        lambda p, x, *, cfg: moe.moe_blockwise_reference(p, x, cfg, 2, 2))
+    leaves = {k: v.requires_grad_(True) for k, v in model.flat_params().items()}
+    loss, _ = model.train_loss(batch, leaves)
+    want = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    monkeypatch.undo()
+    meshed = mesh_model(model, mesh)
+    flash_attention_cuda.launches = 0
+    got_loss, _, grads = mesh_value_and_grad(model, mesh)(
+        shard_leaves(meshed, model.flat_params()), batch)
+    got = gather_leaves(meshed, grads)
+    np.testing.assert_allclose(float(got_loss), float(loss.detach()), rtol=1e-5)
+    for k, w in want.items():
+        assert got[k].device.type == "cuda"
+        err, scale = float((got[k] - w).abs().max()), float(w.abs().max())
+        assert err <= 1e-5 * scale + 1e-8, (k, err, scale)
+    opt = AdamWConfig(learning_rate=1e-3)
+    state, metrics = make_train_step(model, opt, mesh=mesh)(init_train_state(model, opt, mesh),
+                                                            batch)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == 0
+    assert np.isfinite(float(metrics["loss"])) and int(state.step) == 1
+
+
+def test_a_model_mesh_checkpoint_restores_onto_card_positions_bitwise(cuda, tmp_path):
+    """A (2, 2) state of ``cuda:0`` positions saved, restored by
+    ``elastic_restore`` onto (1, 4) card positions and onto the card whole:
+    bitwise the saved state."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.resilience import elastic_restore
+    from repro_torch.train import AdamWConfig, gather_train_state, init_train_state
+    from repro_torch.train.train_step import state_to_jax
+
+    model = _smoke_qwen(cuda)
+    opt = AdamWConfig()
+    square = make_mesh((2, 2), ("data", "model"), devices=[cuda] * 4)
+    state = init_train_state(model, opt, square)
+    state.opt["m"] = [{k: torch.randn_like(v) for k, v in sh.items()} for sh in state.opt["m"]]
+    mgr = CheckpointManager(str(tmp_path), use_async=False)
+    mgr.save(3, state_to_jax(model, state, square))
+    want = gather_train_state(model, state, square, "cpu")
+    wide = make_mesh((1, 4), ("data", "model"), devices=[cuda] * 4)
+    _, on14 = elastic_restore(mgr, 3, model, opt, wide)
+    _, whole = elastic_restore(mgr, 3, model, opt, cuda)
+    for got in (gather_train_state(model, on14, wide, "cpu"), whole):
+        for k, w in want.params.items():
+            assert torch.equal(got.params[k].cpu(), w), k
+            assert torch.equal(got.opt["m"][k].cpu(), want.opt["m"][k]), k
+    assert all(t.device.type == "cuda" for sh in on14.params for t in sh.values())

@@ -22,7 +22,7 @@ from repro.train.train_step import make_train_state_specs as jax_train_state_spe
 from repro_torch.configs import SHAPES, get_config, list_archs, smoke_config
 from repro_torch.dist import PartitionSpec, ShardingRules, logical_to_spec, rules_for
 from repro_torch.models import build_model
-from repro_torch.models.convert import _jax_paths
+from repro_torch.models.convert import jax_paths
 from repro_torch.train import make_train_state_specs
 
 MESHES = [{"data": 1, "model": 4}, {"data": 2, "model": 4}, {"data": 16, "model": 16},
@@ -103,7 +103,7 @@ def _check_specs(arch, preset, shape):
     bundle = jax_build_model(jcfg, mesh)
 
     specs, jspecs = model.specs(), bundle.specs()
-    paths = _jax_paths(model)
+    paths = jax_paths(model)
     assert set(specs) == set(paths)
     for name, (path, layer) in paths.items():
         want = _at(jspecs, path)

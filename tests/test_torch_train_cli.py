@@ -2,9 +2,11 @@
 failure ends bitwise equal to an uninterrupted one (the JAX package claims
 this of its train command line in a test file that does not exist, ROADMAP.md §3.4),
 its per-step losses match the JAX package's single-device
-``make_train_step`` from the same weights and batches, ``--model-parallel``
-is refused, and ``launch.serve --ckpt-dir`` serves the checkpoint's
-weights."""
+``make_train_step`` from the same weights and batches, ``--model-parallel
+2`` on four CPU positions (``REPRO_DEVICES=4``: a (2, 2) mesh) trains to
+the losses of ``--model-parallel 1`` and restarts from an injected crash
+bit for bit (an SSM arch is refused there), and ``launch.serve
+--ckpt-dir`` serves the checkpoint's weights."""
 
 import json
 import os
@@ -107,9 +109,52 @@ def test_without_ckpt_dir_each_run_checkpoints_apart(tmp_path, monkeypatch, runs
         assert rec["losses"] == runs[1]["losses"][:2]
 
 
-def test_model_parallel_is_refused(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 2"):
-        train_cli.main(ARGS + ["--ckpt-dir", str(tmp_path), "--model-parallel", "2"])
+@pytest.fixture(scope="module")
+def mp_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("train_mp")
+    before = os.environ.get("REPRO_DEVICES")
+    os.environ["REPRO_DEVICES"] = "4"
+    try:
+        mp = ARGS + ["--model-parallel", "2"]
+        plain = train_cli.main(mp + ["--ckpt-dir", str(d / "plain")])
+        failed = train_cli.main(mp + ["--ckpt-dir", str(d / "failed"), "--fail-at-step", "3"])
+    finally:
+        if before is None:
+            del os.environ["REPRO_DEVICES"]
+        else:
+            os.environ["REPRO_DEVICES"] = before
+    return d, plain, failed
+
+
+def test_model_parallel_losses_match_one_device(runs, mp_runs):
+    _, one, _ = runs
+    _, plain, _ = mp_runs
+    assert plain["mesh"] == {"data": 2, "model": 2} and one["mesh"] is None
+    assert plain["steps"] == 6 and plain["last_ckpt"] == 6
+    np.testing.assert_allclose(plain["losses"], one["losses"], rtol=1e-5)
+
+
+def test_model_parallel_restart_is_bitwise_an_uninterrupted_run(runs, mp_runs):
+    """The restart restores step 2's checkpoint onto the mesh and ends with
+    the losses and the final checkpoint of the uninterrupted meshed run,
+    bit for bit; that checkpoint is a whole-array one, as one device's."""
+    d, plain, failed = mp_runs
+    assert plain["restarts"] == 0 and failed["restarts"] == 1
+    assert failed["losses"] == plain["losses"] and len(failed["step_s"]) == 7
+    (step_a, a), (step_b, b) = _final(d / "plain"), _final(d / "failed")
+    assert step_a == step_b == 6 and sorted(a) == sorted(b)
+    _, one = _final(runs[0] / "plain")
+    assert sorted(a) == sorted(one)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert a[k].shape == one[k].shape and a[k].dtype == one[k].dtype, k
+
+
+def test_model_parallel_refuses_an_ssm_arch(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_DEVICES", "4")
+    with pytest.raises(SystemExit, match="item 2c"):
+        train_cli.main(ARGS + ["--ckpt-dir", str(tmp_path), "--model-parallel", "2",
+                               "--arch", "mamba2-1.3b"])
 
 
 def test_serve_loads_the_checkpoint_and_decodes(runs):
