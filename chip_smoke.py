@@ -251,6 +251,31 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    checkpoint, restored by ``elastic_restore`` onto (1, 4) positions and
    onto one device bitwise.
 
+15. The SSM, hybrid and encoder-decoder families on a model mesh of
+   positions of ``cuda:0``.  (a) mamba2-1.3b whole: served in bf16 on
+   (1, 4) (16 SSM heads and 1024 channels a position, phase 11's waves)
+   through ``mesh_serve`` (the one-device run first; the tokens by the
+   margin rule, the float32-compute logits within ``MAMBA_F32_REL`` of
+   their largest magnitude, as the one-device ones are of a float64
+   witness; no kernel), one decode step traced (its kernel launches); then trained on
+   (2, 2), 4 x 2048 tokens, through ``mesh_train_family``: a float32 step
+   on the mesh and on one device (the loss within ``TRAIN_LOSS_RTOL``, the
+   leaves of ``MAMBA_GRAD_LEAVES`` by ``TRAIN_GRAD_REL_L2``), then 3 bf16
+   steps with the launch counts zeroed (all 0), step ms, tokens/s, the
+   share of ``mamba_step_bound``, peak memory, one step traced.  (b)
+   whisper-tiny whole on (2, 2): 8 requests of 1500 frames and a 4-token
+   prompt, 32 greedy tokens, bf16 and float32, flash once a position a
+   layer of each of its three attentions (48 a prefill), each held to the
+   plain version on its own q, k, v, the float32 tokens equal to one
+   device's; trained on 8 x (1500 frames, 448 tokens).  (c) jamba's smoke
+   superblock on (2, 2) and (1, 4) through ``mesh_serve`` (the reference's
+   MoE layers run ``moe_blockwise_reference``), trained on (2, 2) (the
+   float32 loss, aux and a router's gradient against the blockwise run).
+   (d) ``launch.serve --model-parallel 2`` on mamba2 (phase 13 (d)'s
+   check) and ``launch.train --model-parallel 2`` at 4 of its 48 layers
+   (phase 14 (c)'s).  Flash timed at whisper's per-position shapes (B=4,
+   S=T=1500 and S=4, T=1500, H=KV=3, D=64, non-causal).
+
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
 1000 x 16 x 16, the class-major view of a 1000 x 2 x 2 x 2 stack, phase 9's
@@ -287,7 +312,8 @@ launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
 12's and phase 14's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
 llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
 path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
-16); each
+16), phase 15's likewise (whisper 48, jamba 4 a wave; mamba2 and every
+training path none); each
 spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
@@ -304,6 +330,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -1184,10 +1211,15 @@ def phase5(dev, launches, keep):
                  host_transform_block_s=transform_s), mrec, prec]
 
 
-def device_breakdown(fn, top=6):
+def device_breakdown(fn, top=6, host_ops=True):
     """Time ``fn()`` once on the host clock, then once more under
     ``torch.profiler``: the device-only activities (kernels, copies) by
-    name, their sum, and its share of the profiled call's wall time."""
+    name, their sum, and its share of the profiled call's wall time.
+    ``host_ops=False`` records the device's activity alone (no host
+    operator events beside it).  The rows are summed from the profiler's
+    raw events: building its Python event list takes ~70 us an event,
+    minutes for a step of ~10^5 launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1195,17 +1227,21 @@ def device_breakdown(fn, top=6):
     fn()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.self_cpu_time_total == 0 and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, calls = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+    rows = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in rows)
     return dict(host_s=host_s, profiled_wall_ms=wall_ms, device_ms=device_ms,
-                device_busy_share=device_ms / wall_ms,
+                device_busy_share=device_ms / wall_ms, device_calls=sum(c for _, _, c in rows),
                 top=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
 
 
@@ -3025,7 +3061,7 @@ def recorded_dispatches(seen):
         moe._dispatch = inner
 
 
-def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
+def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None, f32_rel=None):
     """Serve ``reqs`` with ``make_model()`` on one device (the reference:
     tokens, margins and last prefill logits through the kernel, and the last
     prefill logits computed in float32 from the same bf16 weights), then
@@ -3035,12 +3071,15 @@ def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
     version on its own q, k, v; the float32-compute last prefill logits
     within ``MESH_F32_TOL`` of the one-device model's, the bf16 ones within
     ``bf16_bound`` where given; the tokens held to the one-device run's by
-    ``margin_rule``."""
+    ``margin_rule``.  With ``f32_rel`` (a deep model whose float32 rounding
+    grows past ``MESH_F32_TOL``) the one-device model's float64-compute
+    logits are the witness: the meshed and the one-device float32 logits
+    each within ``f32_rel`` of its largest magnitude, and of each other."""
     from repro_torch.models.model import shard_params
     from repro_torch.serve import Request
 
-    def logits_f32(m, dispatched):
-        dtype, m.compute_dtype = m.compute_dtype, torch.float32
+    def logits_f32(m, dispatched, compute=torch.float32):
+        dtype, m.compute_dtype = m.compute_dtype, compute
         try:
             with recorded_dispatches(dispatched):
                 return last_logits(m, reqs, "auto")
@@ -3053,6 +3092,9 @@ def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
     one_logits = last_logits(model, reqs, "auto")
     one_disp, mesh_disp = [], []
     one32 = logits_f32(model, one_disp)
+    t64 = time.perf_counter()
+    one64 = None if f32_rel is None else logits_f32(model, [], torch.float64)
+    t64 = time.perf_counter() - t64
     own = max((a - b).abs().max().item() for a, b in zip(one_logits, one32))
     t0 = time.perf_counter()
     meshed = shard_params(model, mesh)
@@ -3086,8 +3128,22 @@ def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
     slots = sum(d.numel() for d in one_disp)
     f32_tol = MESH_F32_TOL if flipped == 0 else FLASH_BF16_TOL
     f32_err = max((a - b).abs().max().item() for a, b in zip(mesh32, one32))
-    for a, b in zip(mesh32, one32):
-        torch.testing.assert_close(a, b, **f32_tol)
+    if one64 is None:
+        for a, b in zip(mesh32, one32):
+            torch.testing.assert_close(a, b, **f32_tol)
+    else:  # each wave's errors as shares of its float64 logits' largest magnitude
+        f32_tol = dict(rel_of_max=f32_rel)
+        witness = {name: max(((a.double() - b.double()).abs().max() / w.abs().max()).item()
+                             for a, b, w in zip(x, y, one64))
+                   for name, x, y in (("mesh_vs_one_device", mesh32, one32),
+                                      ("mesh_vs_float64", mesh32, one64),
+                                      ("one_device_vs_float64", one32, one64))}
+        log(f"[{tag}] float32 last-position logits as shares of the float64 witness's largest "
+            f"magnitude: {json.dumps(witness)} (limit {f32_rel}; the witness {t64:.3f} s)")
+        if not all(e <= f32_rel for e in witness.values()):
+            raise AssertionError(f"{tag}: float32 logits off: {witness} > {f32_rel}")
+        f32_tol["witness"] = witness
+    del one64
     del one_disp, mesh_disp
     logit_err = max((a - b).abs().max().item() for a, b in zip(mesh_logits, one_logits))
     if bf16_bound is not None and not logit_err <= bf16_bound:
@@ -3097,16 +3153,19 @@ def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None):
                  one_device_bf16_vs_f32=own, f32_err=f32_err, f32_tol=f32_tol,
                  f32_dispatch_slots=slots, f32_slots_routed_otherwise=flipped,
                  tokens_equal=outs == one_outs,
-                 agreement=agree, shard_s=shard_s, layer_abs_err=max(e for e, _ in layer_errs),
-                 layer_row_err=max(r for _, r in layer_errs), weight_bytes=meshed.weight_bytes(),
+                 agreement=agree, shard_s=shard_s,
+                 layer_abs_err=max((e for e, _ in layer_errs), default=0.0),
+                 layer_row_err=max((r for _, r in layer_errs), default=0.0),
+                 prefill_attentions_held=len(layer_errs), weight_bytes=meshed.weight_bytes(),
                  one_device=one_rec)
     rec.update(arch=meshed.cfg.name, layers=meshed.cfg.num_layers, mesh=mesh.shape,
                params=meshed.num_params(), weight_bytes=meshed.weight_bytes(),
                dtype=str(meshed.dtype)[6:])
     log(f"[{tag}] mesh vs one device, last-position logits: float32 compute {f32_err:.4e} "
         f"(limit {f32_tol}; {flipped} of {slots} MoE dispatch slots routed otherwise); bf16 {logit_err:.4e} (limit {bf16_bound}; the one-device "
-        f"bf16 vs float32 compute {own:.4e}); each position's prefill attention vs plain: "
-        f"max abs err {check['layer_abs_err']:.3e}, max row err {check['layer_row_err']:.3e}; "
+        f"bf16 vs float32 compute {own:.4e}); each of the {len(layer_errs)} prefill attentions "
+        f"of the positions vs plain: max abs err {check['layer_abs_err']:.3e}, max row err "
+        f"{check['layer_row_err']:.3e}; "
         f"tokens equal {check['tokens_equal']}: {json.dumps(agree)}")
     return meshed, rec, check
 
@@ -3239,10 +3298,10 @@ def phase13_pipeline(dev):
     return rec
 
 
-def phase13_cli(dev):
+def phase13_cli(dev, cli_args=None):
     """(d) ``launch.serve --model-parallel 2`` with ``REPRO_DEVICES=4`` (a
     (2, 2) mesh of card positions) and ``--model-parallel 1``, both at once
-    as subprocesses; their tokens held to each other by the margin rule
+    as subprocesses, on ``cli_args`` (default ``MP_CLI_ARGS``); their tokens held to each other by the margin rule
     (bf16 greedy tokens of random weights flip where two logits nearly
     tie): the one-device run's margins come from the same model and prompts
     rebuilt here from the command line's seed (its tokens must equal the
@@ -3253,8 +3312,9 @@ def phase13_cli(dev):
     from repro_torch.models.model import shard_params
     from repro_torch.serve import Request
 
+    cli_args = MP_CLI_ARGS if cli_args is None else cli_args
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_DEVICES="4")
-    cmds = {n: [sys.executable, "-m", "repro_torch.launch.serve", *MP_CLI_ARGS,
+    cmds = {n: [sys.executable, "-m", "repro_torch.launch.serve", *cli_args,
                 "--model-parallel", n] for n in ("1", "2")}
     t0 = time.perf_counter()
     procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -3276,9 +3336,11 @@ def phase13_cli(dev):
         f"{json.dumps({n: {k: o[k] for k in ('mesh', 'new_tokens', 'prefill_s', 'decode_ms_per_step', 'first_tokens')} for n, o in outs.items()})}")
     if outs["2"]["mesh"] != {"data": 2, "model": 2} or outs["1"]["mesh"] is not None:
         raise AssertionError(f"the command lines ran on {outs['1']['mesh']}, {outs['2']['mesh']}")
-    cfg = get_config(MP_CLI_ARGS[MP_CLI_ARGS.index("--arch") + 1])
+    cfg = get_config(cli_args[cli_args.index("--arch") + 1])
     model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    prompts = np.random.default_rng(0).integers(0, model.cfg.vocab_size, size=(8, 32))
+    # The command line draws its prompts over the config's own vocabulary
+    # (the model pads it to a multiple of 16).
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(8, 32))
     reqs = [Request(p.tolist(), 16) for p in prompts]
     engine = margin_engine(model)
     one = engine.serve(reqs)
@@ -3615,9 +3677,10 @@ def phase14_moe(dev, launches):
     return rec
 
 
-def phase14_cli(dev, tmp):
+def phase14_cli(dev, tmp, model_args=None):
     """(c) ``launch.train --model-parallel 2`` with ``REPRO_DEVICES=4`` (a
-    (2, 2) mesh of card positions), 2 of 24 layers, uninterrupted and with
+    (2, 2) mesh of card positions) on ``model_args`` (default
+    ``RESTART_MODEL``: 2 of qwen's 24 layers), uninterrupted and with
     ``--fail-at-step 3``, both at once: the same losses and bitwise the same
     final checkpoint; that checkpoint restored by ``elastic_restore`` onto
     (1, 4) positions and onto one device, each state gathered bitwise the
@@ -3630,11 +3693,12 @@ def phase14_cli(dev, tmp):
     from repro_torch.train import AdamWConfig, gather_train_state, train_state_shapes
     from repro_torch.train.train_step import state_to_jax
 
+    model_args = RESTART_MODEL if model_args is None else model_args
     recs = {}
 
     def train(n, extra):
         recs[n] = run_cli("repro_torch.launch.train",
-                          [*RESTART_MODEL, *RESTART_ARGS, *MESH_CLI_ARGS, "--device", CLI_DEVICE,
+                          [*model_args, *RESTART_ARGS, *MESH_CLI_ARGS, "--device", CLI_DEVICE,
                            "--ckpt-dir", str(tmp / n), *extra],
                           env=dict(REPRO_DEVICES=MESH_CLI_DEVICES))
 
@@ -3654,8 +3718,9 @@ def phase14_cli(dev, tmp):
                              f"{plain['steps']}, {failed['steps']}")
     if failed["losses"] != plain["losses"] or not all(np.isfinite(plain["losses"])):
         raise AssertionError(f"losses differ: {failed['losses']} vs {plain['losses']}")
-    arch = RESTART_MODEL[RESTART_MODEL.index("--arch") + 1]
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    arch = model_args[model_args.index("--arch") + 1]
+    layers = int(model_args[model_args.index("--num-layers") + 1])
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     skeleton = build_model(cfg, device="meta", dtype=torch.float32)
     opt_cfg = AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
     like = state_to_jax(skeleton, train_state_shapes(skeleton, opt_cfg))
@@ -3683,7 +3748,7 @@ def phase14_cli(dev, tmp):
         restores[name] = time.perf_counter() - t0
         del state, got
     torch.cuda.empty_cache()
-    log(f"[mesh train cli] --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: 6 steps with "
+    log(f"[mesh train cli] {arch} --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: 6 steps with "
         f"a failure at step 3 equal the uninterrupted run bit for bit ({len(a)} leaves, losses "
         f"{plain['losses']}); its step-6 checkpoint restored onto (1, 4) and one device "
         f"bitwise in {json.dumps(restores)} s")
@@ -3706,6 +3771,417 @@ def phase14(dev, launches):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[phase] 14c train cli {time.perf_counter() - t0:.3f} s")
     return out
+
+
+# -- phase 15: the SSM, hybrid and encoder-decoder families on a model mesh ---
+
+MAMBA_ARCH, JAMBA_ARCH, WHISPER_ARCH = "mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"
+MAMBA_SERVE_MESH, FAMILY_TRAIN_MESH = (1, 4), (2, 2)  # ("data", "model") positions of the card
+# (a) mamba2 trained whole: 4 x 2048 tokens (8 SSD chunks of 256 a row).
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 4, 2048, 3
+MAMBA_GRAD_LEAVES = ("top.embed", "layers.0.ssm.in_x", "layers.0.ssm.in_b",
+                     "layers.0.ssm.a_log", "layers.47.ssm.out", "layers.47.ln1.w")
+# (b) whisper-tiny whole on (2, 2): 8 requests of 1500 frames; training 8
+# rows of 1500 frames and 448 decoder tokens (its decoder context).
+WHISPER_MESH = (2, 2)
+WHISPER_REQUESTS, WHISPER_DEC_TOKENS = 8, 448
+WHISPER_GRAD_LEAVES = ("top.embed", "enc_layers.0.attn.wq", "enc_layers.3.mlp.b_in",
+                       "dec_layers.0.self.wo", "dec_layers.3.cross.wk", "top.dec_final.w")
+# (c) jamba's smoke superblock: served on both meshes, trained on (2, 2).
+JAMBA_MESHES = ((2, 2), (1, 4))
+JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 8, 512
+JAMBA_GRAD_LEAVES = ("top.embed", "layers.0.ssm.in_x", "layers.1.moe.router",
+                     "layers.4.attn.wq", "layers.7.moe.gate")
+# (d) the command lines on mamba2: serve at its defaults (8 x 32 tokens, 16
+# new), train at 4 of 48 layers (a 2.5 GB checkpoint).
+FAMILY_CLI_ARGS = ("--arch", MAMBA_ARCH, "--preset", "full", "--device", "cuda")
+FAMILY_RESTART_MODEL = ("--arch", MAMBA_ARCH, "--preset", "full", "--num-layers", "4")
+# Float32 compute over mamba2's 48 layers: the mesh's sums in another order
+# move the last logits by up to 4.8e-4 (read on the H100; 9.7% of them past
+# MESH_F32_TOL), so they are held as phase 11's decode check holds them, at
+# a share of the largest magnitude, beside a float64 witness that both
+# float32 runs must lie as near.
+MAMBA_F32_REL = DECODE_REL_TOL
+FAMILY_MESH_PATHS = ("jamba_tp22_serve", "jamba_tp14_serve", "whisper_mesh_bf16",
+                     "whisper_mesh_f32")  # the phase's paths that launch flash
+
+
+def mamba_step_bound(cfg, b, s):
+    """A mamba2 training step's least time (ms) at the bf16 tensor-core
+    rate: 8 N T flops for the weights in products (the in- and
+    out-projections and the tied unembedding; forward, backward and the
+    full remat's recompute), the SSD's own products not counted (a lower
+    bound all the same)."""
+    d, d_in, n = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    per_layer = 2 * d * d_in + 2 * d * n + d * (d_in // cfg.ssm_headdim) + d_in * d
+    params = cfg.num_layers * per_layer + d * cfg.vocab_size
+    flops = 8 * params * b * s
+    return flops / BF16_OPS_PER_S * 1e3, dict(n_matmul_params=params, tokens=b * s,
+                                               flops=flops, bf16_ops_per_s=BF16_OPS_PER_S)
+
+
+def whisper_batch(cfg, b, frames, tokens, dev, seed):
+    """A whisper training batch on the card: frame embeddings, decoder
+    tokens and their targets, from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"enc_embeds": 0.02 * torch.randn((b, frames, cfg.d_model), generator=gen, device=dev),
+            "dec_tokens": torch.randint(0, cfg.vocab_size, (b, tokens), generator=gen, device=dev),
+            "targets": torch.randint(0, cfg.vocab_size, (b, tokens), generator=gen, device=dev)}
+
+
+def mesh_train_family(tag, cfg, mesh, batches, grad_leaves, dev, launches, blockwise=None,
+                      bound=None):
+    """One step in float32 compute on one device and on ``mesh`` from the
+    same weights (seed 0) and ``batches[0]`` (global dicts): the loss (and
+    aux) within ``TRAIN_LOSS_RTOL``, the leaves ``grad_leaves`` by
+    ``TRAIN_GRAD_REL_L2`` (relative L2).  ``blockwise`` (the mesh's
+    (n_data, n_model)) runs the one-device MoE layers as
+    ``moe_blockwise_reference``.  Then the config's compute dtype, float32
+    masters: ``len(batches)`` steps of ``make_train_step(mesh=)`` as path
+    ``{tag}`` with the launch counts zeroed just before and read just after
+    (all 0), step ms, tokens/s, peak memory, one more step traced."""
+    from repro_torch.models import build_model, moe, transformer
+    from repro_torch.models.model import gather_leaves, mesh_model, shard_leaves
+    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
+                                   mesh_value_and_grad, warmup_cosine)
+
+    model = build_model(cfg, device=dev, dtype=torch.float32, compute_dtype=torch.float32,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = model.num_params()
+    params = model.flat_params()
+    leaves = {k: v.detach().requires_grad_(k in grad_leaves) for k, v in params.items()}
+    inner = transformer.moe_einsum
+    one_disp, mesh_disp = [], []
+    if blockwise is not None:
+        transformer.moe_einsum = functools.partial(_blockwise, shape=blockwise)
+    t0 = time.perf_counter()
+    try:
+        with recorded_dispatches(one_disp):
+            loss, metrics = model.train_loss(batches[0], leaves)
+            one = dict(zip(grad_leaves,
+                           torch.autograd.grad(loss, [leaves[k] for k in grad_leaves])))
+    finally:
+        transformer.moe_einsum = inner
+    one_m = {k: float(v.detach()) for k, v in metrics.items()}
+    one_s = time.perf_counter() - t0
+    del leaves, loss, metrics
+    meshed = mesh_model(model, mesh)
+    shards = shard_leaves(meshed, params)
+    del params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_dispatches(mesh_disp):
+        _, metrics, grads = mesh_value_and_grad(model, mesh)(shards, batches[0])
+    mesh_m = {k: float(v) for k, v in metrics.items()}
+    f32_s = time.perf_counter() - t0
+    if [d.shape for d in mesh_disp] != [d.shape for d in one_disp]:
+        raise AssertionError(f"{tag}: the mesh dispatched {len(mesh_disp)} blocks, the "
+                             f"reference {len(one_disp)}")
+    flipped = sum(int((a != b).sum()) for a, b in zip(mesh_disp, one_disp))
+    slots = sum(d.numel() for d in one_disp)
+    del one_disp, mesh_disp
+    got = gather_leaves(meshed, [{k: g[k] for k in grad_leaves} for g in grads])
+    del grads
+    rel = {k: rel_l2(got[k], one[k]) for k in grad_leaves}
+    del got, one
+    log(f"[{tag}] float32 step 0 on {mesh.shape}: {json.dumps(mesh_m)} vs one device "
+        f"{json.dumps(one_m)} (rtol {TRAIN_LOSS_RTOL}); gradient relative L2 errors "
+        f"{json.dumps(rel)} (<= {TRAIN_GRAD_REL_L2}); {flipped} of {slots} MoE dispatch slots "
+        f"routed otherwise; the float32 step {one_s:.3f} s on one device, {f32_s:.3f} s on "
+        f"the mesh")
+    for key in ("loss", "aux_loss"):
+        if not abs(mesh_m[key] - one_m[key]) <= TRAIN_LOSS_RTOL * abs(one_m[key]):
+            raise AssertionError(f"{tag}: meshed float32 {key} {mesh_m[key]} vs one device "
+                                 f"{one_m[key]}")
+    bad = {k: r for k, r in rel.items() if not r <= TRAIN_GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"{tag}: meshed gradients off the one-device ones: {bad}")
+
+    model.compute_dtype = getattr(torch, cfg.dtype)
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 1, len(batches)),
+                          moment_dtype=cfg.optimizer_moment_dtype)
+    step_fn = make_train_step(model, opt_cfg, mesh=mesh)
+    del model
+    state = TrainState.create(shards, opt_cfg)
+    del shards
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, losses = [], []
+
+    def train():
+        nonlocal state
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+
+    counted(tag, launches, train)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(launches[tag].values()):
+        raise AssertionError(f"{tag}: meshed training launched kernels: {launches[tag]}")
+    if not all(np.isfinite(losses)) or not abs(losses[0] - mesh_m["loss"]) <= \
+            BF16_TRAIN_LOSS_RTOL * abs(mesh_m["loss"]):
+        raise AssertionError(f"{tag}: losses {losses}, the float32 step 0's {mesh_m['loss']}")
+    t0 = time.perf_counter()
+    trace = device_breakdown(lambda: step_fn(state, batches[0]), top=8, host_ops=False)
+    trace["seconds"] = time.perf_counter() - t0
+    step_ms = 1e3 * sorted(step_s[1:])[len(step_s[1:]) // 2]
+    tokens = batches[0]["targets"].numel()
+    rec = dict(path=tag, arch=cfg.name, layers=cfg.num_layers, params=n_params, mesh=mesh.shape,
+               batch=list(batches[0]["targets"].shape), steps=len(batches),
+               step_ms=[1e3 * t for t in step_s], median_step_ms=step_ms,
+               tokens_per_s=tokens / (step_ms / 1e3), peak_mem_bytes=peak,
+               launches=launches[tag], losses=losses, f32_mesh=mesh_m, f32_one_device=one_m,
+               grad_rel_l2=rel, dispatch_slots=slots, slots_routed_otherwise=flipped,
+               f32_one_device_step_s=one_s, f32_mesh_step_s=f32_s, trace=trace)
+    if bound is not None:
+        rec.update(bound_ms=bound[0], bound_share=bound[0] / step_ms, bound_reckoning=bound[1])
+    log(f"[{tag}] {json.dumps(rec)}")
+    log(f"[{tag}] {cfg.name} on {mesh.shape}: step {step_ms:.3f} ms (median of steps 2-"
+        f"{len(batches)}; first {1e3 * step_s[0]:.3f}), {rec['tokens_per_s']:.1f} tokens/s, "
+        f"peak {peak / 1e9:.3f} GB, 0 kernel launches, device busy "
+        f"{100 * trace['device_busy_share']:.1f}% of a traced step")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _blockwise(p, x, *, cfg, shape):
+    from repro_torch.models import moe
+
+    return moe.moe_blockwise_reference(p, x, cfg, *shape)
+
+
+# A training step in bf16 compute against step 0 in float32 compute, the
+# same weights and batch: phase 12's bf16 loss tolerance.
+BF16_TRAIN_LOSS_RTOL = 2e-3
+
+
+def decode_trace(meshed, reqs, dev):
+    """One decode step of ``meshed`` traced after a prefill of the first 4
+    prompts cut to 256 tokens (one SSD chunk): its host seconds, device ms, busy
+    share and kernel launches (``device_calls``)."""
+    n = min([256] + [len(r.prompt) for r in reqs[:4]])
+    toks = torch.tensor([r.prompt[:n] for r in reqs[:4]], device=dev)
+    _, caches = meshed.prefill(toks, cache_len=n + 2)
+    out = device_breakdown(lambda: meshed.serve_step(toks[:, :1], n, caches), top=8,
+                           host_ops=False)
+    del caches
+    return out
+
+
+def phase15_mamba(dev, launches):
+    """(a) mamba2-1.3b whole: served in bf16 on (1, 4) positions (16 SSM
+    heads and 1024 channels a position; phase 11's waves; no kernel), held
+    by ``mesh_serve`` (bf16 tokens by the margin rule, float32-compute
+    logits within ``MAMBA_F32_REL`` of the largest magnitude, beside a
+    float64 witness), one decode step traced; then trained
+    on (2, 2) (float32 masters, bf16 compute, remat full, fsdp: its config)
+    through ``mesh_train_family`` at 4 x 2048 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedDataPipeline
+
+    reqs = family_requests(get_config(MAMBA_ARCH), FAMILY_WAVES["mamba2"])
+    t0 = time.perf_counter()
+    meshed, rec, check = mesh_serve(
+        "mamba2_tp", lambda: build_family(MAMBA_ARCH, dev, torch.bfloat16),
+        card_mesh(dev, MAMBA_SERVE_MESH), reqs, dev, launches, f32_rel=MAMBA_F32_REL)
+    if any(launches["mamba2_tp_serve"].values()):
+        raise AssertionError(f"mamba2 on the mesh launched {launches['mamba2_tp_serve']}")
+    log(f"[mamba2_tp] served, held and freed the one-device model: {time.perf_counter() - t0:.3f} s")
+    check["decode_step_trace"] = decode_trace(meshed, reqs, dev)
+    log(f"[mamba2_tp] a decode step traced: {json.dumps(check['decode_step_trace'])}")
+    del meshed
+    torch.cuda.empty_cache()
+    cfg = get_config(MAMBA_ARCH)
+    mesh = card_mesh(dev, FAMILY_TRAIN_MESH)
+    pipe = ShardedDataPipeline(mesh=mesh, global_batch=MAMBA_TRAIN_BATCH, seq_len=MAMBA_TRAIN_SEQ,
+                               vocab=cfg.vocab_size, seed=0)
+    batches = [pipe.batch_at(i) for i in range(FAMILY_TRAIN_STEPS)]
+    train = mesh_train_family("mamba2_mesh_train", cfg, mesh, batches, MAMBA_GRAD_LEAVES, dev,
+                              launches, bound=mamba_step_bound(cfg, MAMBA_TRAIN_BATCH,
+                                                               MAMBA_TRAIN_SEQ))
+    return dict(serve=rec, serve_check=check, train=train)
+
+
+def phase15_whisper(dev, launches):
+    """(b) whisper-tiny whole on (2, 2) positions: ``WHISPER_REQUESTS``
+    requests of 1500 frames and a 4-token prompt, ``NEW_TOKENS`` greedy
+    tokens, in bf16 and float32, as paths ``whisper_mesh_{bf16,f32}``: flash
+    once a position a layer of each attention (3 heads a position), every
+    prefill attention held to the plain version on its own q, k, v, the
+    float32 tokens equal to the one-device model's; then trained through
+    ``mesh_train_family`` on 8 x (1500 frames, 448 tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import shard_params
+
+    mesh = card_mesh(dev, WHISPER_MESH)
+    recs, checks = [], {}
+    for dtype, tag in ((torch.bfloat16, "whisper_mesh_bf16"), (torch.float32, "whisper_mesh_f32")):
+        model = build_family(WHISPER_ARCH, dev, dtype)
+        cfg = model.cfg
+        gen = torch.Generator(device=dev).manual_seed(2)
+        frames = (0.02 * torch.randn((WHISPER_REQUESTS, WHISPER_FRAMES, cfg.d_model),
+                                     generator=gen, device=dev)).to(dtype)
+        prompt = torch.randint(0, cfg.vocab_size, (WHISPER_REQUESTS, WHISPER_PROMPT),
+                               generator=gen, device=dev)
+        model.greedy(frames[:, :64], prompt, 2)  # warm-up
+        one, one_rec = counted(f"{tag}_one_device", launches,
+                               lambda: model.greedy(frames, prompt, NEW_TOKENS))
+        one_logits, _ = model.prefill(frames, prompt)
+        meshed = shard_params(model, mesh)
+        del model
+        meshed.greedy(frames[:, :64], prompt, 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        toks, rec = counted(tag, launches, lambda: meshed.greedy(frames, prompt, NEW_TOKENS))
+        peak = torch.cuda.max_memory_allocated(dev)
+        attn = (cfg.encoder_layers + 2 * cfg.decoder_layers) * mesh.size
+        if launches[tag]["flash_attention"] != attn:
+            raise AssertionError(f"{tag}: launches {launches[tag]}; want {attn} flash")
+        errs = []
+        with held_to_plain(errs):
+            logits, _ = meshed.prefill(frames, prompt)
+        if len(errs) != attn:
+            raise AssertionError(f"{tag}: held {len(errs)} prefill attentions, want {attn}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag}: non-finite logits")
+        same = torch.equal(toks, one)
+        if dtype == torch.float32 and not same:
+            raise AssertionError(f"{tag}: meshed and one-device tokens differ: {toks.tolist()} "
+                                 f"vs {one.tolist()}")
+        check = dict(logit_err=(logits.float() - one_logits.float()).abs().max().item(),
+                     layer_abs_err=max(e for e, _ in errs), layer_row_err=max(r for _, r in errs),
+                     tokens_equal=same, one_device=dict(one_rec, decode_ms_per_step=1e3 *
+                                                        one_rec["decode_s"] /
+                                                        one_rec["decode_steps"]))
+        rec.update(path=tag, arch=cfg.name, dtype=str(dtype)[6:], mesh=mesh.shape,
+                   enc_frames=WHISPER_FRAMES, prompt_len=WHISPER_PROMPT, peak_mem_bytes=peak,
+                   flash_launches=launches[tag]["flash_attention"],
+                   decode_ms_per_step=1e3 * rec["decode_s"] / rec["decode_steps"])
+        log(f"[{tag}] {json.dumps(rec)}; held {json.dumps(check)}")
+        recs.append(rec)
+        checks[tag] = check
+        del meshed, frames, prompt
+        torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    batches = [whisper_batch(cfg, WHISPER_REQUESTS, WHISPER_FRAMES, WHISPER_DEC_TOKENS, dev, i)
+               for i in range(FAMILY_TRAIN_STEPS)]
+    train = mesh_train_family("whisper_mesh_train", cfg, card_mesh(dev, FAMILY_TRAIN_MESH),
+                              batches, WHISPER_GRAD_LEAVES, dev, launches)
+    return dict(serve=recs, serve_check=checks, train=train)
+
+
+def phase15_jamba(dev, launches):
+    """(c) jamba's smoke superblock (a full-width one is 90.3 GB) in bf16 on
+    (2, 2) and (1, 4) positions through ``mesh_serve``, the one-device
+    reference's MoE layers as ``moe_blockwise_reference`` over the mesh's
+    blocks (flash once a position at the attention layer); trained on
+    (2, 2) through ``mesh_train_family`` at 8 x 512 tokens, the float32 loss,
+    aux and gradient leaves (a router's among them) against the blockwise
+    one-device run, microbatches cut to 1 (one row a microbatch a data
+    shard otherwise)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import ShardedDataPipeline
+    from repro_torch.models import transformer
+
+    reqs = family_requests(smoke_config(JAMBA_ARCH), FAMILY_WAVES["jamba"])
+    recs, checks = [], {}
+    for shape in JAMBA_MESHES:
+        tag = f"jamba_tp{shape[0]}{shape[1]}"
+        inner = transformer.moe_einsum
+        transformer.moe_einsum = functools.partial(_blockwise, shape=shape)
+        try:
+            meshed, rec, check = mesh_serve(
+                tag, lambda: build_family(JAMBA_ARCH, dev, torch.bfloat16, smoke=True),
+                card_mesh(dev, shape), reqs, dev, launches)
+        finally:
+            transformer.moe_einsum = inner
+        recs.append(rec)
+        checks[tag] = check
+        del meshed
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(smoke_config(JAMBA_ARCH), dtype="bfloat16", microbatches=1)
+    mesh = card_mesh(dev, FAMILY_TRAIN_MESH)
+    pipe = ShardedDataPipeline(mesh=mesh, global_batch=JAMBA_TRAIN_BATCH, seq_len=JAMBA_TRAIN_SEQ,
+                               vocab=cfg.vocab_size, seed=0)
+    batches = [pipe.batch_at(i) for i in range(FAMILY_TRAIN_STEPS)]
+    train = mesh_train_family("jamba_mesh_train", cfg, mesh, batches, JAMBA_GRAD_LEAVES, dev,
+                              launches, blockwise=FAMILY_TRAIN_MESH)
+    return dict(serve=recs, serve_check=checks, train=train)
+
+
+def phase15_flash(dev):
+    """Flash at whisper's two new per-position shapes on (2, 2): the encoder
+    (B=4, S=T=1500, H=KV=3, D=64, non-causal) and the cross-attention (B=4,
+    S=4, T=1500), bf16, held to the plain version and timed with its bound
+    and SDPA's time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    timings, err = [], 0.0
+    bf = torch.bfloat16
+    b = WHISPER_REQUESTS // WHISPER_MESH[0]
+    for i, (label, s) in enumerate([
+            (f"whisper (2, 2) position B={b} S=T=1500 H=KV=3 D=64 non-causal", WHISPER_FRAMES),
+            (f"whisper cross (2, 2) position B={b} S=4 T=1500 H=KV=3 D=64 non-causal",
+             WHISPER_PROMPT)]):
+        q, k, v = attn_inputs(b, s, WHISPER_FRAMES, 3, 3, 64, bf, dev, seed=150 + i)
+        e, row = flash_errors(flash_attention_cuda(q, k, v, causal=False),
+                              ref.flash_attention(q, k, v, causal=False), bf)
+        err = max(err, e)
+        log(f"[flash] {label} bf16: max abs err {e:.3e}, max row err {row:.3e}")
+        timings.append(time_flash(q, k, v, label, causal=False))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return timings, err
+
+
+def phase15_cli(dev):
+    """(d) The command lines on mamba2-1.3b with ``REPRO_DEVICES=4``:
+    ``launch.serve --model-parallel 2`` against ``1`` (phase 13 (d)'s
+    check), and ``launch.train --model-parallel 2`` at 4 of 48 layers with
+    its crash-restart bitwise and ``elastic_restore`` onto (1, 4) and one
+    device bitwise (phase 14 (c)'s check).  The serve pair runs beside the
+    train pair: neither is timed against the other, and the four processes
+    share the card."""
+    served = {}
+
+    def serve():
+        served["out"] = phase13_cli(dev, FAMILY_CLI_ARGS)
+
+    thread = threading.Thread(target=serve)
+    thread.start()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_family_train_"))
+    try:
+        train = phase14_cli(dev, tmp, FAMILY_RESTART_MODEL)
+    finally:
+        thread.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if "out" not in served:
+        raise AssertionError("the serve command lines' check failed (its traceback above)")
+    serve, serve_check = served["out"]
+    return dict(serve=dict(serve_check, runs={
+        n: {k: o[k] for k in ("mesh", "new_tokens", "seconds", "prefill_s", "decode_ms_per_step")}
+        for n, o in serve.items()}), train=train)
+
+
+def phase15(dev, launches):
+    """The SSM, hybrid and encoder-decoder families on a model mesh of
+    positions of the card: (a) mamba2, (b) whisper, (c) jamba's superblock,
+    (d) the command lines; and flash at whisper's per-position shapes."""
+    out = {}
+    for name, fn in (("a mamba2", phase15_mamba), ("b whisper", phase15_whisper),
+                     ("c jamba", phase15_jamba)):
+        t0 = time.perf_counter()
+        out[name.split()[1]] = fn(dev, launches)
+        log(f"[phase] 15{name} {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    out["cli"] = phase15_cli(dev)
+    log(f"[phase] 15d command lines {time.perf_counter() - t0:.3f} s")
+    timings, err = phase15_flash(dev)
+    return out, timings, err
 
 
 def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
@@ -3770,8 +4246,10 @@ def main():
     mp_serves, mp_check, mp_flash_times, mp_flash_err = phase(
         "13 model parallelism", phase13, dev, launches, serve_check["bf16_vs_f32_err"])
     mesh_training = phase("14 training on a model mesh", phase14, dev, launches)
-    flash_times += mp_flash_times
-    flash_err = max(flash_err, mp_flash_err)
+    mesh_families, fam_flash_times, fam_flash_err = phase(
+        "15 the other families on a model mesh", phase15, dev, launches)
+    flash_times += mp_flash_times + fam_flash_times
+    flash_err = max(flash_err, mp_flash_err, fam_flash_err)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
@@ -3821,7 +4299,7 @@ def main():
                      corr_err, corr_times[0], corr_times),
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:79",
-                     ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS),
+                     ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS, *FAMILY_MESH_PATHS),
                      launches,
                      flash_err, flash_times[0], flash_times),
     ]
@@ -3836,7 +4314,7 @@ def main():
                         device_mesh=mesh_fits, families=families,
                         family_check=family_check, training=training,
                         model_parallel=mp_serves, model_parallel_check=mp_check,
-                        mesh_training=mesh_training)))
+                        mesh_training=mesh_training, mesh_families=mesh_families)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

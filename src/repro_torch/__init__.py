@@ -65,8 +65,8 @@ encoder-decoder) are served by :mod:`repro_torch.serve` over
     >>> ServeEngine(build_model(get_config("yi-6b"))).serve([Request([1, 2, 3])])
 
 and trained (:mod:`repro_torch.train`: AdamW, the train step with
-microbatches, data parallelism over a mesh and, for the dense, MoE and VLM
-families, tensor and expert parallelism on a ``("data", "model")`` mesh;
+microbatches, data parallelism over a mesh and, for every family, tensor
+and expert parallelism on a ``("data", "model")`` mesh;
 checkpoints in the JAX package's layout, :class:`CheckpointManager`; the
 step-indexed token pipeline, :class:`ShardedDataPipeline`), attending
 through plain PyTorch:

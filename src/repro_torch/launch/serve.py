@@ -22,9 +22,9 @@
         --ckpt-dir build/ckpt_smoke
 
     # Tensor and expert parallel on a (2, 2) ("data", "model") mesh of four
-    # positions of the one card
+    # positions of the one card (any --arch)
     REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch qwen1.5-0.5b --preset full --model-parallel 2
+        --arch mamba2-1.3b --preset full --model-parallel 2
 
 Every config of ``--arch`` serves.  Decoder-only models serve text prompts
 through ``ServeEngine`` (a VLM's token path; its image embeddings are a
@@ -37,13 +37,12 @@ serving dtype); the model-surgery overrides of the train command line
 (``--num-layers`` ...) shape the model as the run that wrote it.  A Mamba
 prompt longer than the SSD chunk must be a multiple of it, and one that
 decodes must hold at least ``ssm_conv - 1`` tokens.
-``--model-parallel N`` (N > 1) serves on the JAX package's local mesh,
-``(n // N, N)`` on ``("data", "model")`` over the ``n`` positions
-``REPRO_DEVICES`` gives (``launch.mesh.build_local_mesh``): the batch over
-``data``, heads, ``d_ff``, experts and vocabulary over ``model``
-(``models.model.shard_params``); the dense, MoE and VLM archs only (the
-other families' tensor parallelism is ROADMAP.md §1 item 2c).  Prints
-one JSON line: the model, the device it ran on, the mesh, the tokens
+``--model-parallel N`` (N > 1) serves every arch on the JAX package's
+local mesh, ``(n // N, N)`` on ``("data", "model")`` over the ``n``
+positions ``REPRO_DEVICES`` gives (``launch.mesh.build_local_mesh``): the
+batch over ``data``; heads, ``d_ff``, Mamba's ``d_inner`` and SSM heads,
+experts and vocabulary over ``model`` (``models.model.shard_params``).
+Prints one JSON line: the model, the device it ran on, the mesh, the tokens
 generated and the time they took.
 """
 
@@ -61,7 +60,7 @@ from repro_torch.device import device_name, resolve_device
 from repro_torch.launch.mesh import build_local_mesh
 from repro_torch.launch.model_args import add_model_args, resolve_config
 from repro_torch.models.convert import params_from_jax, params_to_jax
-from repro_torch.models.model import MESH_FAMILIES, build_model, shard_params
+from repro_torch.models.model import build_model, shard_params
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -86,10 +85,6 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     mesh = None
     if args.model_parallel != 1:
-        if cfg.family not in MESH_FAMILIES:
-            raise SystemExit(f"--model-parallel: {cfg.name} is {cfg.family}; a model mesh serves "
-                             f"the {', '.join(MESH_FAMILIES)} archs (SSM, hybrid and "
-                             "encoder-decoder tensor parallelism: ROADMAP.md §1 item 2c)")
         try:
             mesh = build_local_mesh(args.model_parallel, device=dev)
         except ValueError as err:

@@ -23,16 +23,21 @@ command first sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
 ``torch.use_deterministic_algorithms(True)``: the backward of the embedding
 gather accumulates with atomics otherwise.
 
-``--model-parallel N`` (N > 1) trains the dense, MoE and VLM archs on the
-local mesh ``launch.mesh.build_local_mesh(N)``: ``(positions / N, N)`` on
+``--model-parallel N`` (N > 1) trains on the local mesh
+``launch.mesh.build_local_mesh(N)``: ``(positions / N, N)`` on
 ``("data", "model")`` over ``REPRO_DEVICES`` positions of the device, the
 state held as each position's blocks, the batch read a data shard a
 position (``ShardedDataPipeline.shards_at``); checkpoints are the same
-whole-array files, restored onto the mesh.  The SSM, hybrid and
-encoder-decoder archs are refused (ROADMAP.md §1 item 2c)::
+whole-array files, restored onto the mesh.  It takes every arch the
+one-device command line takes::
 
     REPRO_DEVICES=4 PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --model-parallel 2 --steps 6 --global-batch 4 --seq-len 32
+        --arch mamba2-1.3b --model-parallel 2 --steps 6 --global-batch 4 --seq-len 32
+
+The command line feeds token batches, as the JAX package's does: an
+encoder-decoder arch (whisper), whose loss reads frame embeddings, is
+refused on one device and on the mesh alike (train it through
+``make_train_step`` with ``enc_embeds``, ``dec_tokens`` and ``targets``).
 
 Prints one JSON line: the device, the mesh, the steps run, every step's
 loss, the restarts and the seconds a step.
@@ -54,7 +59,7 @@ from repro_torch.device import device_name, resolve_device
 from repro_torch.dist.meshes import make_mesh
 from repro_torch.launch.mesh import build_local_mesh
 from repro_torch.launch.model_args import add_model_args, resolve_config
-from repro_torch.models.model import MESH_FAMILIES, build_model
+from repro_torch.models.model import build_model
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.resilience import StepWatchdog, run_with_restarts
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
@@ -101,13 +106,12 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = resolve_config(args)
+    if cfg.is_encdec:
+        raise SystemExit(f"--arch {cfg.name}: the command line feeds token batches; an "
+                         "encoder-decoder model trains on enc_embeds, dec_tokens and targets "
+                         "(make_train_step)")
     mesh = None
     if args.model_parallel != 1:
-        if cfg.family not in MESH_FAMILIES:
-            raise SystemExit(f"--model-parallel: {cfg.name} ({cfg.family}) does not train on a "
-                             f"model mesh; the {', '.join(MESH_FAMILIES)} families do (SSM, "
-                             "hybrid and encoder-decoder tensor parallelism is ROADMAP.md §1 "
-                             "item 2c)")
         mesh = build_local_mesh(args.model_parallel, device=dev)
     if dev.type == "cuda":
         deterministic_card()

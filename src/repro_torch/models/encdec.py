@@ -20,6 +20,12 @@ sinusoidal too, not learned) and use LayerNorm and the GELU MLP.
   ``enc_embeds``, ``dec_tokens`` and ``targets``, every attention through
   ``train_attention`` (no flash kernel), each layer under ``cfg.remat``;
   its ``aux_loss`` is 0.
+
+:class:`MeshEncDecLM` is the same model on a model mesh (``shard_params``
+and ``mesh_model`` of :mod:`repro_torch.models.model` build it): the
+encoder's and both decoder attentions' heads, the MLP's ``d_ff`` and the
+vocabulary over ``model``, the batch over the batch axes, as
+:class:`~repro_torch.models.model.MeshLM` lays out a decoder-only model.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ from repro_torch.models.layers import (
     norm_apply,
     norm_defs,
 )
+from repro_torch.models.model import MeshLM
 from repro_torch.models.rope import sinusoidal_positions, sinusoidal_rows
-from repro_torch.models.transformer import remat
+from repro_torch.models.transformer import attn_heads, mesh_attn, mesh_mlp, mesh_norm, remat
 
 
 def _enc_layer_defs(cfg) -> dict:
@@ -89,7 +96,37 @@ def build_encdec(cfg, *, generator, device, dtype) -> "EncDecLM":
     return EncDecLM(cfg, enc, dec, top)
 
 
-class EncDecLM(LMBase):
+class GreedyDecoding:
+    """Greedy decoding of an encoder-decoder model through its ``prefill``
+    and ``serve_step``, one device or a mesh."""
+
+    def greedy(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor,
+               max_new_tokens: int, use_kernel="auto"):
+        """Greedy decoding of one wave -> (new tokens (B, max_new_tokens)
+        int64 on the host, ``{"prefill_s", "decode_s", "decode_steps"}``)."""
+        clock = time.perf_counter
+        b, s = dec_tokens.shape
+        t0 = clock()
+        last, caches = self.prefill(enc_embeds, dec_tokens, cache_len=s + max_new_tokens,
+                                    use_kernel=use_kernel)
+        tok = torch.argmax(last, dim=-1)
+        self._sync()
+        t1 = clock()
+        out = [tok]
+        for i in range(max_new_tokens - 1):
+            logits, caches = self.serve_step(tok[:, None], s + i, caches)
+            tok = torch.argmax(logits[:, 0], dim=-1)
+            out.append(tok)
+        self._sync()
+        stats = dict(prefill_s=t1 - t0, decode_s=clock() - t1, decode_steps=max_new_tokens - 1)
+        return torch.stack(out, dim=1).cpu(), stats
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class EncDecLM(GreedyDecoding, LMBase):
     """An encoder-decoder LM for serving (weights in one dtype, one device)."""
 
     def __init__(self, cfg, enc_layers: list, dec_layers: list, top: dict):
@@ -225,27 +262,121 @@ class EncDecLM(LMBase):
         x = self.embed_decoder_tokens(tokens, pos)
         return self.unembed(self._decode_stack(x, caches, None, pos, "auto")), caches
 
-    def greedy(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor,
-               max_new_tokens: int, use_kernel="auto"):
-        """Greedy decoding of one wave -> (new tokens (B, max_new_tokens)
-        int64 on the host, ``{"prefill_s", "decode_s", "decode_steps"}``)."""
-        clock = time.perf_counter
-        b, s = dec_tokens.shape
-        t0 = clock()
-        last, caches = self.prefill(enc_embeds, dec_tokens, cache_len=s + max_new_tokens,
-                                    use_kernel=use_kernel)
-        tok = torch.argmax(last, dim=-1)
-        self._sync()
-        t1 = clock()
-        out = [tok]
-        for i in range(max_new_tokens - 1):
-            logits, caches = self.serve_step(tok[:, None], s + i, caches)
-            tok = torch.argmax(logits[:, 0], dim=-1)
-            out.append(tok)
-        self._sync()
-        stats = dict(prefill_s=t1 - t0, decode_s=clock() - t1, decode_steps=max_new_tokens - 1)
-        return torch.stack(out, dim=1).cpu(), stats
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+class MeshEncDecLM(GreedyDecoding, MeshLM):
+    """:class:`EncDecLM` on a model mesh (the JAX ``encode`` /
+    ``decode_stack`` / ``embed_decoder_tokens`` and ``_encdec_loss`` under
+    the sharding rules): every position holds its shard of every weight,
+    as ``param_specs`` lays it out.
+
+    * ``prefill(enc_embeds, dec_tokens)`` -> (logits ``(B, V)`` gathered
+      onto ``device``, the first position's, and one list of per-layer
+      caches a position): the encoder's non-causal attention, the decoder's
+      causal self-attention and its cross-attention over the encoder states
+      through the flash kernel at the position's heads (one launch each a
+      layer a position); each position's caches hold ``k``, ``v``, ``xk``
+      and ``xv`` of its KV heads (every head where the heads do not divide);
+    * ``serve_step(tokens, pos, caches)``: one decoder step, as
+      :meth:`EncDecLM.serve_step`;
+    * ``greedy(...)`` drives them, as :meth:`EncDecLM.greedy`;
+    * ``train_loss(batch, shards)``: ``enc_embeds``, ``dec_tokens`` and
+      ``targets``, the vocabulary-parallel cross-entropy of
+      :class:`~repro_torch.models.model.MeshLM`, every attention through
+      ``train_attention``, each layer under ``cfg.remat``; ``aux_loss`` 0.
+    """
+
+    final_norm = "top.dec_final"
+
+    def new_caches(self, batch: int, length: int) -> list:
+        """Zeroed self-attention caches ``k``, ``v`` of ``(batch / n_batch,
+        length, KV heads, D)`` a decoder layer a position; prefill adds the
+        cross-attention's ``xk``, ``xv``."""
+        cfg, ctx = self.cfg, self.ctx
+        shape = (batch // ctx.n_batch, length, attn_heads(cfg, ctx.tp)[1], cfg.head_dim)
+        return [[{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+                 for _ in range(cfg.decoder_layers)] for dev in ctx.devices]
+
+    def _enc_layer(self, i: int, xs: list, use_kernel, train: bool) -> list:
+        pre = f"enc_layers.{i}."
+        hs = mesh_norm(self, pre + "ln1", xs)
+        mix = mesh_attn(self, pre + "attn.", hs, None, None, None, use_kernel, causal=False,
+                        train=train)
+        xs = [x + y for x, y in zip(xs, mix)]
+        ys = mesh_mlp(self, pre + "mlp.", mesh_norm(self, pre + "ln2", xs))
+        return [x + y for x, y in zip(xs, ys)]
+
+    def _dec_layer(self, i: int, xs: list, enc: list | None, caches, pos, use_kernel,
+                   train: bool) -> list:
+        pre = f"dec_layers.{i}."
+        mix = mesh_attn(self, pre + "self.", mesh_norm(self, pre + "ln1", xs), None, caches,
+                        pos, use_kernel, train=train)
+        xs = [x + y for x, y in zip(xs, mix)]
+        mix = mesh_attn(self, pre + "cross.", mesh_norm(self, pre + "lnx", xs), None, caches,
+                        pos, use_kernel, causal=False, cross=True, xkv=enc, train=train)
+        xs = [x + y for x, y in zip(xs, mix)]
+        ys = mesh_mlp(self, pre + "mlp.", mesh_norm(self, pre + "ln2", xs))
+        return [x + y for x, y in zip(xs, ys)]
+
+    def encode(self, enc_embeds: list, use_kernel="auto", train: bool = False) -> list:
+        """Each position's (B / n_batch, S_enc, d) frame embeddings -> its
+        final-normed encoder states (replicated over ``model``)."""
+        cfg = self.cfg
+        xs = [x.to(self.dtype) + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                                      device=x.device).to(self.dtype)
+              for x in enc_embeds]
+        layer = remat(self._enc_layer, cfg.remat) if train else self._enc_layer
+        for i in range(cfg.encoder_layers):
+            xs = layer(i, xs, use_kernel, train)
+        return mesh_norm(self, "top.enc_final", xs)
+
+    def embed_decoder_tokens(self, tokens: list, pos: int | None = None) -> list:
+        """Each position's token rows -> their vocabulary-parallel
+        embeddings plus the sinusoidal rows of positions ``0 .. S-1``
+        (``pos`` None) or of the decode cursor ``pos``."""
+        d = self.cfg.d_model
+        out = []
+        for x in self._embed(tokens):
+            if pos is None:
+                rows = sinusoidal_positions(x.shape[1], d, device=x.device)
+            else:
+                rows = sinusoidal_rows(torch.tensor(pos, device=x.device), d)
+            out.append(x + rows.to(x.dtype))
+        return out
+
+    def train_loss_positions(self, parts: list):
+        """:meth:`EncDecLM.train_loss` on inputs already split (one dict a
+        position, as :meth:`split_inputs` gives them) -> (loss, {"loss",
+        "aux_loss": 0})."""
+        cfg = self.cfg
+        enc = self.encode([p["enc_embeds"] for p in parts], train=True)
+        xs = self.embed_decoder_tokens([p["dec_tokens"] for p in parts])
+        layer = remat(self._dec_layer, cfg.remat)
+        for i in range(cfg.decoder_layers):
+            xs = layer(i, xs, enc, None, None, None, True)
+        loss = self._mean_nll(xs, [p["targets"] for p in parts])
+        return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss)}
+
+    @torch.inference_mode()
+    def prefill(self, enc_embeds: torch.Tensor, dec_tokens: torch.Tensor, *,
+                cache_len: int | None = None, use_kernel="auto"):
+        """:meth:`EncDecLM.prefill` on the mesh -> (logits (B, V) on
+        ``device``, each position's caches)."""
+        ctx = self.ctx
+        b, s = dec_tokens.shape
+        enc = self.encode(ctx.split_batch(enc_embeds), use_kernel)
+        caches = self.new_caches(b, s if cache_len is None else cache_len)
+        xs = self.embed_decoder_tokens(ctx.split_batch(dec_tokens))
+        for i in range(self.cfg.decoder_layers):
+            xs = self._dec_layer(i, xs, enc, [c[i] for c in caches], None, use_kernel, False)
+        return self._logits([x[:, -1:] for x in xs])[:, 0], caches
+
+    @torch.inference_mode()
+    def serve_step(self, tokens: torch.Tensor, pos: int, caches: list):
+        """:meth:`EncDecLM.serve_step` on the mesh -> (logits (B, 1, V) on
+        ``device``, the caches with this step's K/V written at ``pos``)."""
+        pos = int(pos)
+        xs = self.embed_decoder_tokens(self.ctx.split_batch(tokens), pos)
+        for i in range(self.cfg.decoder_layers):
+            xs = self._dec_layer(i, xs, None, [c[i] for c in caches], pos, "auto", False)
+        return self._logits(xs), caches

@@ -15,6 +15,10 @@ dt) and the depthwise causal convolution runs as three small convolutions
 (x, B, C).  A layer's decode cache is ``{"state": (B, H, P, N),
 "conv_x": (B, K-1, d_in), "conv_b", "conv_c": (B, K-1, N)}``: the recurrent
 state and the last K-1 pre-convolution inputs of each stream.
+
+:func:`mesh_mamba` is the mixer tensor parallel on a model mesh (the JAX
+``mamba_apply`` under ``mamba_defs``' shardings): ``d_inner`` and the SSM
+heads over ``model``, B and C whole on every position.
 """
 
 from __future__ import annotations
@@ -82,11 +86,24 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, cache: torch.Tensor | None = 
     return y, new_cache
 
 
+def _cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum`` along ``dim``.  Where deterministic algorithms are on
+    and ``a`` lies on the card (the training command line's setting),
+    ``torch.cumsum`` of floats has no deterministic kernel and raises: the
+    same sums then run as a product with a lower-triangular matrix of ones,
+    in another order (float32 rounding apart)."""
+    if not (a.is_cuda and torch.are_deterministic_algorithms_enabled()):
+        return torch.cumsum(a, dim=dim)
+    n = a.shape[dim]
+    ones = torch.ones((n, n), dtype=a.dtype, device=a.device).tril()
+    return (a.movedim(dim, -1) @ ones.T).movedim(-1, dim)
+
+
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """a (..., Q) -> (..., Q, Q): ``out[q, t] = sum(a[t+1 .. q])`` for
     ``t <= q``, -inf above the diagonal."""
     q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = _cumsum(a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
     return diff.masked_fill(~mask, -torch.inf)
@@ -121,7 +138,7 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int, initial_state=None):
     y_diag = torch.einsum("bchqt,bcthp->bcqhp", (scores * decay).to(x.dtype), xc)
 
     # Each chunk's state contribution.
-    cum = torch.cumsum(ac, dim=2)  # (B, NC, Q, H)
+    cum = _cumsum(ac, dim=2)  # (B, NC, Q, H)
     total = cum[:, :, -1:, :]
     decay_to_end = torch.exp(total - cum)
     states = torch.einsum("bcqhn,bcqhp->bchpn",
@@ -209,3 +226,86 @@ def mamba_apply(p, xres: torch.Tensor, *, cfg, cache: dict | None = None,
         return out, {"state": new_state, **{name: t[:, -(k - 1):] for name, t in
                                             zip(("conv_x", "conv_b", "conv_c"), pre)}}
     return out, None
+
+
+def mesh_mamba(m, pre: str, hs: list, caches: list | None, pos: int | None) -> list:
+    """The Mamba-2 mixer ``pre`` of the meshed model ``m`` on each
+    position's normed input ``hs`` (B / n_batch, S, d), replicated over
+    ``model`` -> each position's output, psummed over ``model``.
+
+    ``in_z``, ``in_x`` and ``in_dt`` are column parallel, ``conv_x`` and
+    ``norm`` hold the position's channels, ``out`` its rows (row parallel,
+    the partials summed in mesh order); ``in_b``, ``in_c``, ``conv_b`` and
+    ``conv_c`` are whole on every position (one group, ``N`` columns).
+    Where the heads divide by the model extent each position runs the SSD
+    on its ``H / tp`` heads.  Where only ``d_inner`` divides (the rules drop
+    each mapping on its own) a position's channels are not whole heads: the
+    convolved ``x`` is gathered over ``model``, every position runs every
+    head (as GSPMD does), and each keeps its channels of the SSD's output.
+    Where ``d_inner`` does not divide either, every position computes the
+    whole mixer.  The gated norm's mean runs over the whole ``d_inner``: each
+    position's float32 sum of squares, psummed over ``model``, over
+    ``d_inner``.
+
+    ``caches`` holds each position's cache of the layer (None: training):
+    ``state`` of its heads (every head where they do not divide),
+    ``conv_x`` of its channels, ``conv_b`` and ``conv_c`` whole, the layout
+    of JAX's ``_cache_specs``; ``pos`` None is prefill (the caches
+    replaced by the prompt's), an int a decode step.
+    """
+    cfg, ctx = m.cfg, m.ctx
+    ax = ctx.model_axis
+    d_in, h, _ = mamba_dims(cfg)
+    n, hd, k = cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_conv
+    decode = caches is not None and pos is not None
+    chans = ax is not None and m.spec(pre + "in_x")[1] == ax  # d_inner over model
+    heads = ax is not None and m.spec(pre + "in_dt")[1] == ax  # the SSM heads over model
+    ws = m.weights(pre[:-1])
+    proj = [{s: x @ p["in_" + s].to(x.dtype) for s in ("z", "x", "b", "c", "dt")}
+            for x, p in zip(hs, ws)]
+    conv, tails = [], []
+    for i, (pr, p) in enumerate(zip(proj, ws)):
+        out, tail = {}, {}
+        for s in ("x", "b", "c"):
+            y, tail["conv_" + s] = _causal_conv(pr[s], p["conv_" + s],
+                                                caches[i]["conv_" + s] if decode else None)
+            out[s] = F.silu(y)
+        conv.append(out)
+        tails.append(tail)
+    xs = [c["x"] for c in conv]
+    if chans and not heads:  # channels not whole heads: every head on every position
+        xs = ctx.all_gather(xs, ax, -1)
+    width = d_in // ctx.tp
+    outs = []
+    for i, (x, c, pr, p) in enumerate(zip(xs, conv, proj, ws)):
+        bsz, s, _ = x.shape
+        dt = F.softplus(pr["dt"].to(torch.float32) + p["dt_bias"].to(torch.float32))
+        a = -torch.exp(p["a_log"].to(torch.float32))
+        hl = x.shape[-1] // hd
+        xh = x.reshape(bsz, s, hl, hd)
+        bh = c["b"][:, :, None, :].expand(bsz, s, hl, n)
+        ch = c["c"][:, :, None, :].expand(bsz, s, hl, n)
+        if decode:
+            y, state = ssd_recurrent_step(caches[i]["state"], xh, dt, a, bh, ch)
+        else:
+            y, state = ssd_chunked(xh, dt, a, bh, ch, chunk=cfg.ssm_chunk)
+        y = (y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]).reshape(bsz, s, hl * hd)
+        if chans and not heads:  # keep this position's channels
+            j = ctx.model_index[i]
+            y = y[..., j * width:(j + 1) * width]
+        outs.append((y, state))
+        if caches is not None:
+            caches[i].update(tails[i] if decode else
+                             {"conv_" + s: pr[s][:, -(k - 1):] for s in ("x", "b", "c")})
+            caches[i]["state"] = state
+    gs = [y.to(torch.float32) * F.silu(pr["z"].to(torch.float32))
+          for (y, _), pr in zip(outs, proj)]
+    if chans:
+        var = [t / d_in for t in ctx.psum([(g * g).sum(dim=-1, keepdim=True) for g in gs], ax)]
+    else:
+        var = [(g * g).mean(dim=-1, keepdim=True) for g in gs]
+    partial = []
+    for g, v, (y, _), p in zip(gs, var, outs, ws):
+        normed = (g * torch.rsqrt(v + cfg.norm_eps)).to(y.dtype) * p["norm"].to(y.dtype)
+        partial.append(normed @ p["out"].to(y.dtype))
+    return ctx.psum(partial, ax) if chans else partial

@@ -42,7 +42,6 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import ShardedArray, rules_for, spec_axes
-from repro_torch.models import encdec
 from repro_torch.models.attention import attention_defs
 from repro_torch.models.layers import (
     LMBase,
@@ -58,7 +57,7 @@ from repro_torch.models.layers import (
     param_specs,
     vocab_parallel_nll,
 )
-from repro_torch.models.mamba import mamba_cache, mamba_defs
+from repro_torch.models.mamba import mamba_cache, mamba_defs, mamba_dims
 from repro_torch.models.moe import moe_defs
 from repro_torch.models.rope import rope_cos_sin
 from repro_torch.models.transformer import (
@@ -236,7 +235,12 @@ def build_model(cfg: ModelConfig, *, device="cuda", dtype: torch.dtype | None = 
     kw = dict(generator=generator, device=dev, dtype=dtype)
     if isinstance(compute_dtype, str):
         compute_dtype = getattr(torch, compute_dtype)
-    model = encdec.build_encdec(cfg, **kw) if cfg.is_encdec else _build_decoder(cfg, **kw)
+    if cfg.is_encdec:
+        from repro_torch.models.encdec import build_encdec
+
+        model = build_encdec(cfg, **kw)
+    else:
+        model = _build_decoder(cfg, **kw)
     model.compute_dtype = compute_dtype
     if mesh is not None:
         model.mesh = mesh
@@ -252,20 +256,19 @@ def _build_decoder(cfg: ModelConfig, **kw) -> DecoderLM:
 
 # -- the model mesh ------------------------------------------------------------
 
-MESH_FAMILIES = ("dense", "moe", "vlm")  # the families a model mesh serves and trains
-
-
 class MeshLM:
-    """A decoder-only LM of an attention family, served and trained on a
-    mesh (:func:`shard_params` builds it from a one-device model,
-    :func:`mesh_model` its structure alone).
+    """A decoder-only LM of any family, served and trained on a mesh
+    (:func:`shard_params` builds it from a one-device model,
+    :func:`mesh_model` its structure alone; the encoder-decoder family is
+    :class:`~repro_torch.models.encdec.MeshEncDecLM`).
 
     Every position holds its shard of every weight, as ``param_specs``
     lays it out, on its own device; positions may repeat a device.  The
     batch goes over the batch axes (``pod``, ``data``): a position takes
     its batch shard's rows and each position's decode cache holds those
-    rows.  Attention heads, the MLP's ``d_ff``, the experts and the
-    vocabulary go over ``model``; weights sharded over ``data`` (``fsdp``)
+    rows.  Attention heads, the MLP's ``d_ff``, Mamba's ``d_inner`` and SSM
+    heads (:func:`~repro_torch.models.mamba.mesh_mamba`), the experts and
+    the vocabulary go over ``model``; weights sharded over ``data`` (``fsdp``)
     are gathered over ``data`` at their use.  The residual stream stays
     replicated over ``model``: the values of JAX's sequence-sharded residual
     (``constrain_residual``), without its reduce-scatter.
@@ -282,6 +285,8 @@ class MeshLM:
     ``train_loss(batch, shards)`` is :meth:`DecoderLM.train_loss` on the
     mesh, differentiable in the per-position weights ``shards``.
     """
+
+    final_norm = "top.final_norm"  # the norm before the unembedding
 
     def __init__(self, cfg, mesh, specs: dict, shapes: dict, shards: list, kinds,
                  param_dtype, compute_dtype=None):
@@ -353,14 +358,29 @@ class MeshLM:
         return sum(seen.values())
 
     def new_caches(self, batch: int, length: int) -> list:
-        """Zeroed caches, one list of per-layer ``{"k", "v"}`` a position:
-        ``(batch / n_batch, length, KV heads, D)``, the KV heads
-        ``attn_heads`` gives a position."""
+        """Zeroed caches, one list of per-layer caches a position:
+        ``{"k", "v"}`` of ``(batch / n_batch, length, KV heads, D)``, the KV
+        heads ``attn_heads`` gives a position, for attention; for Mamba
+        ``state`` of ``(batch / n_batch, its heads, P, N)``, ``conv_x`` of
+        ``(batch / n_batch, K - 1, its channels)``, ``conv_b`` and ``conv_c``
+        whole (:func:`~repro_torch.models.mamba.mesh_mamba`'s layout)."""
         cfg, ctx = self.cfg, self.ctx
+        rows = batch // ctx.n_batch
         kv = attn_heads(cfg, ctx.tp)[1]
-        shape = (batch // ctx.n_batch, length, kv, cfg.head_dim)
-        return [[{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=self.dtype, device=dev)} for _ in self.kinds]
+        shapes = {"attn": {"k": (rows, length, kv, cfg.head_dim),
+                           "v": (rows, length, kv, cfg.head_dim)}}
+        kinds = [kind for kind, _ in self.kinds]
+        if "ssm" in kinds:
+            pre = f"layers.{kinds.index('ssm')}.ssm."
+            split = {name: ctx.tp if self.spec(pre + name)[1] == ctx.model_axis else 1
+                     for name in ("in_x", "in_dt")}
+            d_in, h, _ = mamba_dims(cfg)
+            n, k = cfg.ssm_state, cfg.ssm_conv
+            shapes["ssm"] = {"state": (rows, h // split["in_dt"], cfg.ssm_headdim, n),
+                             "conv_x": (rows, k - 1, d_in // split["in_x"]),
+                             "conv_b": (rows, k - 1, n), "conv_c": (rows, k - 1, n)}
+        return [[{name: torch.zeros(shape, dtype=self.dtype, device=dev)
+                  for name, shape in shapes[kind].items()} for kind in kinds]
                 for dev in ctx.devices]
 
     def _embed(self, tokens: list) -> list:
@@ -385,7 +405,7 @@ class MeshLM:
         (B / n_batch, S, V or V / tp), whether they are its vocabulary
         shard)."""
         cfg, ctx = self.cfg, self.ctx
-        norms = self.weights("top.final_norm")
+        norms = self.weights(self.final_norm)
         hs = [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for p, x in zip(norms, xs)]
         if cfg.tie_embeddings:
             name, dim = "top.embed", 0
@@ -406,8 +426,8 @@ class MeshLM:
         cfg = self.cfg
         ropes = [rope_cos_sin(p, cfg.head_dim, theta=cfg.rope_theta, sections=cfg.mrope_sections)
                  for p in positions]
-        for l, (_, ffn) in enumerate(self.kinds):
-            xs = mesh_block_apply(self, l, xs, ffn, ropes, [c[l] for c in caches], pos,
+        for l, (kind, ffn) in enumerate(self.kinds):
+            xs = mesh_block_apply(self, l, xs, kind, ffn, ropes, [c[l] for c in caches], pos,
                                   use_kernel)[0]
         return xs
 
@@ -446,7 +466,7 @@ class MeshLM:
     def train_loss_positions(self, parts: list):
         """:meth:`train_loss` of inputs already split: one dict a position,
         as :meth:`split_inputs` gives them."""
-        cfg, ctx = self.cfg, self.ctx
+        cfg = self.cfg
         targets = [p["targets"] for p in parts]
         b, s = targets[0].shape
         if "embeds" in parts[0]:
@@ -458,9 +478,20 @@ class MeshLM:
         ropes = [rope_cos_sin(p, cfg.head_dim, theta=cfg.rope_theta, sections=cfg.mrope_sections)
                  for p in positions]
         aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
-        for l, (_, ffn) in enumerate(self.kinds):
-            xs, aux_l = remat(mesh_block_apply, cfg.remat)(self, l, xs, ffn, ropes, None, None)
+        for l, (kind, ffn) in enumerate(self.kinds):
+            xs, aux_l = remat(mesh_block_apply, cfg.remat)(self, l, xs, kind, ffn, ropes, None,
+                                                           None)
             aux = [a + b for a, b in zip(aux, aux_l)]
+        loss = self._mean_nll(xs, targets)
+        aux = aux[0].to(self.device)
+        return loss + AUX_COEF * aux, {"loss": loss, "aux_loss": aux}
+
+    def _mean_nll(self, xs: list, targets: list) -> torch.Tensor:
+        """The mean next-token cross-entropy of the final residuals ``xs``
+        against ``targets`` (one a position), on ``device``: taken on each
+        position's vocabulary shard of the logits, each batch shard's mean
+        summed in mesh order and divided by the shard count."""
+        ctx = self.ctx
         logits, sharded = self._vocab_logits(xs)
         if sharded and ctx.tp > 1:
             ax = ctx.model_axis
@@ -472,9 +503,7 @@ class MeshLM:
             means = [n.mean() for n in vocab_parallel_nll(logits, targets, starts, reduce)]
         else:
             means = [cross_entropy_loss(x, t) for x, t in zip(logits, targets)]
-        loss = ctx.psum(means, ctx.batch_axes)[0].to(self.device) / ctx.n_batch
-        aux = aux[0].to(self.device)
-        return loss + AUX_COEF * aux, {"loss": loss, "aux_loss": aux}
+        return ctx.psum(means, ctx.batch_axes)[0].to(self.device) / ctx.n_batch
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor | None = None, *, embeds: torch.Tensor | None = None,
@@ -511,20 +540,22 @@ def mesh_model(model, mesh=None) -> MeshLM:
     """The structure of ``model`` on ``mesh`` (default: the mesh
     ``build_model(..., mesh=)`` kept): its weights' specs by
     ``param_specs`` and whole shapes, no weights (``model`` may be a
-    ``meta`` skeleton).  The SSM, hybrid and encoder-decoder families are
-    refused: their tensor-parallel forms are ROADMAP.md §1 item 2c."""
+    ``meta`` skeleton).  A :class:`MeshLM` for every decoder-only family, a
+    :class:`~repro_torch.models.encdec.MeshEncDecLM` for the
+    encoder-decoder."""
     mesh = model.mesh if mesh is None else mesh
     cfg = model.cfg
     if mesh is None:
         raise ValueError("a model mesh needs a mesh (build_model(..., mesh=) or mesh=)")
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): a model mesh serves and trains the "
-            f"{', '.join(MESH_FAMILIES)} families; SSM, hybrid and encoder-decoder tensor "
-            "parallelism is ROADMAP.md §1 item 2c")
     shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
-    return MeshLM(cfg, mesh, param_specs(model, mesh), shapes, None, model.kinds,
-                  model.param_dtype, model.compute_dtype)
+    specs = param_specs(model, mesh)
+    if cfg.is_encdec:
+        from repro_torch.models.encdec import MeshEncDecLM
+
+        return MeshEncDecLM(cfg, mesh, specs, shapes, None, None, model.param_dtype,
+                            model.compute_dtype)
+    return MeshLM(cfg, mesh, specs, shapes, None, model.kinds, model.param_dtype,
+                  model.compute_dtype)
 
 
 def shard_leaves(meshed: MeshLM, flat: dict, share_replicated: bool = False) -> list:
@@ -566,7 +597,7 @@ def shard_params(model, mesh=None) -> MeshLM:
     so the shards together hold one device's bytes.  A weight replicated
     over the mesh is stored once a device (on the model's own device, the
     model's tensor itself).  One-device weights may come from
-    ``params_from_jax``.  Refuses what :func:`mesh_model` refuses."""
+    ``params_from_jax``."""
     meshed = mesh_model(model, mesh)
     meshed.shards = shard_leaves(meshed, model.flat_params(), share_replicated=True)
     return meshed
@@ -579,32 +610,36 @@ def gather_params(meshed: MeshLM, device=None) -> dict:
 
 
 def gather_caches(meshed: MeshLM, caches: list, device=None) -> list:
-    """Each position's caches -> :class:`DecoderLM`'s layout, one
-    ``{"k", "v"}`` of (B, L, KV, D) a layer on ``device``: the batch shards
-    concatenated, the KV heads from the positions that hold them (a
-    repeated head from the first position holding it)."""
+    """Each position's caches -> the one-device model's layout, one dict a
+    layer on ``device``: the batch shards concatenated; the KV heads of
+    ``k``, ``v`` (and the cross-attention's ``xk``, ``xv``) from the
+    positions that hold them (a repeated head from the first position
+    holding it); a Mamba ``state``'s heads and ``conv_x``'s channels
+    concatenated over ``model`` where each position holds its share, and a
+    leaf every position holds whole (``conv_b``, ``conv_c``) from its first
+    holder."""
     device = meshed.device if device is None else device
     cfg, ctx = meshed.cfg, meshed.ctx
     hq, kv_loc = attn_heads(cfg, ctx.tp)
     g = cfg.num_heads // cfg.num_kv_heads
+    d_in, h_ssm, _ = mamba_dims(cfg)
+    shared = {"state": (1, h_ssm), "conv_x": (2, d_in)}  # Mamba leaf -> (dim cut, its extent)
     by_shard = {}  # batch shard -> its positions by model index
     for i in range(ctx.n):
         by_shard.setdefault(ctx.batch_index[i], {}).setdefault(ctx.model_index[i], i)
-    out = []
-    for l in range(len(meshed.kinds)):
-        layer = {}
-        for key in ("k", "v"):
-            rows = []
-            for k in range(ctx.n_batch):
-                at = by_shard[k]
-                if hq == cfg.num_heads:  # every head on every position
-                    rows.append(caches[at[0]][l][key].to(device))
-                elif kv_loc * ctx.tp == cfg.num_kv_heads:  # KV / tp heads a position
-                    rows.append(torch.cat([caches[at[j]][l][key].to(device)
-                                           for j in range(ctx.tp)], 2))
-                else:  # H / tp repeated heads a position: KV head c is query head c * g's
-                    rows.append(torch.stack([caches[at[c * g // hq]][l][key][:, :, c * g % hq]
-                                             .to(device) for c in range(cfg.num_kv_heads)], 2))
-            layer[key] = torch.cat(rows, 0)
-        out.append(layer)
-    return out
+
+    def assemble(l, key, at):
+        parts = [caches[at[j]][l][key].to(device) for j in range(ctx.tp)]
+        if key in shared:
+            dim, whole = shared[key]
+            return parts[0] if parts[0].shape[dim] == whole else torch.cat(parts, dim)
+        if key not in ("k", "v", "xk", "xv") or hq == cfg.num_heads:  # whole a position
+            return parts[0]
+        if kv_loc * ctx.tp == cfg.num_kv_heads:  # KV / tp heads a position
+            return torch.cat(parts, 2)
+        # H / tp repeated heads a position: KV head c is query head c * g's
+        return torch.stack([parts[c * g // hq][:, :, c * g % hq]
+                            for c in range(cfg.num_kv_heads)], 2)
+
+    return [{key: torch.cat([assemble(l, key, by_shard[k]) for k in range(ctx.n_batch)], 0)
+             for key in caches[0][l]} for l in range(len(caches[0]))]

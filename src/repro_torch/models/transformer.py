@@ -23,8 +23,8 @@ at its cursor.  (The JAX engine pads its immutable caches after prefill
 instead.)  A Mamba layer's cache (:mod:`repro_torch.models.mamba`) is
 replaced, entry by entry, by prefill and by every step.
 
-On a mesh (:class:`RunCtx`, :func:`mesh_block_apply`) the attention
-families run tensor parallel: every value is a list with one tensor a mesh
+On a mesh (:class:`RunCtx`, :func:`mesh_block_apply`) every family runs
+tensor parallel: every value is a list with one tensor a mesh
 position, and the collectives between them are explicit tensor operations
 in mesh order (a psum is a sum, an all-gather a ``cat``, a move between
 devices a ``.to``), differentiable as they stand: a meshed layer trains
@@ -44,7 +44,7 @@ from repro_torch.dist.sharding import flat_axis_index, mesh_extent, psum
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import linear, mlp_apply, norm_apply
-from repro_torch.models.mamba import mamba_apply
+from repro_torch.models.mamba import mamba_apply, mesh_mamba
 from repro_torch.models.moe import moe_einsum
 from repro_torch.models.rope import rotate
 
@@ -257,7 +257,9 @@ def attn_heads(cfg, tp: int) -> tuple[int, int]:
     return h // tp, (kv // tp if kv % tp == 0 else h // tp)
 
 
-def mesh_attn(m, pre: str, hs: list, ropes: list, caches, pos, use_kernel) -> list:
+def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel, *,
+              causal: bool = True, cross: bool = False, xkv: list | None = None,
+              train: bool | None = None) -> list:
     """Attention on the mesh (``attn_block`` of the JAX package under its
     sharding rules) -> each position's share of the output projection,
     psummed over ``model``.
@@ -266,57 +268,76 @@ def mesh_attn(m, pre: str, hs: list, ropes: list, caches, pos, use_kernel) -> li
     ``tp > 1``) each position computes its ``H / tp`` heads: its columns of
     ``wq``; its KV heads when ``KV % tp == 0``, else the K and V projections
     gathered over ``model`` and repeated to the query heads
-    (``attention.repeat_kv``), its heads of those.  Training (``caches``
-    None) attends through ``train_attention`` on the position's heads, as
-    the one-device ``train_loss`` does; prefill runs the flash
-    kernel on the position's heads, decode attends over the position's own
-    cache, which holds the KV heads its query heads read: ``KV / tp`` heads,
-    or ``H / tp`` repeated heads where ``KV % tp != 0`` (JAX's
-    ``_cache_specs`` shards such a cache's sequence over ``model`` instead).
-    Otherwise every position computes every head.  ``wo`` is row parallel
-    where its rows are sharded: each position's heads times its rows, the
-    partials summed in mesh order.
+    (``attention.repeat_kv``), its heads of those.  Training (``train``,
+    by default ``caches`` None) attends through ``train_attention`` on the
+    position's heads, as the one-device ``train_loss`` does; prefill
+    (``pos`` None) runs the flash kernel on the position's heads, writing
+    its cache where ``caches`` holds one, and decode attends over the
+    position's own cache, which holds the KV heads its query heads read:
+    ``KV / tp`` heads, or ``H / tp`` repeated heads where ``KV % tp != 0``
+    (JAX's ``_cache_specs`` shards such a cache's sequence over ``model``
+    instead).  Otherwise every position computes every head.  ``wo`` is row
+    parallel where its rows are sharded: each position's heads times its
+    rows, the partials summed in mesh order.
+
+    ``causal`` False is the encoder's attention and the cross-attention.
+    ``cross`` is the decoder's cross-attention: K and V projected from the
+    encoder states ``xkv`` (one tensor a position) with their biases, on the
+    position's KV heads, and kept in the cache as ``xk`` / ``xv`` at
+    prefill; a decode step projects only its query and reads them.  Rotary
+    positions apply to self-attention only.
     """
     cfg, ctx = m.cfg, m.ctx
     h, kvh, hd, tp, ax = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ctx.tp, ctx.model_axis
     hq = attn_heads(cfg, tp)[0]
     heads = hq < h
+    train = caches is None and pos is None if train is None else train
 
-    def project(w, b):
-        out = [linear(x, wi) for x, wi in zip(hs, m.weight(pre + w))]
+    def project(w, b, src):
+        out = [linear(x, wi) for x, wi in zip(src, m.weight(pre + w))]
         if cfg.qkv_bias:
             out = [o + bi.to(o.dtype) for o, bi in zip(out, m.weight(pre + b))]
         if not heads and is_sharded(m.spec(pre + w), 1, ax):
             out = ctx.all_gather(out, ax, -1)
         return out
 
-    q, k, v = project("wq", "bq"), project("wk", "bk"), project("wv", "bv")
     bsz, s = hs[0].shape[:2]
-    q = [t.view(bsz, s, hq, hd) for t in q]
-    if heads and kvh % tp:  # KV heads not whole on a position: gather, repeat
-        k, v = (ctx.all_gather(t, ax, -1) if is_sharded(m.spec(pre + w), 1, ax) else t
-                for t, w in ((k, "wk"), (v, "wv")))
-        k, v = ([attn_mod.repeat_kv(x.view(bsz, s, kvh, hd), h // kvh)
-                 [:, :, j * hq:(j + 1) * hq] for x, j in zip(t, ctx.model_index)]
-                for t in (k, v))
-    else:
-        k, v = ([x.view(bsz, s, -1, hd) for x in t] for t in (k, v))
-    if cfg.use_rope:
-        q = [rotate(t, *r) for t, r in zip(q, ropes)]
-        k = [rotate(t, *r) for t, r in zip(k, ropes)]
+    q = [t.view(bsz, s, hq, hd) for t in project("wq", "bq", hs)]
+    k = v = [None] * ctx.n  # a cross-attention decode step reads its K and V from the cache
+    if not (cross and pos is not None):
+        src = xkv if cross else hs
+        t = src[0].shape[1]
+        k, v = project("wk", "bk", src), project("wv", "bv", src)
+        if heads and kvh % tp:  # KV heads not whole on a position: gather, repeat
+            k, v = (ctx.all_gather(x, ax, -1) if is_sharded(m.spec(pre + w), 1, ax) else x
+                    for x, w in ((k, "wk"), (v, "wv")))
+            k, v = ([attn_mod.repeat_kv(x.view(bsz, t, kvh, hd), h // kvh)
+                     [:, :, j * hq:(j + 1) * hq] for x, j in zip(y, ctx.model_index)]
+                    for y in (k, v))
+        else:
+            k, v = ([x.view(bsz, t, -1, hd) for x in y] for y in (k, v))
+    if cfg.use_rope and not cross:
+        q = [rotate(x, *r) for x, r in zip(q, ropes)]
+        k = [rotate(x, *r) for x, r in zip(k, ropes)]
     outs = []
     for i in range(ctx.n):
-        if caches is None:  # training: the JAX package's attention, no kernel
-            o = attn_mod.train_attention(q[i], k[i], v[i], causal=True, cfg=cfg)
-            outs.append(o.reshape(bsz, s, hq * hd))
-            continue
-        cache, start = caches[i], 0 if pos is None else pos
-        cache["k"][:, start:start + s] = k[i]
-        cache["v"][:, start:start + s] = v[i]
-        if pos is None:
-            o = attn_mod.attention(q[i], k[i], v[i], causal=True, use_kernel=use_kernel)
+        if train:  # the JAX package's attention, no kernel
+            o = attn_mod.train_attention(q[i], k[i], v[i], causal=causal, cfg=cfg)
+        elif cross:
+            if pos is None:
+                caches[i]["xk"], caches[i]["xv"] = k[i], v[i]
+                o = attn_mod.attention(q[i], k[i], v[i], causal=causal, use_kernel=use_kernel)
+            else:
+                o = attn_mod.decode_attention(q[i], caches[i]["xk"], caches[i]["xv"])
         else:
-            o = attn_mod.decode_attention(q[i], cache["k"], cache["v"], pos)
+            start = 0 if pos is None else pos
+            if caches is not None:
+                caches[i]["k"][:, start:start + s] = k[i]
+                caches[i]["v"][:, start:start + s] = v[i]
+            if pos is None:
+                o = attn_mod.attention(q[i], k[i], v[i], causal=causal, use_kernel=use_kernel)
+            else:
+                o = attn_mod.decode_attention(q[i], caches[i]["k"], caches[i]["v"], pos)
         outs.append(o.reshape(bsz, s, hq * hd))
     row = is_sharded(m.spec(pre + "wo"), 0, ax)
     if row and not heads:  # every head here, a row shard of wo: its heads' columns
@@ -350,26 +371,33 @@ def mesh_mlp(m, pre: str, hs: list) -> list:
     return [y + b.to(y.dtype) for y, b in zip(partial, m.weight(pre + "b_out"))]
 
 
-def mesh_block_apply(m, l: int, xs: list, ffn_kind: str, ropes: list, caches: list,
+def mesh_norm(m, name: str, xs: list) -> list:
+    """The norm ``name`` (a weight prefix) of a meshed model on each
+    position's residual."""
+    cfg = m.cfg
+    return [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for x, p in zip(xs, m.weights(name))]
+
+
+def mesh_block_apply(m, l: int, xs: list, kind: str, ffn_kind: str, ropes: list, caches: list,
                      pos: int | None, use_kernel="auto") -> list:
-    """Layer ``l`` of a meshed model (an attention layer) on the per-position
-    residual ``xs``, replicated over ``model`` -> (the new residual, each
-    position's MoE load-balance loss, averaged over the expert-parallel
-    blocks; float32 zeros but for MoE).  ``caches`` holds each position's
-    cache of the layer (None: training, no cache); ``pos`` None is
-    prefill."""
-    cfg, pre = m.cfg, f"layers.{l}."
-
-    def norm(name, ts):
-        return [norm_apply(p, t, cfg.norm_type, cfg.norm_eps)
-                for t, p in zip(ts, m.weights(pre + name))]
-
-    mix = mesh_attn(m, pre + "attn.", norm("ln1", xs), ropes, caches, pos, use_kernel)
+    """Layer ``l`` of a meshed model on the per-position residual ``xs``,
+    replicated over ``model``: the mixer of ``kind`` (``attn``:
+    :func:`mesh_attn`, ``ssm``: :func:`~repro_torch.models.mamba.mesh_mamba`),
+    then the FFN of ``ffn_kind`` -> (the new residual, each position's MoE
+    load-balance loss, averaged over the expert-parallel blocks; float32
+    zeros but for MoE).  ``caches`` holds each position's cache of the layer
+    (None: training, no cache); ``pos`` None is prefill."""
+    pre = f"layers.{l}."
+    hs = mesh_norm(m, pre + "ln1", xs)
+    if kind == "attn":
+        mix = mesh_attn(m, pre + "attn.", hs, ropes, caches, pos, use_kernel)
+    else:
+        mix = mesh_mamba(m, pre + "ssm.", hs, caches, pos)
     xs = [x + y for x, y in zip(xs, mix)]
     aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
     if ffn_kind == "none":
         return xs, aux
-    hs = norm("ln2", xs)
+    hs = mesh_norm(m, pre + "ln2", xs)
     if ffn_kind == "moe":
         ys, aux = moe_mod.moe_apply(m, pre + "moe.", hs)
     else:

@@ -20,8 +20,9 @@ JAX package's scan does.  ``mesh=`` trains over a
   positions on one device give bitwise the one-device step with
   ``microbatches=2``: the same per-part gradients, summed in the same
   order.
-* a mesh with a ``model`` axis trains the attention families on the model
-  mesh (:class:`~repro_torch.models.model.MeshLM`): the state holds each
+* a mesh with a ``model`` axis trains every family on the model mesh
+  (:class:`~repro_torch.models.model.MeshLM`,
+  :class:`~repro_torch.models.encdec.MeshEncDecLM`): the state holds each
   position's blocks of ``params``, ``m`` and ``v`` (one flat dict a
   position, laid out by :func:`make_train_state_specs`; a leaf replicated
   over positions is a copy a position), the loss runs through

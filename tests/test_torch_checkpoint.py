@@ -3,8 +3,9 @@
 simulated on one directory through ``process_index``/``process_count``),
 checkpoints read across the two packages in both directions, bfloat16
 leaves included, ``elastic_restore`` onto another mesh, and a state on a
-model mesh: its files are the gathered state's, byte for byte, and it
-restores onto the mesh, onto another one and onto one device bitwise."""
+model mesh (an attention, a MoE and the encoder-decoder family): its files
+are the gathered state's, byte for byte, and it restores onto the mesh,
+onto another one and onto one device bitwise."""
 
 import os
 import threading
@@ -260,7 +261,8 @@ def _files(d):
 
 
 @pytest.mark.parametrize("arch,moment_dtype", [("qwen1.5-0.5b", "float32"),
-                                               ("llama4-scout-17b-a16e", "bfloat16")])
+                                               ("llama4-scout-17b-a16e", "bfloat16"),
+                                               ("whisper-tiny", "float32")])
 def test_a_meshed_checkpoint_is_the_gathered_states_bytes(tmp_path, arch, moment_dtype):
     """(2, 2) with fsdp: blocks over both axes, norms on all four positions;
     every leaf written whole, as one JAX process writes it."""
@@ -310,6 +312,39 @@ def test_elastic_restore_from_22_onto_14_and_one_device(tmp_path):
     assert same is model and len(on14.params) == 4
     assert on14.params[0]["layers.0.attn.wq"].shape[1] == model.cfg.num_heads * \
         model.cfg.head_dim // 4
+    mgr2 = CheckpointManager(str(tmp_path / "b"), use_async=False)
+    mgr2.save(1, state_to_jax(model, on14, wide))
+    _, one = elastic_restore(mgr2, 1, model, cfg, torch.device("cpu"))
+    for got in (gather_train_state(model, on14, wide, "cpu"), one):
+        assert int(got.step) == 1
+        for k in whole.params:
+            assert torch.equal(got.params[k], whole.params[k]), k
+            assert torch.equal(got.opt["m"][k], whole.opt["m"][k])
+            assert torch.equal(got.opt["v"][k], whole.opt["v"][k])
+    batch = {k: torch.from_numpy(v) for k, v in batch_for(model.cfg, 4, 16, seed=2).items()}
+    _, metrics = make_train_step(model, cfg, mesh=wide)(on14, batch)
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_a_meshed_whisper_state_restores_from_22_onto_14_and_one_device(tmp_path):
+    """The encoder-decoder state on (2, 2) (its ``enc_blocks`` and
+    ``dec_blocks`` stacks written whole, the one-device bytes), through
+    ``elastic_restore`` onto (1, 4) and onto one device, each gathered
+    bitwise the saved state; a step on (1, 4) from it runs."""
+    mesh = _mesh((2, 2))
+    model, cfg, state = _meshed_state("whisper-tiny", "float32", mesh)
+    whole = gather_train_state(model, state, mesh, "cpu")
+    mgr = CheckpointManager(str(tmp_path / "a"), use_async=False)
+    mgr.save(1, state_to_jax(model, state, mesh))
+    CheckpointManager(str(tmp_path / "one"), use_async=False).save(1, state_to_jax(model, whole))
+    (got, _), (want, _) = _files(tmp_path / "a"), _files(tmp_path / "one")
+    assert any("enc_blocks" in k for k in want) and list(got) == list(want)
+    for k, a in want.items():
+        np.testing.assert_array_equal(_bits(got[k]), _bits(a), err_msg=k)
+    wide = _mesh((1, 4))
+    _, on14 = elastic_restore(mgr, 1, model, cfg, wide)
+    assert on14.params[0]["dec_layers.0.cross.wq"].shape[1] == \
+        model.cfg.num_heads * model.cfg.head_dim // 4
     mgr2 = CheckpointManager(str(tmp_path / "b"), use_async=False)
     mgr2.save(1, state_to_jax(model, on14, wide))
     _, one = elastic_restore(mgr2, 1, model, cfg, torch.device("cpu"))

@@ -25,8 +25,9 @@ kernel, and ``launch.train --fail-at-step`` ending bitwise equal to an
 uninterrupted run on the card (deterministic algorithms on).  The model
 mesh: the smoke models sharded on four positions of ``cuda:0`` against a
 mesh of CPU positions and the one-device card model, flash launched once a
-position an attention layer at the position's heads, and
-``pipeline_apply`` on card positions.
+position an attention layer at the position's heads (mamba2's none, each
+of whisper's three attentions once), and ``pipeline_apply`` on card
+positions.
 """
 
 import numpy as np
@@ -991,6 +992,93 @@ def test_meshed_smoke_model_on_one_card(cuda, arch, shape):
     torch.testing.assert_close(got, card.prefill(tokens.to(cuda))[0], rtol=1e-4, atol=1e-4)
     reqs = [Request(tokens[i, : 64 if i < 2 else 32].tolist(), 6) for i in range(4)]
     assert ServeEngine(meshed).serve(reqs) == ServeEngine(card).serve(reqs)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_meshed_mamba2_prefill_and_step_on_one_card(cuda, shape):
+    """mamba2's smoke model (float32) on four positions of ``cuda:0``: no
+    kernel launched; the prefill's logits and gathered caches, then a
+    decode step's logits, within ``1e-4`` of the one-device card model."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.model import gather_caches, shard_params
+
+    cfg = smoke_config("mamba2-1.3b")
+    card = build_model(cfg, device=cuda, dtype=torch.float32)
+    meshed = shard_params(card, make_mesh(shape, ("data", "model"), devices=[cuda] * 4))
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 64)))
+    tokens = tokens.to(cuda)
+    before = flash_attention_cuda.launches
+    got, caches = meshed.prefill(tokens, cache_len=65)
+    want, want_caches = card.prefill(tokens, cache_len=65)
+    assert flash_attention_cuda.launches == before
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for g, w in zip(gather_caches(meshed, caches), want_caches):
+        for name in w:
+            torch.testing.assert_close(g[name], w[name], rtol=1e-4, atol=1e-4)
+    step = tokens[:, :1]
+    torch.testing.assert_close(meshed.serve_step(step, 64, caches)[0],
+                               card.serve_step(step, 64, want_caches)[0], rtol=1e-4, atol=1e-4)
+
+
+def test_meshed_mamba2_restart_on_the_card_is_bitwise(cuda, tmp_path):
+    """``launch.train --arch mamba2-1.3b --model-parallel 2`` on four
+    positions of the card, uninterrupted and with a crash at step 3: the
+    command line turns deterministic algorithms on, where ``torch.cumsum``
+    of floats raises on the card (the SSD's sums then run as a triangular
+    product); the losses and the final checkpoint bitwise equal."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.runtime.checkpoint import flatten_with_paths
+    from repro_torch.train import AdamWConfig, train_state_shapes
+    from repro_torch.train.train_step import state_to_jax
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    recs = {}
+    for name, extra in (("plain", []), ("failed", ["--fail-at-step", "3"])):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+               "--arch", "mamba2-1.3b", "--model-parallel", "2", "--steps", "6",
+               "--global-batch", "4", "--seq-len", "64", "--ckpt-every", "2",
+               "--ckpt-dir", str(tmp_path / name), *extra]
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=True,
+                             env=dict(os.environ, PYTHONPATH=src, REPRO_DEVICES="4"))
+        recs[name] = json.loads(out.stdout.strip().splitlines()[-1])
+    assert recs["plain"]["mesh"] == {"data": 2, "model": 2}
+    assert recs["failed"]["restarts"] == 1 and recs["plain"]["restarts"] == 0
+    assert recs["failed"]["losses"] == recs["plain"]["losses"]
+    skeleton = build_model(smoke_config("mamba2-1.3b"), device="meta", dtype=torch.float32)
+    like = state_to_jax(skeleton, train_state_shapes(skeleton, AdamWConfig()))
+    a, b = (flatten_with_paths(CheckpointManager(str(tmp_path / n)).restore(6, like))
+            for n in ("plain", "failed"))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_meshed_whisper_prefill_on_one_card(cuda):
+    """whisper's smoke model (float32) on (2, 2) positions of ``cuda:0``:
+    the encoder's, the decoder's and the cross-attention's prefill each
+    launch flash once a position a layer; the logits within ``1e-4`` of the
+    one-device card model's, the greedy tokens equal."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.model import shard_params
+
+    cfg = smoke_config("whisper-tiny")
+    card = build_model(cfg, device=cuda, dtype=torch.float32)
+    meshed = shard_params(card, make_mesh((2, 2), ("data", "model"), devices=[cuda] * 4))
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy((0.5 * rng.standard_normal((4, 48, cfg.d_model)))
+                              .astype(np.float32)).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 6))).to(cuda)
+    before = flash_attention_cuda.launches
+    got, _ = meshed.prefill(frames, tokens)
+    assert flash_attention_cuda.launches - before == \
+        4 * (cfg.encoder_layers + 2 * cfg.decoder_layers)
+    torch.testing.assert_close(got, card.prefill(frames, tokens)[0], rtol=1e-4, atol=1e-4)
+    assert torch.equal(meshed.greedy(frames, tokens, 5)[0], card.greedy(frames, tokens, 5)[0])
 
 
 def test_flash_launches_once_a_position_an_attention(cuda):

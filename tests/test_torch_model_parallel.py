@@ -16,7 +16,9 @@ whole-batch capacity give the same outputs.  The MoE layers at the
 configs' 1.25 are held block by block in ``test_torch_expert_parallel.py``.
 Also: ``gather_params`` inverts ``shard_params`` bit for bit, greedy
 ``ServeEngine`` tokens equal the JAX engine's, the refusals, and
-``launch.serve --model-parallel 2`` on four CPU positions.
+``launch.serve --model-parallel 2`` (and 4) on four CPU positions, for
+these archs and the SSM, hybrid and encoder-decoder ones (held in full in
+``test_torch_model_parallel_families.py``).
 """
 
 import dataclasses
@@ -158,10 +160,21 @@ def test_a_pod_axis_splits_the_batch_with_data(pair):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"])
-def test_other_families_are_refused_on_a_mesh(arch):
-    model = build_model(smoke_config(arch), device="meta")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        shard_params(model, _mesh((1, 2)))
+def test_other_families_shard_onto_a_mesh(arch):
+    """``shard_params`` takes the SSM, hybrid and encoder-decoder families:
+    the meshed prefill's logits equal the one-device model's within
+    jamba's ``1e-4``."""
+    cfg = smoke_config(arch)
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    args = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))]
+    if cfg.is_encdec:
+        args.insert(0, torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model))
+                                        .astype(np.float32)))
+    meshed = shard_params(model, _mesh((1, 2)))
+    assert type(meshed).__name__ == ("MeshEncDecLM" if cfg.is_encdec else "MeshLM")
+    np.testing.assert_allclose(meshed.prefill(*args)[0].numpy(), model.prefill(*args)[0].numpy(),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_a_batch_the_data_axis_does_not_divide_raises(pair):
@@ -172,7 +185,8 @@ def test_a_batch_the_data_axis_does_not_divide_raises(pair):
         meshed.prefill(**kw)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "dbrx-132b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b", "whisper-tiny"])
 def test_serve_cli_model_parallel_tokens_equal_one_device(arch, monkeypatch, capsys):
     argv = ["--arch", arch, "--device", "cpu", "--requests", "4", "--prompt-len", "16",
             "--max-new-tokens", "6"]
@@ -185,10 +199,16 @@ def test_serve_cli_model_parallel_tokens_equal_one_device(arch, monkeypatch, cap
     assert json.loads(lines[-1])["mesh"] == {"data": 2, "model": 2}
 
 
-def test_serve_cli_refuses_a_model_mesh_for_the_other_families(monkeypatch):
+def test_serve_cli_model_parallel_4_serves_an_ssm_arch(monkeypatch):
+    """``--model-parallel 4`` on four positions: a (1, 4) mesh, mamba2's
+    8 SSM heads 2 a position, the tokens of ``--model-parallel 1``."""
+    argv = ["--arch", "mamba2-1.3b", "--device", "cpu", "--requests", "2", "--prompt-len",
+            "16", "--max-new-tokens", "4"]
+    one = serve_cli.main(argv)
     monkeypatch.setenv("REPRO_DEVICES", "4")
-    with pytest.raises(SystemExit, match="item 2c"):
-        serve_cli.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--model-parallel", "2"])
+    meshed = serve_cli.main(argv + ["--model-parallel", "4"])
+    assert meshed["mesh"] == {"data": 1, "model": 4}
+    assert meshed["first_tokens"] == one["first_tokens"] and meshed["new_tokens"] == 8
 
 
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=str)

@@ -107,8 +107,10 @@ def test_cli_prints_one_json_line_naming_the_device():
 def test_cli_refuses_what_is_not_ported(argv):
     # Checkpoints are ported (a directory without one is refused; loading
     # one is held in test_torch_train_cli.py); model parallelism is ported
-    # for the attention families (test_torch_model_parallel.py), not the SSM's.
-    match = "no checkpoint" if "--ckpt-dir" in argv else "ROADMAP"
+    # for every family (test_torch_model_parallel.py and
+    # test_torch_model_parallel_families.py), and refused where the mesh
+    # positions (REPRO_DEVICES, one here) do not split into it.
+    match = "no checkpoint" if "--ckpt-dir" in argv else "do not split"
     with pytest.raises(SystemExit, match=match):
         serve_cli.main(argv)
 

@@ -5,7 +5,8 @@ its per-step losses match the JAX package's single-device
 ``make_train_step`` from the same weights and batches, ``--model-parallel
 2`` on four CPU positions (``REPRO_DEVICES=4``: a (2, 2) mesh) trains to
 the losses of ``--model-parallel 1`` and restarts from an injected crash
-bit for bit (an SSM arch is refused there), and ``launch.serve
+bit for bit (the qwen and the mamba2 smoke configs), an encoder-decoder
+arch is refused on one device and on the mesh alike, and ``launch.serve
 --ckpt-dir`` serves the checkpoint's weights."""
 
 import json
@@ -43,9 +44,9 @@ ARGS = ["--device", "cpu", "--steps", "6", "--global-batch", "4", "--seq-len", "
         "--ckpt-every", "2", "--lr", "1e-3", "--warmup", "2"]
 
 
-def _final(ckpt_dir):
+def _final(ckpt_dir, arch="qwen1.5-0.5b"):
     mgr = CheckpointManager(str(ckpt_dir))
-    model = build_model(smoke_config("qwen1.5-0.5b"), device="cpu", dtype=torch.float32)
+    model = build_model(smoke_config(arch), device="cpu", dtype=torch.float32)
     like = state_to_jax(model, train_state_shapes(model, AdamWConfig()))
     return mgr.latest_step(), flatten_with_paths(mgr.restore(mgr.latest_step(), like))
 
@@ -150,11 +151,36 @@ def test_model_parallel_restart_is_bitwise_an_uninterrupted_run(runs, mp_runs):
         assert a[k].shape == one[k].shape and a[k].dtype == one[k].dtype, k
 
 
-def test_model_parallel_refuses_an_ssm_arch(tmp_path, monkeypatch):
+def test_model_parallel_trains_an_ssm_arch_and_restarts_bitwise(tmp_path, monkeypatch):
+    """mamba2's smoke config on the (2, 2) mesh: the losses of one device's
+    run within ``1e-5``, and a run with an injected crash at step 3 bitwise
+    the uninterrupted meshed run (losses and final checkpoint)."""
+    argv = ARGS + ["--arch", "mamba2-1.3b"]
+    one = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
     monkeypatch.setenv("REPRO_DEVICES", "4")
-    with pytest.raises(SystemExit, match="item 2c"):
-        train_cli.main(ARGS + ["--ckpt-dir", str(tmp_path), "--model-parallel", "2",
-                               "--arch", "mamba2-1.3b"])
+    mp = argv + ["--model-parallel", "2"]
+    plain = train_cli.main(mp + ["--ckpt-dir", str(tmp_path / "plain")])
+    failed = train_cli.main(mp + ["--ckpt-dir", str(tmp_path / "failed"), "--fail-at-step", "3"])
+    assert plain["mesh"] == {"data": 2, "model": 2} and plain["steps"] == 6
+    np.testing.assert_allclose(plain["losses"], one["losses"], rtol=1e-5)
+    assert (plain["restarts"], failed["restarts"]) == (0, 1)
+    assert failed["losses"] == plain["losses"]
+    (step_a, a), (step_b, b) = (_final(tmp_path / n, "mamba2-1.3b") for n in ("plain", "failed"))
+    assert step_a == step_b == 6 and sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_an_encdec_arch_is_refused_on_one_device_and_on_the_mesh(tmp_path, monkeypatch):
+    """The command line feeds token batches; whisper's loss reads frame
+    embeddings: the same refusal with and without a model mesh."""
+    argv = ARGS + ["--arch", "whisper-tiny", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(SystemExit, match="feeds token batches") as one:
+        train_cli.main(argv)
+    monkeypatch.setenv("REPRO_DEVICES", "4")
+    with pytest.raises(SystemExit, match="feeds token batches") as meshed:
+        train_cli.main(argv + ["--model-parallel", "2"])
+    assert str(one.value) == str(meshed.value)
 
 
 def test_serve_loads_the_checkpoint_and_decodes(runs):

@@ -26,7 +26,7 @@ one-device model with ``moe_blockwise_reference`` in place of
 Also: the remat modes bitwise, a (2, 1) mesh step bitwise the
 data-parallel step, AdamW on blocks against JAX's ``adamw_update``, the
 vocabulary-parallel cross-entropy, microbatches, the pipeline's shards and
-the refusals.
+a step of each of the SSM, hybrid and encoder-decoder families.
 """
 
 import jax
@@ -476,7 +476,17 @@ def test_a_donated_step_is_the_same_step_and_consumes_its_state(shape):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"])
-def test_other_families_are_refused_on_a_model_mesh(arch):
-    model = build_model(smoke_config(arch), device="meta")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        make_train_step(model, AdamWConfig(), mesh=_mesh((1, 2)))
+def test_other_families_take_a_model_mesh_step(arch):
+    """``make_train_step(mesh=)`` takes the SSM, hybrid and
+    encoder-decoder families (held in full in
+    ``test_torch_train_model_parallel_families.py``): a step on (1, 2)
+    gives a finite loss and moves every position's weights."""
+    model = build_model(smoke_config(arch), device="cpu", dtype=torch.float32)
+    cfg = AdamWConfig(learning_rate=warmup_cosine(1e-3, 1, 10))
+    mesh = _mesh((1, 2))
+    state = init_train_state(model, cfg, mesh)
+    batch = torch_batch(batch_for(model.cfg, 8, 32, seed=8))  # jamba: 8 microbatches
+    new, metrics = make_train_step(model, cfg, mesh=mesh)(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and int(new.step) == 1
+    for old, sh in zip(state.params, new.params):
+        assert any(not torch.equal(old[k], sh[k]) for k in sh)
