@@ -93,15 +93,16 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    one parse and nine replay passes, 160 contingency launches (all int8,
    V=2, C=2) and MI launches; the same fit again parses nothing (ten
    replays), and once more under ``torch.profiler`` (the device's busy
-   share).  (b) phase 5's continuous data with ``bins=16`` and
-   ``spill_dir``: the staging pass encodes on the host and spills int8
-   codes, the replays count them: the same selection as phase 5's streaming
-   fit, 0 bin-code launches, 160 contingency launches on int8 codes (V=16,
-   C=2 and 16), the spilled bytes; one replayed 65,536 x 1000 code block
+   share).  (b) the first ``BINNED_SPILL_BLOCKS`` (4) blocks of phase 5's
+   continuous data with ``bins=16`` and ``spill_dir``: the staging pass
+   encodes on the host and spills int8 codes, the replays count them: the
+   same selection as the unspilled streamed fit of the same rows (the device
+   encode), 0 bin-code launches, 40 contingency launches on int8 codes
+   (V=16, C=2 and 16), the spilled bytes; one replayed 65,536 x 1000 code block
    read back as a replay (a memmap, one replay pass and no parse), counted
    bitwise against the plain version and timed at C=2 and 16.  (c) the
-   first ``CSV_ROWS`` (250,000) rows of the tall data written as CSV with
-   numpy byte operations (about 0.5 GB of text) and fitted through
+   first ``CSV_ROWS`` (125,000) rows of the tall data written as CSV with
+   numpy byte operations (about 0.25 GB of text) and fitted through
    ``CSVSource(dtype=int8, target_dtype=int8)`` with ``spill_dir`` and
    ``readahead=4``: the selection and gains of an in-memory fit of the same
    rows, one parse pass and nine replays, each pass's seconds.
@@ -110,8 +111,8 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    once run the engine once (one coalesces; (10 + 5) x 16 contingency
    launches with the distinct request), a distinct request (L=5) runs in
    the other worker meanwhile, a third identical request is a cache hit
-   that launches nothing; the results equal direct streamed fits of a fresh
-   source with no spill cache.  (e) ``mrmr_custom_score(MIScore(2, 2))`` on
+   that launches nothing; the results equal a direct streamed L=10 fit of a
+   fresh source with no spill cache (the L=5 request its first five picks).  (e) ``mrmr_custom_score(MIScore(2, 2))`` on
    CorrAL 10,000 x 5,000, the alternative encoding, ``get_result`` vmapped
    over candidate chunks: one contingency and one MI launch a chunk for the
    relevance and as many for the redundancy, every pick; the selection of
@@ -200,9 +201,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    kernel has no backward), the loss lower after them, the peak memory
    under ``TRAIN_PEAK_LIMIT``; step ms, tokens/s and the share of the
    step's bound (``train_step_bound``); one more step traced (busy share,
-   time by kernel); (c) ``python -m repro_torch.launch.train`` twice at
-   once, 2 of 24 layers, 6 steps, one with ``--fail-at-step 3``: the same
-   losses and, restored from their step-6 checkpoints, bitwise the same
+   time by kernel); (c) (run beside phase 15 (d)) ``python -m repro_torch.launch.train`` twice at
+   once, 2 of 24 layers, 4 steps of 2 x 256 tokens, one with ``--fail-at-step 3``: the same
+   losses and, restored from their step-4 checkpoints, bitwise the same
    state; the serve command line's ``main`` with ``--ckpt-dir``, in this
    process, decoding from the uninterrupted run's checkpoint.  Its files go under one
    ``tempfile.mkdtemp()`` directory, removed at the end.
@@ -249,7 +250,7 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    ``REPRO_DEVICES=4``, 2 of 24 layers, twice at once (one with
    ``--fail-at-step 3``): the same losses and bitwise the same final
    checkpoint, restored by ``elastic_restore`` onto (1, 4) positions and
-   onto one device bitwise.
+   onto one device bitwise; it runs beside phase 15 (d)'s command lines.
 
 15. The SSM, hybrid and encoder-decoder families on a model mesh of
    positions of ``cuda:0``.  (a) mamba2-1.3b whole: served in bf16 on
@@ -272,9 +273,28 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    MoE layers run ``moe_blockwise_reference``), trained on (2, 2) (the
    float32 loss, aux and a router's gradient against the blockwise run).
    (d) ``launch.serve --model-parallel 2`` on mamba2 (phase 13 (d)'s
-   check) and ``launch.train --model-parallel 2`` at 4 of its 48 layers
+   check) and ``launch.train --model-parallel 2`` at 2 of its 48 layers
    (phase 14 (c)'s).  Flash timed at whisper's per-position shapes (B=4,
    S=T=1500 and S=4, T=1500, H=KV=3, D=64, non-causal).
+
+16. The dry run's accounting (``repro_torch.analysis.op_analysis``) held
+   to the card.  (a) phase 12's qwen1.5-0.5b step (8 x 2048, float32
+   masters, bf16 compute, remat full) counted once on the card and once on
+   ``meta`` tensors: flops and bytes equal (op by op: a difference names
+   the op), the ``meta`` arguments equal the card's ``TrainState`` and
+   batch bytes, the ``meta`` peak within ``DRYRUN_PEAK_BAND`` of
+   ``torch.cuda.max_memory_allocated`` over the counted card step (reset
+   just before), and the roofline bound at the H100 rates no larger than
+   the measured step (its share printed beside the hand-worked bound).
+   (b) yi-6b whole on (1, 4) positions of ``cuda:0`` (phase 13's path),
+   one 2048 prefill wave and one decode step counted on the card and on a
+   (1, 4) mesh of ``meta`` positions: each collective kind's count and
+   operand bytes equal, the flash kernel's charge equal to its launches
+   (128 a wave, counted) times its per-launch count.  (c) the dry run's
+   command line (``repro_torch.launch.dryrun.main``, in this process) for
+   one production cell (qwen1.5-0.5b
+   ``decode_32k`` at 2 of its 24 layers, (16, 16) ``meta`` positions): its
+   seconds and roofline line.
 
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
@@ -313,8 +333,8 @@ launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
 llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
 path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
 16), phase 15's likewise (whisper 48, jamba 4 a wave; mamba2 and every
-training path none); each
-spilled fit of phase 8 counts 160 blocks and launches no bin-code kernel,
+training path none), phase 16 (b)'s 128 (one wave); each
+spilled fit of phase 8 counts its blocks (160; the binned one 40) and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
 each phase-9 worker zeroes its counts just before its fit and reads them
@@ -2007,12 +2027,15 @@ def phase11(dev, launches):
 # -- phase 8: the out-of-core surfaces ---------------------------------------
 
 OOC_BLOCK = 65536  # block_obs of every phase-8 fit, as in phases 3 and 5
-# Phase 8(c) writes the first CSV_ROWS rows of phase 3's data as CSV: a
-# quarter of them (0.5 GB of text), cut for time (its parse pass took 94-96
-# s at all 1,000,000 rows).
-CSV_ROWS = 250_000
+# Phase 8(c) writes the first CSV_ROWS rows of phase 3's data as CSV: an
+# eighth of them (0.25 GB of text), cut for time (its parse pass took 94-96
+# s at all 1,000,000 rows, 22.7 s at the 250,000 of PRs 21-24).
+CSV_ROWS = 125_000
 SERVICE_REF = "corral:1000000x1000"
 CUSTOM_SHAPE = (10_000, 5_000)
+# Cut from all 16 blocks of phase 5's rows, whose host encode in the staging
+# pass took 55.7 s.
+BINNED_SPILL_BLOCKS = 4
 OOC_PATHS = ("ooc_tall_spill", "ooc_tall_replay", "ooc_binned_spill", "ooc_csv",
              "ooc_service", "ooc_custom")
 
@@ -2162,24 +2185,30 @@ def phase8_tall(dev, launches, recs, keep, tmp):
 
 
 def phase8_binned(dev, launches, recs, keep, tmp):
-    """(b) The tall continuous bins=16 fit through the spill cache: the
-    staging pass encodes on the host and spills int8 codes, the nine replay
-    passes count them; the bin-code kernel does not run.  Then the replayed
-    int8 code block's counts, bitwise against the plain version and timed."""
-    from repro_torch import BinnedSource, MRMRSelector
+    """(b) The tall continuous bins=16 fit through the spill cache, on the
+    first ``BINNED_SPILL_BLOCKS`` blocks of phase 5's rows: the staging pass
+    encodes on the host and spills int8 codes, the nine replay passes count
+    them; the bin-code kernel does not run.  Held to the unspilled streamed
+    fit of the same rows (the device encode).  Then the replayed int8 code
+    block's counts, bitwise against the plain version and timed."""
+    from repro_torch import ArraySource, BinnedSource, MRMRSelector
     from repro_torch.data.block_cache import BlockCacheSource
     from repro_torch.kernels import ref
     from repro_torch.kernels.contingency import contingency_tables_cuda
 
-    src = keep["binned_src"]
+    whole = keep["binned_src"]
+    rows = min(whole.num_obs, BINNED_SPILL_BLOCKS * OOC_BLOCK)
+    src = ArraySource(whole.X[:rows], whole.y[:rows])
     spill = tmp / "spill_binned"
     blocks = -(-src.num_obs // OOC_BLOCK)
+    _, streamed = run_path("ooc_binned_unspilled",
+                           lambda: MRMRSelector(10, bins=16, block_obs=OOC_BLOCK).fit(src), dev,
+                           launches)
     res, rec = spill_fit(
         "ooc_binned_spill",
         lambda: MRMRSelector(10, bins=16, block_obs=OOC_BLOCK, spill_dir=str(spill)).fit(src),
         dev, launches)
-    check_against_record(res, recs["tall_binned_streaming"],
-                         "spilled binned fit vs tall_binned_streaming")
+    check_against_record(res, streamed, "spilled binned fit vs the unspilled streamed fit")
     check_io(res, "spilled binned fit", 10, 10 * blocks, 1, 9)
     counts = launches["ooc_binned_spill"]
     if counts["bin_codes"] != 0:
@@ -2267,7 +2296,7 @@ def phase8_service(dev, launches, tmp):
     service's staging cannot agree with itself.  (The ref names CorralSource's generator, seeded
     by chunk: other rows than phase 3's arrays, so (a)'s fit is repeated on
     them here.)"""
-    from repro_torch import CorralSource, MIScore, MRMRSelector
+    from repro_torch import ArraySource, CorralSource, MIScore, MRMRSelector
     from repro_torch.serve.selection import SelectionService
 
     ref, spill = SERVICE_REF, str(tmp / "spill_service")
@@ -2319,26 +2348,31 @@ def phase8_service(dev, launches, tmp):
     overlap = d["started_at"] < p["finished_at"] and p["started_at"] < d["finished_at"]
     if not overlap:
         raise AssertionError(f"the distinct request did not run beside the first: {info}")
-    # The results against direct fits of a fresh source: every pass parses
-    # (generates) the rows anew; nothing is read from the service's spill.
+    # The results against a direct fit of the same rows, generated anew by a
+    # fresh source into arrays (one generation pass, where every pass of a
+    # direct fit would generate them again); nothing is read from the
+    # service's spill.  The greedy picks do not depend on L: the L=5
+    # request is the direct fit's first five picks and gains.
     t0 = time.perf_counter()
-    direct = {L: MRMRSelector(L, score=MIScore(2, 2), block_obs=OOC_BLOCK).fit(
-        CorralSource(rows, cols)) for L in (10, 5)}
+    fresh = list(CorralSource(rows, cols).iter_blocks(OOC_BLOCK))
+    fresh = ArraySource(np.concatenate([b[0] for b in fresh]),
+                        np.concatenate([b[1] for b in fresh]))
+    direct = MRMRSelector(10, score=MIScore(2, 2), block_obs=OOC_BLOCK).fit(fresh)
     direct_s = time.perf_counter() - t0
-    for L, fit in direct.items():
-        if fit.result_.io.get("cache") is not None or fit.result_.io["passes"] != L:
-            raise AssertionError(f"direct L={L} fit io {fit.result_.io}")
+    if direct.result_.io.get("cache") is not None or direct.result_.io["passes"] != 10:
+        raise AssertionError(f"direct fit io {direct.result_.io}")
     for k, L in ((0, 10), (1, 10), ("distinct", 5)):
         r = res[k]
-        if r.selected.tolist() != direct[L].selected_.tolist():
+        if r.selected.tolist() != direct.selected_[:L].tolist():
             raise AssertionError(f"service result {k}: {r.selected.tolist()} vs "
-                                 f"{direct[L].selected_.tolist()}")
-        np.testing.assert_allclose(r.gains.numpy(), direct[L].gains_, rtol=RTOL, atol=ATOL)
+                                 f"{direct.selected_[:L].tolist()}")
+        np.testing.assert_allclose(r.gains.numpy(), direct.gains_[:L], rtol=RTOL, atol=ATOL)
     if third_res.selected.tolist() != res[0].selected.tolist():
         raise AssertionError("the cache hit's result differs")
-    if set(direct[10].selected_[:9].tolist()) != set(range(9)):
-        raise AssertionError(f"service source's first nine picks {direct[10].selected_[:9]}")
-    log(f"[ooc] service: direct unspilled fits (L=10, L=5) {direct_s:.3f} s, equal")
+    if set(direct.selected_[:9].tolist()) != set(range(9)):
+        raise AssertionError(f"service source's first nine picks {direct.selected_[:9]}")
+    log(f"[ooc] service: the rows generated anew and a direct unspilled fit (L=10) "
+        f"{direct_s:.3f} s, equal")
     return dict(seconds=seconds, launches=counts, jobs=info, third=hit, stats=stats,
                 direct_s=direct_s, selected={str(k): res[k].selected.tolist() for k in res})
 
@@ -2787,8 +2821,11 @@ TRAIN_GRAD_LEAVES = ("top.final_norm.w", "layers.0.attn.wq", "layers.11.mlp.up",
 # moments, 12 bytes a parameter) is then 4.0 GB, not 7.4.
 CLI_DEVICE = "cuda"
 RESTART_MODEL = ("--arch", TRAIN_ARCH, "--preset", "full", "--num-layers", "2")
-RESTART_ARGS = ("--steps", "6", "--global-batch", "2", "--seq-len", "512", "--ckpt-every", "3",
-                "--log-every", "1", "--warmup", "2")
+# Cut from 6 steps of 512 tokens, a checkpoint every 3: a crash at step 3, a
+# restart from step 2's checkpoint and bitwise equality stay.
+RESTART_STEPS = 4
+RESTART_ARGS = ("--steps", str(RESTART_STEPS), "--global-batch", "2", "--seq-len", "256",
+                "--ckpt-every", "2", "--log-every", "1", "--warmup", "2")
 TRAIN_PEAK_LIMIT = 70e9  # bytes; the step's batch is cut beyond this
 
 
@@ -2832,7 +2869,7 @@ def run_cli(module, args, timeout=600, env=None):
 
 
 def restart_checks(tmp):
-    """launch.train 6 steps uninterrupted and with --fail-at-step 3 (the two
+    """launch.train RESTART_STEPS steps uninterrupted and with --fail-at-step 3 (the two
     processes at once), and launch.serve --ckpt-dir (its ``main``, in this
     process) on the uninterrupted run's final checkpoint once it is written,
     beside the restarted run."""
@@ -2866,7 +2903,8 @@ def restart_checks(tmp):
     if set(recs) != {"plain", "failed", "serve"}:
         raise AssertionError(f"a command line failed: {sorted(recs)} came back")
     plain, failed = recs["plain"], recs["failed"]
-    if (plain["restarts"], failed["restarts"], plain["steps"], failed["steps"]) != (0, 1, 6, 6):
+    if ((plain["restarts"], failed["restarts"], plain["steps"], failed["steps"])
+            != (0, 1, RESTART_STEPS, RESTART_STEPS)):
         raise AssertionError(f"restarts / steps: {plain['restarts']}, {failed['restarts']}, "
                              f"{plain['steps']}, {failed['steps']}")
     if failed["losses"] != plain["losses"] or not all(np.isfinite(plain["losses"])):
@@ -2877,18 +2915,19 @@ def restart_checks(tmp):
     flats = []
     for n in ("plain", "failed"):
         mgr = CheckpointManager(str(tmp / n))
-        if mgr.latest_step() != 6:
+        if mgr.latest_step() != RESTART_STEPS:
             raise AssertionError(f"{n}: last checkpoint {mgr.latest_step()}")
-        flats.append(flatten_with_paths(mgr.restore(6, like)))
+        flats.append(flatten_with_paths(mgr.restore(RESTART_STEPS, like)))
     a, b = flats
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     if sorted(a) != sorted(b) or differ:
         raise AssertionError(f"restarted run's final state differs at {differ[:5]}")
-    log(f"[train] restart: 6 steps with a failure at step 3 equal the uninterrupted run bit "
+    log(f"[train] restart: {RESTART_STEPS} steps with a failure at step 3 equal the "
+        f"uninterrupted run bit "
         f"for bit ({len(a)} leaves, losses {plain['losses']})")
     served = recs["serve"]
     toks = [t for o in served["first_tokens"] for t in o]
-    if (served["ckpt_step"] != 6 or served["new_tokens"] != 16
+    if (served["ckpt_step"] != RESTART_STEPS or served["new_tokens"] != 16
             or not all(0 <= t < cfg.vocab_size for t in toks)):
         raise AssertionError(f"serve --ckpt-dir: {served}")
     return dict(plain=plain, failed=failed, serve=served)
@@ -2899,7 +2938,7 @@ def phase12(dev, launches):
     step's loss and gradient leaves, bf16 compute against float32 compute;
     (b) TRAIN_STEPS steps of ``make_train_step`` (launch counts zeroed just
     before, read just after: no kernel runs); (c) the restart and serve
-    command lines."""
+    command lines run beside phase 15 (d) (``phase15_cli``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedDataPipeline
     from repro_torch.dist import make_mesh
@@ -2995,13 +3034,7 @@ def phase12(dev, launches):
         f"{100 * reckoning['model_ms'] / step_ms:.1f}% (model flops)")
     del state, batches, model
     torch.cuda.empty_cache()
-
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    try:
-        rec["cli"] = restart_checks(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return rec
+    return rec  # (c) runs beside phase 15's command lines (phase15_cli)
 
 
 # -- phase 13: model parallelism for serving ---------------------------------
@@ -3713,7 +3746,8 @@ def phase14_cli(dev, tmp, model_args=None):
     plain, failed = recs["plain"], recs["failed"]
     if plain["mesh"] != {"data": 2, "model": 2} or failed["mesh"] != plain["mesh"]:
         raise AssertionError(f"the command lines ran on {plain['mesh']}, {failed['mesh']}")
-    if (plain["restarts"], failed["restarts"], plain["steps"], failed["steps"]) != (0, 1, 6, 6):
+    if ((plain["restarts"], failed["restarts"], plain["steps"], failed["steps"])
+            != (0, 1, RESTART_STEPS, RESTART_STEPS)):
         raise AssertionError(f"restarts / steps: {plain['restarts']}, {failed['restarts']}, "
                              f"{plain['steps']}, {failed['steps']}")
     if failed["losses"] != plain["losses"] or not all(np.isfinite(plain["losses"])):
@@ -3727,49 +3761,55 @@ def phase14_cli(dev, tmp, model_args=None):
     saved = []
     for n in ("plain", "failed"):
         mgr = CheckpointManager(str(tmp / n))
-        if mgr.latest_step() != 6:
+        if mgr.latest_step() != RESTART_STEPS:
             raise AssertionError(f"{n}: last checkpoint {mgr.latest_step()}")
-        saved.append(flatten_with_paths(mgr.restore(6, like)))
+        saved.append(flatten_with_paths(mgr.restore(RESTART_STEPS, like)))
     a, b = saved
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     if sorted(a) != sorted(b) or differ:
         raise AssertionError(f"restarted meshed run's final state differs at {differ[:5]}")
-    mgr = CheckpointManager(str(tmp / "plain"))
-    restores = {}
-    for name, target in (("(1, 4)", card_mesh(dev, (1, 4))), ("one device", dev)):
-        t0 = time.perf_counter()
-        _, state = elastic_restore(mgr, 6, skeleton, opt_cfg, target)
-        if name != "one device":
-            state = gather_train_state(skeleton, state, target, "cpu")
-        got = flatten_with_paths(state_to_jax(skeleton, state))
-        differ = [k for k in a if not torch.equal(got[k].cpu(), a[k])]
-        if sorted(got) != sorted(a) or differ:
-            raise AssertionError(f"elastic restore onto {name} differs at {differ[:5]}")
-        restores[name] = time.perf_counter() - t0
-        del state, got
+    restores, faults = {}, []
+
+    def restore(name, target):  # the two restores at once
+        try:
+            t0 = time.perf_counter()
+            mgr = CheckpointManager(str(tmp / "plain"))
+            _, state = elastic_restore(mgr, RESTART_STEPS, skeleton, opt_cfg, target)
+            if name != "one device":
+                state = gather_train_state(skeleton, state, target, "cpu")
+            got = flatten_with_paths(state_to_jax(skeleton, state))
+            differ = [k for k in a if not torch.equal(got[k].cpu(), a[k])]
+            if sorted(got) != sorted(a) or differ:
+                faults.append(f"elastic restore onto {name} differs at {differ[:5]}")
+            restores[name] = time.perf_counter() - t0
+        except Exception as e:  # raised below, in the phase's own thread
+            faults.append(f"elastic restore onto {name}: {e!r}")
+
+    threads = [threading.Thread(target=restore, args=job)
+               for job in (("(1, 4)", card_mesh(dev, (1, 4))), ("one device", dev))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if faults:
+        raise AssertionError("; ".join(faults))
     torch.cuda.empty_cache()
-    log(f"[mesh train cli] {arch} --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: 6 steps with "
+    log(f"[mesh train cli] {arch} --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: {RESTART_STEPS} steps with "
         f"a failure at step 3 equal the uninterrupted run bit for bit ({len(a)} leaves, losses "
-        f"{plain['losses']}); its step-6 checkpoint restored onto (1, 4) and one device "
+        f"{plain['losses']}); its step-{RESTART_STEPS} checkpoint restored onto (1, 4) and one device "
         f"bitwise in {json.dumps(restores)} s")
     return dict(plain=plain, failed=failed, elastic_restore_s=restores)
 
 
 def phase14(dev, launches):
     """Training on a model mesh of positions of the card: (a) qwen1.5-0.5b
-    whole, (b) llama4-scout's MoE, (c) the train command line."""
+    whole, (b) llama4-scout's MoE; (c) the train command line runs beside
+    phase 15's command lines (``phase15_cli``)."""
     out = {}
     for name, fn in (("a qwen", phase14_qwen), ("b llama4", phase14_moe)):
         t0 = time.perf_counter()
         out[name.split()[1]] = fn(dev, launches)
         log(f"[phase] 14{name} {time.perf_counter() - t0:.3f} s")
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_train_"))
-    t0 = time.perf_counter()
-    try:
-        out["cli"] = phase14_cli(dev, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[phase] 14c train cli {time.perf_counter() - t0:.3f} s")
     return out
 
 
@@ -3793,9 +3833,9 @@ JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 8, 512
 JAMBA_GRAD_LEAVES = ("top.embed", "layers.0.ssm.in_x", "layers.1.moe.router",
                      "layers.4.attn.wq", "layers.7.moe.gate")
 # (d) the command lines on mamba2: serve at its defaults (8 x 32 tokens, 16
-# new), train at 4 of 48 layers (a 2.5 GB checkpoint).
+# new), train at 2 of 48 layers (a 1.9 GB checkpoint).
 FAMILY_CLI_ARGS = ("--arch", MAMBA_ARCH, "--preset", "full", "--device", "cuda")
-FAMILY_RESTART_MODEL = ("--arch", MAMBA_ARCH, "--preset", "full", "--num-layers", "4")
+FAMILY_RESTART_MODEL = ("--arch", MAMBA_ARCH, "--preset", "full", "--num-layers", "2")
 # Float32 compute over mamba2's 48 layers: the mesh's sums in another order
 # move the last logits by up to 4.8e-4 (read on the H100; 9.7% of them past
 # MESH_F32_TOL), so they are held as phase 11's decode check holds them, at
@@ -4141,30 +4181,51 @@ def phase15_flash(dev):
 def phase15_cli(dev):
     """(d) The command lines on mamba2-1.3b with ``REPRO_DEVICES=4``:
     ``launch.serve --model-parallel 2`` against ``1`` (phase 13 (d)'s
-    check), and ``launch.train --model-parallel 2`` at 4 of 48 layers with
+    check), and ``launch.train --model-parallel 2`` at 2 of 48 layers with
     its crash-restart bitwise and ``elastic_restore`` onto (1, 4) and one
     device bitwise (phase 14 (c)'s check).  The serve pair runs beside the
-    train pair: neither is timed against the other, and the four processes
-    share the card."""
-    served = {}
+    train pair, and phases 12 (c) and 14 (c) beside both: none is timed
+    against another, and the eight processes share the card."""
+    served, qwen = {}, {}
 
     def serve():
         served["out"] = phase13_cli(dev, FAMILY_CLI_ARGS)
 
-    thread = threading.Thread(target=serve)
-    thread.start()
+    def beside(key, name, prefix, fn):
+        """Phases 12 (c) and 14 (c), run here: their processes wait on
+        start-up and checkpoint I/O, so they overlap these."""
+        t0 = time.perf_counter()
+        tmp_b = pathlib.Path(tempfile.mkdtemp(prefix=prefix))
+        try:
+            qwen[key] = fn(tmp_b)
+        finally:
+            shutil.rmtree(tmp_b, ignore_errors=True)
+        log(f"[phase] {name} (beside 15d) {time.perf_counter() - t0:.3f} s")
+
+    jobs = [(serve, ()),
+            (beside, ("train_cli", "12c train cli", "chip_smoke_train_", restart_checks)),
+            (beside, ("mesh_train_cli", "14c train cli", "chip_smoke_mesh_train_",
+                      lambda tmp_q: phase14_cli(dev, tmp_q)))]
+    threads = [threading.Thread(target=fn, args=args) for fn, args in jobs]
+    for t in threads:
+        t.start()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_family_train_"))
     try:
         train = phase14_cli(dev, tmp, FAMILY_RESTART_MODEL)
     finally:
-        thread.join()
+        for t in threads:
+            t.join()
         shutil.rmtree(tmp, ignore_errors=True)
     if "out" not in served:
         raise AssertionError("the serve command lines' check failed (its traceback above)")
+    missing = {"train_cli", "mesh_train_cli"} - set(qwen)
+    if missing:
+        raise AssertionError(f"the command lines of {sorted(missing)} failed (their tracebacks "
+                             "above)")
     serve, serve_check = served["out"]
     return dict(serve=dict(serve_check, runs={
         n: {k: o[k] for k in ("mesh", "new_tokens", "seconds", "prefill_s", "decode_ms_per_step")}
-        for n, o in serve.items()}), train=train)
+        for n, o in serve.items()}), train=train, **qwen)
 
 
 def phase15(dev, launches):
@@ -4191,6 +4252,231 @@ def kernel_entry(name, source, replaces, paths, launches, err, head, shapes):
                 max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], at_shapes=shapes)
+
+
+# -- phase 16: the dry run's accounting held to the card -----------------------
+
+# The meta run's peak live bytes against the card's max_memory_allocated over
+# the same step: the allocator rounds each block up to 512 bytes and holds
+# cuBLAS's workspace, which the meta run does not see.
+DRYRUN_PEAK_BAND = (0.90, 1.10)
+DRYRUN_CELL = ("--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--mesh", "single",
+               "--set", "num_layers=2")
+DRYRUN_HAND_BOUND_MS = 68.149  # PERF.md's hand-worked bound of phase 12's step
+
+
+def first_difference(card_ops, meta_ops):
+    """The first op at which two counted runs part: (index, card's, meta's)."""
+    for i, (a, b) in enumerate(zip(card_ops, meta_ops)):
+        if a[:4] != b[:4]:
+            return i, a, b
+    return min(len(card_ops), len(meta_ops)), None, None
+
+
+def phase16_qwen(dev, smi):
+    """(a) phase 12's step counted on the card and on meta tensors."""
+    from repro_torch.analysis.op_analysis import analyze_step
+    from repro_torch.analysis.roofline import model_flops, roofline_terms
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train import train_state_shapes
+
+    cfg = get_config(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
+    shape = ShapeConfig("phase16", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def run(device):
+        kw = dict(dtype=torch.float32, compute_dtype=cfg.dtype)
+        if device == "meta":
+            model = build_model(cfg, device="meta", **kw)
+            state = train_state_shapes(model, opt_cfg)
+            batch = model.input_specs(shape)
+        else:
+            model = build_model(cfg, device=device, **kw,
+                                generator=torch.Generator(device=device).manual_seed(0))
+            state = init_train_state(model, opt_cfg)
+            gen = torch.Generator(device=device).manual_seed(1)
+            tokens = torch.randint(0, model.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                   generator=gen, device=device, dtype=torch.int32)
+            batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+        return model, state, batch, make_train_step(model, opt_cfg)
+
+    model, state, batch, step = run(dev)
+    for _ in range(2):  # warm, then the measured step (its result dropped)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        float(out[1]["loss"])
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        del out
+    torch.cuda.empty_cache()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for tree in (state.params, state.opt["m"], state.opt["v"])
+                      for t in tree.values())
+    state_bytes += 2 * 4  # the count and the step, int32
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    card = analyze_step(step, state, batch, keep_ops=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_peak = torch.cuda.max_memory_allocated(dev)
+    del model, state, batch, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m_model, m_state, m_batch, m_step = run("meta")
+    meta = analyze_step(m_step, m_state, m_batch, keep_ops=True)
+    meta_s = time.perf_counter() - t0
+    if (card["flops"], card["bytes"]) != (meta["flops"], meta["bytes"]):
+        i, a, b = first_difference(card["ops"], meta["ops"])
+        raise AssertionError(f"card {card['flops']} flops, {card['bytes']} bytes; meta "
+                             f"{meta['flops']}, {meta['bytes']}: op {i} card {a}, meta {b}")
+    arg = meta["memory"]["argument_size_in_bytes"]
+    if arg != state_bytes + batch_bytes:
+        raise AssertionError(f"meta arguments {arg} bytes; the card's state {state_bytes} and "
+                             f"batch {batch_bytes}")
+    meta_peak = meta["memory"]["total_hbm_bytes"]
+    ratio = meta_peak / card_peak
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise AssertionError(f"meta peak {meta_peak} bytes, card {card_peak}: {ratio:.4f} "
+                             f"outside {DRYRUN_PEAK_BAND}")
+    roof = roofline_terms(flops_per_device=meta["flops"], bytes_per_device=meta["bytes"],
+                          collective_operand_bytes=0.0, n_devices=1,
+                          model_flops_global=model_flops(m_model.cfg, shape))
+    bound_ms = 1e3 * max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    if not bound_ms <= step_ms:
+        raise AssertionError(f"roofline bound {bound_ms} ms over the measured step {step_ms}")
+    rec = dict(step_ms=step_ms, flops=meta["flops"], bytes=meta["bytes"], ops=len(meta["ops"]),
+               argument_bytes=arg, state_bytes=state_bytes, batch_bytes=batch_bytes,
+               meta_peak_bytes=meta_peak, card_peak_bytes=card_peak, peak_ratio=ratio,
+               memory=meta["memory"], roofline=roof, bound_ms=bound_ms,
+               bound_share=bound_ms / step_ms, hand_bound_ms=DRYRUN_HAND_BOUND_MS,
+               hand_bound_share=DRYRUN_HAND_BOUND_MS / step_ms, card_count_s=card_s,
+               meta_count_s=meta_s, card=smi)
+    log(f"[dryrun] (a) {TRAIN_ARCH} step {TRAIN_BATCH} x {TRAIN_SEQ} on {smi}: card and meta "
+        f"count {meta['flops']:.6e} flops, {meta['bytes']:.6e} bytes over {len(meta['ops'])} "
+        f"ops; arguments {arg} bytes (state {state_bytes} + batch {batch_bytes}); peak meta "
+        f"{meta_peak} / card {card_peak} = {ratio:.4f}; roofline {bound_ms:.3f} ms "
+        f"({roof['dominant']}) = {100 * bound_ms / step_ms:.2f}% of the measured "
+        f"{step_ms:.3f} ms step (hand-worked {DRYRUN_HAND_BOUND_MS} ms: "
+        f"{100 * DRYRUN_HAND_BOUND_MS / step_ms:.2f}%): {json.dumps(rec)}")
+    return rec
+
+
+def phase16_yi(dev, launches, smi):
+    """(b) yi-6b on (1, 4) positions: a 2048 wave's prefill and a decode step,
+    counted on the card and on a mesh of meta positions."""
+    from repro_torch.analysis.op_analysis import analyze_step
+    from repro_torch.configs import get_config
+    from repro_torch.dist import make_mesh
+    from repro_torch.kernels.flash_attention import flash_charge
+    from repro_torch.models import build_model
+    from repro_torch.models.model import shard_params
+
+    cfg = get_config("yi-6b")
+    b, s = 4, 2048
+    n = int(np.prod(YI_TP_MESH))
+
+    def counts(device):
+        if device == "meta":
+            model = build_model(cfg, device="meta", dtype=torch.bfloat16)
+            mesh = make_mesh(YI_TP_MESH, ("data", "model"), devices=["meta"] * n)
+            tokens = torch.empty((b, s), dtype=torch.int64, device="meta")
+        else:
+            model = build_model(cfg, device=device, dtype=torch.bfloat16,
+                                generator=torch.Generator(device=device).manual_seed(0))
+            mesh = card_mesh(device, YI_TP_MESH)
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                         (b, s))).to(device)
+        meshed = shard_params(model, mesh)
+        del model
+        out = {}
+
+        def prefill(t):
+            out["caches"] = meshed.prefill(t, cache_len=s + 1)[1]
+
+        def decode(t):
+            meshed.serve_step(t, s, out["caches"])
+
+        recs = {}
+
+        def both():
+            recs["prefill"] = analyze_step(prefill, tokens, num_partitions=n)
+            recs["decode"] = analyze_step(decode, tokens[:, :1], num_partitions=n)
+
+        if device == "meta":
+            both()
+        else:
+            counted("dryrun_yi_tp", launches, both)
+        del meshed, out
+        torch.cuda.empty_cache()
+        return recs
+
+    card, meta = counts(dev), counts("meta")
+    flash = launches["dryrun_yi_tp"]["flash_attention"]
+    if flash != cfg.num_layers * n:
+        raise AssertionError(f"{flash} flash launches, want {cfg.num_layers * n}")
+    hq, kvq = cfg.num_heads // n, cfg.num_kv_heads // n
+    per = flash_charge(b, s, s, hq, kvq, cfg.head_dim, torch.finfo(getattr(torch, cfg.dtype)).bits // 8,
+                       True)
+    want = {"calls": flash, "flops": flash * per[0] / n, "bytes": flash * per[1] / n}
+    for step in ("prefill", "decode"):
+        c, m = card[step], meta[step]
+        cc, mc = c["collectives"]["by_type"], m["collectives"]["by_type"]
+        if {k: (v["count"], v["operand_bytes"]) for k, v in cc.items()} != \
+                {k: (v["count"], v["operand_bytes"]) for k, v in mc.items()}:
+            raise AssertionError(f"{step} collectives: card {cc}, meta {mc}")
+        if c["kernels"] != m["kernels"]:
+            raise AssertionError(f"{step} kernel charges: card {c['kernels']}, meta {m['kernels']}")
+    if card["prefill"]["kernels"].get("flash_attention") != want:
+        raise AssertionError(f"flash charge {card['prefill']['kernels']}, want {want}")
+    rec = {step: dict(collectives=card[step]["collectives"], kernels=card[step]["kernels"],
+                      flops=card[step]["flops"], bytes=card[step]["bytes"],
+                      meta_flops=meta[step]["flops"], meta_bytes=meta[step]["bytes"])
+           for step in ("prefill", "decode")}
+    rec.update(flash_launches=flash, flash_per_launch=dict(flops=per[0], bytes=per[1]),
+               card=smi)
+    log(f"[dryrun] (b) yi-6b on {YI_TP_MESH} positions, {b} x {s} prefill and a decode step on "
+        f"{smi}: collectives equal on the card and meta ({json.dumps({k: v['collectives']['by_type'] for k, v in rec.items() if k in ('prefill', 'decode')})}); "
+        f"flash {flash} launches x {per[0]} flops, {per[1]} bytes: {json.dumps(rec)}")
+    return rec
+
+
+def phase16_cli(smi):
+    """(c) the dry run's command line for one production cell: its ``main``
+    in this process (as phase 12 runs the serve command line's), which
+    spares an interpreter's start and the imports."""
+    import io
+
+    from repro_torch.launch import dryrun
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            dryrun.main([*DRYRUN_CELL, "--out", str(tmp)])  # exits non-zero on a failed cell
+        seconds = time.perf_counter() - t0
+        arch, shape = DRYRUN_CELL[1], DRYRUN_CELL[3]
+        rec = json.loads((tmp / "single" / f"{arch}__{shape}.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rec["status"] != "ok" or rec["n_devices"] != 256:
+        raise AssertionError(f"dry-run record {rec}")
+    line = printed.getvalue().strip().splitlines()[-1]
+    log(f"[dryrun] (c) {' '.join(DRYRUN_CELL)}: {seconds:.3f} s (trace {rec['trace_s']} s; the "
+        f"host's CPU, beside {smi}): {line}")
+    return dict(seconds=seconds, trace_s=rec["trace_s"], roofline=rec["roofline"],
+                memory=rec["memory"], collectives=rec["collectives"], cost=rec["cost"],
+                summary=line)
+
+
+def phase16(dev, launches, smi):
+    torch.cuda.empty_cache()
+    return dict(qwen=phase16_qwen(dev, smi), yi=phase16_yi(dev, launches, smi),
+                cli=phase16_cli(smi))
 
 
 def main():
@@ -4248,6 +4534,9 @@ def main():
     mesh_training = phase("14 training on a model mesh", phase14, dev, launches)
     mesh_families, fam_flash_times, fam_flash_err = phase(
         "15 the other families on a model mesh", phase15, dev, launches)
+    dryrun_check = phase("16 the dry run's accounting", phase16, dev, launches, smi)
+    training["cli"] = mesh_families["cli"].pop("train_cli")
+    mesh_training["cli"] = mesh_families["cli"].pop("mesh_train_cli")
     flash_times += mp_flash_times + fam_flash_times
     flash_err = max(flash_err, mp_flash_err, fam_flash_err)
     timings += mesh_times
@@ -4299,7 +4588,8 @@ def main():
                      corr_err, corr_times[0], corr_times),
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:79",
-                     ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS, *FAMILY_MESH_PATHS),
+                     ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS, *FAMILY_MESH_PATHS,
+                      "dryrun_yi_tp"),
                      launches,
                      flash_err, flash_times[0], flash_times),
     ]
@@ -4314,7 +4604,8 @@ def main():
                         device_mesh=mesh_fits, families=families,
                         family_check=family_check, training=training,
                         model_parallel=mp_serves, model_parallel_check=mp_check,
-                        mesh_training=mesh_training, mesh_families=mesh_families)))
+                        mesh_training=mesh_training, mesh_families=mesh_families,
+                        dryrun_check=dryrun_check)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -201,6 +201,11 @@ class ShardedArray:
         copy of its block on its device (``meta`` blocks for a ``meta``
         tensor)."""
         spec = PartitionSpec(*spec)
+        if t.is_meta:  # every block has one shape: no slicing a position
+            shape = tuple(d if e is None else d // mesh_extent(mesh, e)
+                          for d, e in zip(t.shape, tuple(spec) + (None,) * t.dim()))
+            return cls([torch.empty(shape, dtype=t.dtype, device="meta")
+                        for _ in range(mesh.size)], mesh, spec)
         parts = []
         for dev, coords in zip(mesh.devices.flat, _positions(mesh)):
             block = t[shard_slices(mesh, coords, spec, t.shape)]

@@ -27,6 +27,10 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
+from repro_torch.analysis.op_analysis import charge_kernel
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
@@ -170,12 +174,32 @@ def sm_count(device) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, flops: float = 0.0, nbytes: float = 0.0) -> None:
     """Add one to ``wrapper.launches`` (a read, add and store) under a lock:
     worker threads of the selection service launch kernels at once, and an
-    unlocked ``+=`` can lose a count between threads."""
+    unlocked ``+=`` can lose a count between threads.  The launch's charge
+    (its operations and the bytes it must move: each input read once, the
+    output written once) is added beside it, to ``wrapper.flops`` and
+    ``wrapper.bytes``, and to the open cost counter
+    (:mod:`repro_torch.analysis.op_analysis`)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        wrapper.flops = getattr(wrapper, "flops", 0) + flops
+        wrapper.bytes = getattr(wrapper, "bytes", 0) + nbytes
+    charge_kernel(kernel_name(wrapper), flops, nbytes)
+
+
+def kernel_name(wrapper) -> str:
+    """``flash_attention`` for ``flash_attention_cuda``."""
+    return wrapper.__name__.removesuffix("_cuda")
+
+
+def meta_result(wrapper, shape, dtype, flops: float, nbytes: float) -> torch.Tensor:
+    """A kernel's stand-in on ``meta`` tensors (the dry run): its output's
+    shape and dtype, and its charge to the open cost counter; no launch is
+    counted."""
+    charge_kernel(kernel_name(wrapper), flops, nbytes)
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def check(err: int, what: str) -> None:

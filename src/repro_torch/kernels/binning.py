@@ -87,7 +87,7 @@ def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor,
     copied to a float32 row-major tensor (as the Pallas wrapper casts).
     ``plan`` overrides :func:`bin_codes_plan` (the card tests force paths).
     """
-    if not X.is_cuda:
+    if not (X.is_cuda or X.is_meta):
         raise ValueError("bin_codes_cuda needs a CUDA tensor")
     if X.dim() != 2 or X.dtype.is_complex:
         raise ValueError(f"X must be a 2-D real tensor; got {X.dtype} {tuple(X.shape)}")
@@ -97,6 +97,9 @@ def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor,
             f"edges must be ({N}, E) on {X.device}; got {tuple(edges.shape)} "
             f"on {edges.device}"
         )
+    charge = bin_codes_charge(B, N, edges.shape[1])
+    if X.is_meta:
+        return _build.meta_result(bin_codes_cuda, (B, N), torch.int32, *charge)
     X = X.to(torch.float32)
     if N > 1 and X.stride(1) != 1:
         X = X.contiguous()
@@ -112,8 +115,15 @@ def bin_codes_cuda(X: torch.Tensor, edges: torch.Tensor,
         out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "bin_codes_launch")
-    _build.count_launch(bin_codes_cuda)
+    _build.count_launch(bin_codes_cuda, *charge)
     return out
 
 
+def bin_codes_charge(B: int, N: int, E: int) -> tuple[int, int]:
+    """(operations, bytes) of one call: a compare and an add an edge and
+    element; float32 X and the edges read once, the int32 codes written."""
+    return 2 * B * N * E, 2 * B * N * 4 + N * E * 4
+
+
 bin_codes_cuda.launches = 0
+bin_codes_cuda.flops = bin_codes_cuda.bytes = 0

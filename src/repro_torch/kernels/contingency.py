@@ -183,7 +183,7 @@ def contingency_tables_cuda(
 
     ``plan`` overrides :func:`contingency_plan` (the card tests force paths).
     """
-    if not X.is_cuda:
+    if not (X.is_cuda or X.is_meta):
         raise ValueError("contingency_tables_cuda needs a CUDA tensor")
     if X.dim() != 2 or X.dtype not in _X_DTYPES:
         raise ValueError(
@@ -195,6 +195,10 @@ def contingency_tables_cuda(
         raise ValueError(f"y must be ({M},) on {X.device}; got {tuple(y.shape)}")
     if y.dtype.is_floating_point or y.dtype == torch.bool:
         raise ValueError(f"y must hold integer codes; got {y.dtype}")
+    charge = contingency_charge(X, y, num_values, num_classes)
+    if X.is_meta:
+        return _build.meta_result(contingency_tables_cuda, (F, num_values, num_classes),
+                                  torch.int32, *charge)
     if y.dtype == torch.int64:
         # Narrowing would wrap codes past 2**31 back into range.
         y = torch.where((y >= 0) & (y < num_classes), y, torch.full_like(y, -1))
@@ -214,11 +218,20 @@ def contingency_tables_cuda(
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "contingency_tables_launch")
-    _build.count_launch(contingency_tables_cuda)
+    _build.count_launch(contingency_tables_cuda, *charge)
     return out
 
 
+def contingency_charge(X, y, num_values: int, num_classes: int) -> tuple[int, int]:
+    """(operations, bytes) of one count: a compare-and-count an element;
+    X and y read once, the tables written once."""
+    M, F = X.shape
+    nbytes = X.numel() * X.element_size() + y.numel() * y.element_size()
+    return M * F, nbytes + F * num_values * num_classes * 4
+
+
 contingency_tables_cuda.launches = 0
+contingency_tables_cuda.flops = contingency_tables_cuda.bytes = 0
 
 
 def conditional_tables_cuda(

@@ -73,7 +73,7 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """(B, S, H, D) x (B, T, KV, D) on the card -> (B, S, H, D) in q's dtype."""
     check_no_grad(q, k, v)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError("flash_attention_cuda needs a CUDA tensor")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
@@ -97,6 +97,9 @@ def flash_attention_cuda(
         raise ValueError("q, k and v must lie on one device")
     if t == 0:
         raise ValueError("attention over zero keys is undefined")
+    charge = flash_charge(b, s, t, h, kvh, d, q.element_size(), causal)
+    if q.is_meta:
+        return _build.meta_result(flash_attention_cuda, (b, s, h, d), q.dtype, *charge)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0 or h == 0:
         return out
@@ -114,8 +117,26 @@ def flash_attention_cuda(
         raise RuntimeError("flash_attention_launch: cuTensorMapEncodeTiled failed "
                            f"(CUresult {err - _ENCODE_FAILED})")
     _build.check(err, "flash_attention_launch")
-    _build.count_launch(flash_attention_cuda)
+    _build.count_launch(flash_attention_cuda, *charge)
     return out
 
 
+def visible_pairs(s: int, t: int, causal: bool) -> int:
+    """(query, key) pairs the attention needs: query i sees keys <= i + t - s."""
+    if not causal:
+        return s * t
+    lo = max(0, s - t - 1)  # the first query that sees a key
+    n = s - lo
+    return n * (t - s + 1) + (lo + s - 1) * n // 2
+
+
+def flash_charge(b: int, s: int, t: int, h: int, kvh: int, d: int, itemsize: int,
+                 causal: bool) -> tuple[int, int]:
+    """(flops, bytes) of one launch: QK^T and PV over the visible pairs, 2 D
+    flops a pair each; q, k, v read once, the output written once."""
+    return 4 * b * h * d * visible_pairs(s, t, causal), (2 * b * s * h * d
+                                                        + 2 * b * t * kvh * d) * itemsize
+
+
 flash_attention_cuda.launches = 0
+flash_attention_cuda.flops = flash_attention_cuda.bytes = 0

@@ -59,7 +59,7 @@ def mi_plan(tables: int, V: int, C: int, sms: int = 132) -> MIPlan:
 def mi_scores_cuda(counts: torch.Tensor) -> torch.Tensor:
     """(F, V, C) or (A, B, V, C) int32 or float32 counts on the card -> (F,)
     or (A, B) float32 MI.  Any strides; other dtypes are cast to float32."""
-    if not counts.is_cuda:
+    if not (counts.is_cuda or counts.is_meta):
         raise ValueError("mi_scores_cuda needs a CUDA tensor")
     if counts.dim() not in (3, 4):
         raise ValueError(f"counts must be (F, V, C) or (A, B, V, C); got {tuple(counts.shape)}")
@@ -69,6 +69,9 @@ def mi_scores_cuda(counts: torch.Tensor) -> torch.Tensor:
     st = counts.stride()
     inner, s_inner = (lead[1], st[1]) if len(lead) == 2 else (1, 0)
     tables = math.prod(lead)
+    charge = mi_charge(counts)
+    if counts.is_meta:
+        return _build.meta_result(mi_scores_cuda, lead, torch.float32, *charge)
     plan = mi_plan(tables, V, C, _build.sm_count(counts.device))
     if plan.scratch:  # one allocation: the output, then the scratch
         buf = torch.empty((tables + plan.scratch,), dtype=torch.float32, device=counts.device)
@@ -84,8 +87,16 @@ def mi_scores_cuda(counts: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(counts.device).cuda_stream,
     )
     _build.check(err, "mi_scores_launch")
-    _build.count_launch(mi_scores_cuda)
+    _build.count_launch(mi_scores_cuda, *charge)
     return out
 
 
+def mi_charge(counts) -> tuple[int, int]:
+    """(operations, bytes) of one call: ~10 instructions a cell; the counts
+    read once, one float32 a table written."""
+    tables = math.prod(counts.shape[:-2])
+    return 10 * counts.numel(), counts.numel() * counts.element_size() + tables * 4
+
+
 mi_scores_cuda.launches = 0
+mi_scores_cuda.flops = mi_scores_cuda.bytes = 0

@@ -11,6 +11,14 @@
 A CUDA tensor never falls back to the plain version under ``"auto"``: a
 kernel that fails to build or launch raises.
 
+A ``meta`` tensor (the dry run, :mod:`repro_torch.launch.dryrun`) takes the
+kernel's branch under ``"auto"``: each wrapper gives a shape-only result and
+charges the kernel's operations and bytes to the open cost counter
+(:mod:`repro_torch.analysis.op_analysis`), as it charges them at each launch
+on the card; ``True`` raises there as on the CPU.  A wrapper runs in a
+``kernel_region``, so its own tensor operations are the kernel's and are
+not counted as ops.
+
 The contingency, MI and correlation calls go through custom operators
 (``torch.ops.repro_torch.*``) that run the kernel on a CUDA tensor and the
 plain version on a CPU tensor, and carry a ``torch.func.vmap`` rule: a
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.op_analysis import kernel_region
 from repro_torch.kernels import ref
 from repro_torch.kernels.binning import bin_codes_cuda
 from repro_torch.kernels.contingency import (
@@ -54,8 +63,8 @@ def _forced_plain(use_kernel, t: torch.Tensor) -> bool:
 
 
 def _decide(use_kernel, t: torch.Tensor) -> bool:
-    """-> whether to run the kernel on ``t``."""
-    return not _forced_plain(use_kernel, t) and t.is_cuda
+    """-> whether to run the kernel (its ``meta`` branch on a meta tensor)."""
+    return not _forced_plain(use_kernel, t) and (t.is_cuda or t.is_meta)
 
 
 # -- custom operators with a vmap rule --------------------------------------
@@ -65,6 +74,8 @@ def _decide(use_kernel, t: torch.Tensor) -> bool:
     schema="(Tensor X, Tensor y, int num_values, int num_classes) -> Tensor",
 )
 def _contingency_op(X, y, num_values, num_classes):
+    if X.is_meta:
+        return contingency_tables_cuda(X, y, num_values, num_classes)
     if not X.is_cuda:
         return ref.contingency_tables(X, y, num_values, num_classes)
     # The kernel reads integer codes.  Float values and targets (a custom
@@ -121,7 +132,7 @@ def _contingency_vmap(info, in_dims, X, y, num_values, num_classes):
     "repro_torch::mi_scores", mutates_args=(), schema="(Tensor counts) -> Tensor",
 )
 def _mi_op(counts):
-    if counts.is_cuda:
+    if counts.is_cuda or counts.is_meta:
         return mi_scores_cuda(counts)
     return ref.mi_scores(counts)
 
@@ -141,7 +152,7 @@ def _mi_vmap(info, in_dims, counts):
     "repro_torch::pearson_corr", mutates_args=(), schema="(Tensor X, Tensor Y) -> Tensor",
 )
 def _pearson_op(X, Y):
-    if X.is_cuda:
+    if X.is_cuda or X.is_meta:
         return pearson_corr_cuda(X, Y)
     return ref.pearson_corr(X, Y)
 
@@ -177,7 +188,8 @@ def conditional_tables(
 ) -> torch.Tensor:
     """(M, F), (M,), (M,) -> (F, V, V, C) int32 class-conditioned tables."""
     if _decide(use_kernel, X):
-        return conditional_tables_cuda(X, xj, y, num_values, num_classes)
+        with kernel_region():
+            return conditional_tables_cuda(X, xj, y, num_values, num_classes)
     return ref.conditional_tables(X, xj, y, num_values, num_classes)
 
 
@@ -191,7 +203,8 @@ def mi_scores(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
 def bin_codes(X: torch.Tensor, edges: torch.Tensor, use_kernel="auto") -> torch.Tensor:
     """(B, N) floats x (N, E) sorted edges -> (B, N) int32 bin codes."""
     if _decide(use_kernel, X):
-        return bin_codes_cuda(X, edges)
+        with kernel_region():
+            return bin_codes_cuda(X, edges)
     return ref.bin_codes(X, edges)
 
 
@@ -211,5 +224,6 @@ def flash_attention(
     gradient, on every device (the plain version stands in for the kernel)."""
     check_no_grad(q, k, v)
     if _decide(use_kernel, q):
-        return flash_attention_cuda(q, k, v, causal=causal)
+        with kernel_region():
+            return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention(q, k, v, causal=causal)

@@ -78,7 +78,7 @@ def _rows_f32(A: torch.Tensor) -> torch.Tensor:
 
 def pearson_corr_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     """(F, M), (T, M) real tensors on the card -> (F, T) float32 correlations."""
-    if not X.is_cuda:
+    if not (X.is_cuda or X.is_meta):
         raise ValueError("pearson_corr_cuda needs a CUDA tensor")
     if X.dim() != 2 or Y.dim() != 2 or X.shape[1] != Y.shape[1]:
         raise ValueError(
@@ -92,6 +92,9 @@ def pearson_corr_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     T = Y.shape[0]
     if M == 0:
         raise ValueError("rows of length 0 have no correlation")
+    charge = pearson_charge(F, M, T)
+    if X.is_meta:
+        return _build.meta_result(pearson_corr_cuda, (F, T), torch.float32, *charge)
     out = torch.empty((F, T), dtype=torch.float32, device=X.device)
     if F == 0 or T == 0:
         return out
@@ -104,8 +107,15 @@ def pearson_corr_cuda(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "pearson_corr_launch")
-    _build.count_launch(pearson_corr_cuda)
+    _build.count_launch(pearson_corr_cuda, *charge)
     return out
 
 
+def pearson_charge(F: int, M: int, T: int) -> tuple[int, int]:
+    """(operations, bytes) of one call: the rows' standardisation and the
+    products; float32 X and Y read once, the correlations written once."""
+    return 4 * F * M + 2 * F * M * T, (F * M + T * M + F * T) * 4
+
+
 pearson_corr_cuda.launches = 0
+pearson_corr_cuda.flops = pearson_corr_cuda.bytes = 0

@@ -8,9 +8,10 @@ over the local devices, so ``REPRO_DEVICES=4`` on one card is a mesh of
 four positions of ``cuda:0`` (and of the CPU with ``--device cpu``).
 ``make_debug_mesh`` is the JAX package's small 2-D mesh; its positions
 may repeat a device, so ``devices=["cpu"] * 4`` gives the CPU tests a
-2 x 2 mesh and ``["cuda:0"] * 4`` runs it on one card.  The production
-mesh (``make_production_mesh``) comes with the dry-run (ROADMAP.md §1
-item 3).
+2 x 2 mesh and ``["cuda:0"] * 4`` runs it on one card.
+``make_production_mesh`` is the dry run's mesh (:mod:`repro_torch.launch.dryrun`):
+the JAX package's production topology, every position on the ``meta``
+device.
 """
 
 from __future__ import annotations
@@ -40,10 +41,26 @@ def build_local_mesh(model_parallel: int = 1, *, device=None):
                      devices=devs)
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: ``(data=16, model=16)``, 256 cards, or with
+    ``multi_pod`` ``(pod=2, data=16, model=16)``, 512 (the JAX package's
+    ``make_production_mesh``; ``pod`` composes with ``data`` for data
+    parallelism).
+
+    Every position is the ``meta`` device: the dry run traces a step on
+    shapes and dtypes alone, as the JAX dry run lowers and compiles without
+    executing, so a production mesh is never allocated.  This is the one
+    entry point that does not default to the card: no machine of one card
+    holds 256 of them, and nothing here runs a kernel."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * (512 if multi_pod else 256))
+
+
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *, devices=None):
     """A small ``(n_data, n_model)`` mesh on ``("data", "model")``
     (default devices: every local card)."""
     return make_mesh((n_data, n_model), ("data", "model"), devices=devices)
 
 
-__all__ = ["build_local_mesh", "make_debug_mesh", "mesh_positions"]
+__all__ = ["build_local_mesh", "make_debug_mesh", "make_production_mesh", "mesh_positions"]

@@ -170,13 +170,14 @@ class EncDecLM(GreedyDecoding, LMBase):
             rows = sinusoidal_rows(torch.tensor(pos, device=table.device), self.cfg.d_model)
         return x + rows.to(x.dtype)
 
-    def new_caches(self, batch: int, length: int) -> list:
+    def new_caches(self, batch: int, length: int, device=None) -> list:
         """Zeroed per-decoder-layer self-attention caches ``k``, ``v`` of
-        ``(B, length, KV, D)``; prefill adds the cross-attention ``xk``,
-        ``xv`` (``(B, S_enc, KV, D)``, the encoder states projected)."""
+        ``(B, length, KV, D)`` (on ``device``, default the model's); prefill
+        adds the cross-attention ``xk``, ``xv`` (``(B, S_enc, KV, D)``, the
+        encoder states projected)."""
         cfg = self.cfg
         shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype, device=self.device if device is None else device)
         return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
                 for _ in self.dec_layers]
 
@@ -287,15 +288,17 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
 
     final_norm = "top.dec_final"
 
-    def new_caches(self, batch: int, length: int) -> list:
+    def new_caches(self, batch: int, length: int, device=None) -> list:
         """Zeroed self-attention caches ``k``, ``v`` of ``(batch / n_batch,
-        length, KV heads, D)`` a decoder layer a position; prefill adds the
-        cross-attention's ``xk``, ``xv``."""
+        length, KV heads, D)`` a decoder layer a position (on its device, or
+        all on ``device``); prefill adds the cross-attention's ``xk``,
+        ``xv``."""
         cfg, ctx = self.cfg, self.ctx
         shape = (batch // ctx.n_batch, length, attn_heads(cfg, ctx.tp)[1], cfg.head_dim)
         return [[{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
                   "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
-                 for _ in range(cfg.decoder_layers)] for dev in ctx.devices]
+                 for _ in range(cfg.decoder_layers)]
+                for dev in (ctx.devices if device is None else [device] * ctx.n)]
 
     def _enc_layer(self, i: int, xs: list, use_kernel, train: bool) -> list:
         pre = f"enc_layers.{i}."

@@ -186,6 +186,41 @@ class LMBase(nn.Module):
                "conv_c": PartitionSpec(batch_ax, None, None)}
         return [{"k": kv, "v": kv} if kind == "attn" else dict(ssm) for kind, _ in self.kinds]
 
+    def input_specs(self, shape) -> dict:
+        """``meta`` tensors of every input of a shape cell (the JAX
+        ``input_specs``): ``train`` and ``prefill`` batches by the family's
+        input keys (``tokens`` or ``embeds``, ``positions`` under M-RoPE,
+        the encoder-decoder's ``enc_embeds`` and ``dec_tokens``; ``targets``
+        to train), ``decode`` the ``(B, 1)`` tokens, the cursor ``pos`` (an
+        int32 scalar; ``serve_step`` takes it as an int) and the caches
+        ``new_caches(B, S)`` lays out, with the cross-attention's ``xk``,
+        ``xv`` (``(B, S, KV, D)``) for the encoder-decoder.  A meshed
+        model's caches are each position's, its other inputs the global
+        batch its ``prefill``, ``serve_step`` and ``train_loss`` split."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            caches = self.new_caches(b, s, device="meta")
+            if cfg.is_encdec:
+                layers = [c for pos in caches for c in (pos if isinstance(pos, list) else [pos])]
+                for c in layers:
+                    c["xk"], c["xv"] = torch.empty_like(c["k"]), torch.empty_like(c["v"])
+            return {"tokens": meta(b, 1), "pos": meta(), "caches": caches}
+        if cfg.is_encdec:
+            out = {"enc_embeds": meta(b, s, cfg.d_model, dtype=self.dtype), "dec_tokens": meta(b, s)}
+        else:
+            out = ({"embeds": meta(b, s, cfg.d_model, dtype=self.dtype)}
+                   if cfg.input_mode == "embeddings" else {"tokens": meta(b, s)})
+            if cfg.mrope_sections:
+                out["positions"] = meta(b, s, 3)
+        if shape.kind == "train":
+            out["targets"] = meta(b, s)
+        return out
+
     def input_shardings(self, shape) -> dict:
         """PartitionSpecs of a shape cell's inputs (the JAX
         ``input_shardings``): ``train`` and ``prefill`` batches by the

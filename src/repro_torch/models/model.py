@@ -93,13 +93,14 @@ class DecoderLM(LMBase):
         """name -> :class:`ParamDef` of every weight."""
         return flatten_defs(decoder_defs(self.cfg))
 
-    def new_caches(self, batch: int, length: int) -> list:
+    def new_caches(self, batch: int, length: int, device=None) -> list:
         """Zeroed per-layer caches: ``{"k", "v"}`` of ``(B, length, KV, D)``
         for attention (zeros, so unwritten slots never carry NaN into the
-        masked sum), the Mamba cache for SSM layers."""
+        masked sum), the Mamba cache for SSM layers; on ``device``
+        (default the model's)."""
         cfg = self.cfg
         shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
-        kw = dict(dtype=self.dtype, device=self.device)
+        kw = dict(dtype=self.dtype, device=self.device if device is None else device)
         return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
                 if kind == "attn" else mamba_cache(cfg, batch, **kw)
                 for kind, _ in self.kinds]
@@ -324,6 +325,16 @@ class MeshLM:
         out.shards = shards
         return out
 
+    def with_batch_replicated(self) -> "MeshLM":
+        """This model with every position taking the whole batch: the layout
+        JAX's ``input_shardings`` give a batch that does not divide over
+        the batch axes (``long_500k``'s one row on ``data`` = 16).  The
+        positions along those axes compute the same rows; weights sharded
+        over them are still gathered at their use."""
+        out = copy.copy(self)
+        out.ctx = RunCtx(self.mesh, batch_axes=(), gather_axes=self.ctx.batch_axes)
+        return out
+
     def local(self, name: str) -> list:
         """Each position's stored shard of ``name``."""
         return [sh[name] for sh in self.shards]
@@ -333,7 +344,7 @@ class MeshLM:
         dims gathered (every sharded dim with ``full``)."""
         vals = self.local(name)
         for dim, entry in enumerate(self.specs[name]):
-            if entry is not None and (full or entry in self.ctx.batch_axes):
+            if entry is not None and (full or entry in self.ctx.gather_axes):
                 vals = self.ctx.all_gather(vals, entry, dim)
         return vals
 
@@ -357,8 +368,9 @@ class MeshLM:
                 seen[(t.device, t.data_ptr())] = t.numel() * t.element_size()
         return sum(seen.values())
 
-    def new_caches(self, batch: int, length: int) -> list:
-        """Zeroed caches, one list of per-layer caches a position:
+    def new_caches(self, batch: int, length: int, device=None) -> list:
+        """Zeroed caches, one list of per-layer caches a position (on its
+        device, or all on ``device``):
         ``{"k", "v"}`` of ``(batch / n_batch, length, KV heads, D)``, the KV
         heads ``attn_heads`` gives a position, for attention; for Mamba
         ``state`` of ``(batch / n_batch, its heads, P, N)``, ``conv_x`` of
@@ -381,7 +393,9 @@ class MeshLM:
                              "conv_b": (rows, k - 1, n), "conv_c": (rows, k - 1, n)}
         return [[{name: torch.zeros(shape, dtype=self.dtype, device=dev)
                   for name, shape in shapes[kind].items()} for kind in kinds]
-                for dev in ctx.devices]
+                for dev in (ctx.devices if device is None else [device] * ctx.n)]
+
+    input_specs = LMBase.input_specs
 
     def _embed(self, tokens: list) -> list:
         """The vocabulary-parallel lookup: each position looks up the rows

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.op_analysis import charge_collective
 from repro_torch.dist.sharding import flat_axis_index, mesh_extent, psum
 from repro_torch.models.layers import ParamDef
 
@@ -252,7 +253,11 @@ def _moe_whole_batch(m, pre: str, hs: list):
         ye = _expert_ffn(xe[lo:lo + n_e].to(dv), w, x.dtype)
         partials.append(_combine(ye, buf_tok[lo:lo + n_e].to(dv), buf_gate[lo:lo + n_e].to(dv),
                                  b * s))
-    y = psum(partials, dev).reshape(b, s, d)
+    y = psum(partials, dev)
+    # every position takes part in the sum of the expert partials (an
+    # all-reduce over the positions that ran them; the whole batch's rows)
+    charge_collective("all-reduce", len(partials), y.numel() * y.element_size(), ctx.n, ctx.n)
+    y = y.reshape(b, s, d)
     if cfg.num_shared_experts:
         shared = {n: m.weight(pre + n, full=True)[0]
                   for n in ("shared_gate", "shared_up", "shared_down")}

@@ -42,8 +42,10 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, *, theta: float = 1e4,
         if positions.dim() == 2:
             positions = text_mrope_positions(positions)
         # Slot i of D/2 takes its angle from stream idx[i] in {0=t, 1=h, 2=w}.
+        # (output_size: the length is known, so a meta tensor needs no host read)
         idx = torch.repeat_interleave(torch.arange(3, device=positions.device),
-                                      torch.tensor(sections, device=positions.device))
+                                      torch.tensor(sections, device=positions.device),
+                                      output_size=half)
         positions = positions[..., idx]  # (B, S, D/2)
         ang = positions.to(torch.float32) * freqs
     else:

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt_mod
 
+from repro_torch.analysis.op_analysis import report_collective
 from repro_torch.dist.sharding import flat_axis_index, mesh_extent, psum
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -148,9 +149,12 @@ class RunCtx:
     positions that repeat a device share one tensor.
     """
 
-    def __init__(self, mesh, batch_axes=("pod", "data"), model_axis="model"):
+    def __init__(self, mesh, batch_axes=("pod", "data"), model_axis="model", gather_axes=None):
         self.mesh = mesh
         self.batch_axes = tuple(a for a in batch_axes if a in mesh.shape)
+        # the axes weights sharded over ``data`` (fsdp) are gathered over at
+        # their use: the batch axes, unless the batch is replicated over them
+        self.gather_axes = self.batch_axes if gather_axes is None else tuple(gather_axes)
         self.model_axis = model_axis if model_axis in mesh.shape else None
         self.n_batch = mesh_extent(mesh, self.batch_axes)
         self.tp = mesh_extent(mesh, self.model_axis)
@@ -174,20 +178,27 @@ class RunCtx:
             out.append(int(np.ravel_multi_index(pos, self.shape)))
         return out
 
-    def _groupwise(self, vals: list, axes, fn) -> list:
+    def _groupwise(self, vals: list, axes, fn, kind: str, shared: bool = True,
+                   backward: bool = True) -> list:
         """``fn(members' values, first device) -> one result per member``,
-        once a group."""
+        once a group; each group's collective of ``kind`` is reported to
+        the open cost counter (:func:`~repro_torch.analysis.op_analysis
+        .report_collective`: ``shared`` when the members share one result)."""
         out = [None] * self.n
         for i in range(self.n):
             if out[i] is None:
                 g = self.group(i, axes)
-                for j, r in zip(g, fn([vals[j] for j in g], self.devices[g[0]])):
+                res = fn([vals[j] for j in g], self.devices[g[0]])
+                report_collective(kind, res, len(g), self.n, shared=shared, first=i == 0,
+                                  backward=backward)
+                for j, r in zip(g, res):
                     out[j] = r.to(self.devices[j])
         return out
 
     def psum(self, vals: list, axes) -> list:
         """The sum over ``axes``, in mesh order."""
-        return self._groupwise(vals, axes, lambda parts, dev: [psum(parts, dev)] * len(parts))
+        return self._groupwise(vals, axes, lambda parts, dev: [psum(parts, dev)] * len(parts),
+                               "all-reduce")
 
     def pmax(self, vals: list, axes) -> list:
         """The elementwise max over ``axes``."""
@@ -196,20 +207,21 @@ class RunCtx:
             for p in parts[1:]:
                 out = torch.maximum(out, p.to(dev))
             return [out] * len(parts)
-        return self._groupwise(vals, axes, pmax)
+        return self._groupwise(vals, axes, pmax, "all-reduce", backward=False)
 
     def all_gather(self, vals: list, axes, dim: int) -> list:
         """The members' values concatenated along ``dim``, in mesh order."""
         def gather(parts, dev):
             whole = parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts], dim)
             return [whole] * len(parts)
-        return self._groupwise(vals, axes, gather)
+        return self._groupwise(vals, axes, gather, "all-gather")
 
     def psum_scatter(self, vals: list, axes, dim: int) -> list:
         """The sum over ``axes``, member ``k`` of a group keeping chunk ``k``
         of ``dim``."""
         return self._groupwise(vals, axes, lambda parts, dev: psum(parts, dev).chunk(len(parts),
-                                                                                      dim))
+                                                                                      dim),
+                               "reduce-scatter", shared=False)
 
     def all_to_all(self, vals: list, axes, split: int, concat: int) -> list:
         """Member ``k`` gets chunk ``k`` (of ``split``) of every member's
@@ -218,7 +230,7 @@ class RunCtx:
         def a2a(parts, dev):
             chunks = [p.chunk(len(parts), split) for p in parts]
             return [torch.cat([c[k].to(dev) for c in chunks], concat) for k in range(len(parts))]
-        return self._groupwise(vals, axes, a2a)
+        return self._groupwise(vals, axes, a2a, "all-to-all", shared=False)
 
     def split_batch(self, x: torch.Tensor) -> list:
         """Each position's rows of the batch ``x`` (its batch shard), on its

@@ -31,6 +31,7 @@ WAITING = {
     "runtime": {},
     "train": {},
     "dist": {"pvary": NOT_PORTED, "shard_map": NOT_PORTED},
+    "analysis": {},
 }
 
 
@@ -61,6 +62,16 @@ def test_import_from_the_subpackages():
     from repro_torch.train import TrainState, make_train_state_specs, make_train_step  # noqa: F401
 
     assert get_engine("streaming") is not None  # core imports streaming last
+
+
+def test_launch_mesh_mirrors_jax():
+    from repro.launch import mesh as jax_mesh
+
+    from repro_torch.launch import mesh
+
+    for name in ("make_production_mesh", "make_debug_mesh"):
+        assert callable(getattr(jax_mesh, name)) and callable(getattr(mesh, name)), name
+        assert name in mesh.__all__
 
 
 @pytest.mark.parametrize("v,c", [(2, 2), (3, 4)])

@@ -32,6 +32,7 @@ import torch
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from torch_train_cases import jax_pair
+from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import smoke_config
 from repro_torch.dist import make_mesh

@@ -34,6 +34,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from test_torch_families import _jax_caches_by_layer, _pad_self_kv
 from torch_train_cases import jax_pair
+from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import smoke_config
 from repro_torch.configs.base import ShapeConfig

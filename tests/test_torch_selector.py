@@ -300,6 +300,7 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.train.compression, repro_torch.data.pipeline; "
         "import repro_torch.runtime.checkpoint, repro_torch.launch.train; "
         "import repro_torch.launch.model_args; "
+        "import repro_torch.analysis, repro_torch.analysis.op_top, repro_torch.launch.dryrun; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); print(bad)"
     )

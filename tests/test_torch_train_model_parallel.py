@@ -43,6 +43,7 @@ from repro.train.optimizer import warmup_cosine as jax_warmup_cosine
 from test_torch_train_loss import GRAD_FLOOR, GRAD_REL, LOSS_RTOL, hold_grads
 from test_torch_train_step import hold_params
 from torch_train_cases import batch_for, jax_pair, jax_value_and_grad, torch_batch
+from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import smoke_config
 from repro_torch.data import ShardedDataPipeline

@@ -35,6 +35,7 @@ from test_torch_train_loss import GRAD_FLOOR, GRAD_REL, LOSS_RTOL, hold_grads
 from test_torch_train_model_parallel import as_jax, blockwise_value_and_grad, mesh_grads
 from test_torch_train_step import hold_params
 from torch_train_cases import batch_for, jax_pair, jax_value_and_grad, torch_batch
+from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import smoke_config
 from repro_torch.dist import make_mesh

@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import smoke_config as jax_smoke_config
@@ -22,6 +23,19 @@ from repro.models.model import build_model as jax_build_model
 from repro_torch.configs import smoke_config
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax, params_to_jax
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The module's tests on one intra-op thread, the count restored after.
+    Under pytest-xdist several workers share the machine's cores: at
+    torch's default of a thread a core, their small CPU kernels spin
+    against each other.  Imported by the model-mesh test files, whose
+    meshed runs launch thousands of small kernels."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PERTURBED = {"bq", "bk", "bv", "b_in", "b_out", "w", "b", "dt_bias", "a_log", "d_skip",
              "norm"}
