@@ -295,6 +295,26 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    one production cell (qwen1.5-0.5b
    ``decode_32k`` at 2 of its 24 layers, (16, 16) ``meta`` positions): its
    seconds and roofline line.
+17. The meshed caches in JAX's ``_cache_specs`` layout: (a) Yi-6B
+   whole in bf16 on (1, 8) positions of the card, where its 4 KV heads do
+   not divide and each position holds all 4 heads of its eighth of the
+   sequence: 4 prompts of 2048 tokens, 8 new tokens (a cache of 2056
+   slots, 257 a position), served on one device and on the mesh (path
+   ``yi6b_seq_tp8_serve``: 256 flash launches a wave, each prefill
+   attention held to the plain version on its own q, k, v), the meshed
+   tokens held to one device's by the margin rule, the error being the
+   larger of the last prefill logits' and the first decode step's; each
+   position's cache bytes exactly 1/8 of the whole, printed beside the
+   former layout's (the whole sequence at 4 repeated heads); decode ms a
+   step, kernels a traced step, peak memory.  (b) The same weights on (2,
+   4), one row of 8192 tokens: the batch does not divide ``data``, so the
+   batch is replicated and the sequence goes over ``data`` and the heads
+   over ``model`` (path ``yi6b_seq_data_serve``), held the same way.  (c)
+   The five ``examples/*_torch.py`` on the card as subprocesses, at most
+   two at once: each one's seconds and exit code; a nonzero exit fails.
+   Between (b) and (c), flash at the two positions' shapes (B=4, S=T=2048,
+   H=KV=4 after the repeat; B=1, S=T=8192, H=8, KV=1) against the plain
+   version, timed.
 
 After phase 10 the MI kernel is timed at the table shapes of the main
 paths and of ``jmi``/``cmim`` (1000 x 2 x 2, 50,000 x 2 x 2, 1000 x 16 x 2,
@@ -333,7 +353,8 @@ launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
 llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
 path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
 16), phase 15's likewise (whisper 48, jamba 4 a wave; mamba2 and every
-training path none), phase 16 (b)'s 128 (one wave); each
+training path none), phase 16 (b)'s 128 (one wave), phase 17's 256 a wave
+on (1, 8) and on (2, 4); each
 spilled fit of phase 8 counts its blocks (160; the binned one 40) and launches no bin-code kernel,
 the service run counts its blocks once per engine run, and the custom-score
 fit launches each of the contingency and MI kernels twice a chunk a pick;
@@ -4479,6 +4500,220 @@ def phase16(dev, launches, smi):
                 cli=phase16_cli(smi))
 
 
+# Phase 17: the meshed caches in JAX's ``_cache_specs`` layout.
+SEQ_ARCH = "yi-6b"
+SEQ_TP_MESH, SEQ_TP_ROWS, SEQ_TP_PROMPT = (1, 8), 4, 2048  # (a): the sequence over model
+SEQ_DATA_MESH, SEQ_DATA_PROMPT = (2, 4), 8192  # (b): one row, the sequence over data
+SEQ_NEW_TOKENS = 8  # 16 to the first runs: cut for the script's time
+SEQ_PATHS = ("yi6b_seq_tp8_serve", "yi6b_seq_data_serve")
+EXAMPLES = ("quickstart", "train_lm", "custom_score", "feature_selection_pipeline", "serve_lm")
+EXAMPLE_TIMEOUT = 300.0  # seconds an example
+
+
+def position_cache_bytes(caches) -> list:
+    """Each position's cache bytes."""
+    return [sum(t.numel() * t.element_size() for layer in pos for t in layer.values())
+            for pos in caches]
+
+
+def seq_serve(tag, model, mesh, reqs, dev, launches, replicate=False):
+    """Serve ``reqs`` with the one-device ``model`` (the reference: tokens
+    and margins), then sharded onto ``mesh`` (the batch replicated over
+    the batch axes with ``replicate``) as path ``{tag}_serve``: flash
+    launched once a position an attention layer a wave, each prefill
+    attention held to the plain version on its own q, k, v, the tokens held
+    to one device's by ``margin_rule`` with the larger of the last prefill
+    logits' and the first decode step's errors; each position's cache bytes
+    against the whole's share its spec gives it and the former layout's (the
+    whole sequence, ``KV / tp`` heads or ``H / tp`` repeated ones); a decode
+    step traced.  -> (the meshed serve's record, the check)."""
+    from repro_torch.dist.sharding import mesh_extent
+    from repro_torch.models.model import shard_params
+    from repro_torch.serve import Request
+
+    cfg = model.cfg
+    attn = sum(kind == "attn" for kind, _ in model.kinds)
+    one_outs, one_margins, one_rec = serve_run(f"{tag}_one_device", model, reqs, dev, launches)
+    toks = torch.tensor([r.prompt for r in reqs], device=dev)
+    b, s = toks.shape
+    length = s + reqs[0].max_new_tokens
+
+    def first_step(m):  # the step feeds both models the same tokens
+        logits, caches = m.prefill(toks, cache_len=length)
+        step, caches = m.serve_step(toks[:, -1:], s, caches)
+        return logits.float(), step[:, 0].float(), caches
+
+    one_logits, one_step, one_caches = first_step(model)
+    del one_caches
+    t0 = time.perf_counter()
+    meshed = shard_params(model, mesh)
+    if replicate:
+        meshed = meshed.with_batch_replicated()
+    shard_s = time.perf_counter() - t0
+    margin_engine(meshed).serve([Request(reqs[0].prompt[:62], 2)])  # warm-up, 64 slots
+    outs, _, rec = serve_run(f"{tag}_serve", meshed, reqs, dev, launches)
+    want = attn * mesh.size
+    if rec["flash_launches_per_wave"] != [want]:
+        raise AssertionError(f"{tag}: flash launches per wave {rec['flash_launches_per_wave']}, "
+                             f"want {want} ({attn} attention layers x {mesh.size} positions)")
+    layer_errs = []
+    with held_to_plain(layer_errs):
+        logits, step, caches = first_step(meshed)
+    if len(layer_errs) != want:
+        raise AssertionError(f"{tag}: held {len(layer_errs)} prefill attentions, want {want}")
+    for t in (logits, step):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{tag}: non-finite logits on the mesh")
+    prefill_err = (logits - one_logits).abs().max().item()
+    step_err = (step - one_step).abs().max().item()
+    agree = margin_rule(outs, one_outs, one_margins, max(prefill_err, step_err), reqs)
+
+    spec = caches[0][0].specs["k"]
+    elem = caches[0][0]["k"].element_size()
+    whole = 2 * attn * b * length * cfg.num_kv_heads * cfg.head_dim * elem
+    share = 1
+    for e in spec:
+        share *= mesh_extent(mesh, e)
+    per = position_cache_bytes(caches)
+    if per != [whole // share] * mesh.size:
+        raise AssertionError(f"{tag}: positions hold {sorted(set(per))} cache bytes, want "
+                             f"{whole // share} (1/{share} of {whole}, spec {tuple(spec)})")
+    tp, h, kv = meshed.ctx.tp, cfg.num_heads, cfg.num_kv_heads
+    old_heads = kv // tp if kv % tp == 0 else h // tp
+    old = 2 * attn * (b // meshed.ctx.n_batch) * length * old_heads * cfg.head_dim * elem
+    trace = device_breakdown(lambda: meshed.serve_step(toks[:, :1], s + 1, caches), top=8,
+                             host_ops=False)
+    del caches, meshed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check = dict(mesh=mesh.shape, spec=[e if e is None or isinstance(e, str) else list(e)
+                                        for e in spec],
+                 cache_bytes_a_position=per[0], cache_bytes_whole=whole,
+                 share=f"1/{share}", cache_bytes_a_position_former_layout=old,
+                 prefill_logit_err=prefill_err, step_logit_err=step_err,
+                 tokens_equal=outs == one_outs, agreement=agree, shard_s=shard_s,
+                 decode_ms_per_step=rec["decode_ms_per_step"],
+                 one_device_decode_ms_per_step=one_rec["decode_ms_per_step"],
+                 kernels_a_step=trace["device_calls"], step_trace=trace,
+                 peak_mem_bytes=rec["peak_mem_bytes"],
+                 layer_abs_err=max(e for e, _ in layer_errs),
+                 layer_row_err=max(r for _, r in layer_errs))
+    log(f"[{tag}] {json.dumps(check)}")
+    log(f"[{tag}] cache a position {per[0]} bytes of {whole} ({check['share']}; the former "
+        f"layout held {old}); decode {rec['decode_ms_per_step']:.3f} ms a step "
+        f"(one device {one_rec['decode_ms_per_step']:.3f}), {trace['device_calls']} kernels a "
+        f"traced step, peak {rec['peak_mem_bytes']} bytes")
+    rec.update(arch=cfg.name, mesh=mesh.shape, dtype=str(model.dtype)[6:])
+    return rec, check
+
+
+def phase17_serve(dev, launches):
+    """(a) and (b): yi-6b whole in bf16 on (1, 8), then its weights on (2,
+    4) with one 8192-token row."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request
+
+    cfg = get_config(SEQ_ARCH)
+    rng = np.random.default_rng(7)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    t0 = time.perf_counter()
+    reqs = [Request(rng.integers(0, cfg.vocab_size, SEQ_TP_PROMPT).tolist(), SEQ_NEW_TOKENS)
+            for _ in range(SEQ_TP_ROWS)]
+    out["tp8"] = seq_serve("yi6b_seq_tp8", model, card_mesh(dev, SEQ_TP_MESH), reqs, dev,
+                           launches)
+    log(f"[phase] 17a yi-6b (1, 8) {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    reqs = [Request(rng.integers(0, cfg.vocab_size, SEQ_DATA_PROMPT).tolist(), SEQ_NEW_TOKENS)]
+    out["data"] = seq_serve("yi6b_seq_data", model, card_mesh(dev, SEQ_DATA_MESH), reqs, dev,
+                            launches, replicate=True)
+    log(f"[phase] 17b yi-6b (2, 4) one row {time.perf_counter() - t0:.3f} s")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase17_examples(tmp):
+    """(c) The five ``examples/*_torch.py`` on the card (their default
+    device) as subprocesses, at most two at once; every process ended
+    before this returns.  -> name -> (seconds, exit code, last line)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    queue = [(name, ["--ckpt-dir", str(tmp / "train_lm")] if name == "train_lm" else [])
+             for name in EXAMPLES]
+    running, done = {}, {}
+    try:
+        while queue or running:
+            while queue and len(running) < 2:
+                name, extra = queue.pop(0)
+                out = open(tmp / f"{name}.out", "w+")
+                err = open(tmp / f"{name}.err", "w+")
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.join(root, "examples", f"{name}_torch.py"), *extra],
+                    stdout=out, stderr=err, env=env, cwd=root, text=True)
+                running[name] = (proc, out, err, time.perf_counter())
+            time.sleep(0.2)
+            for name, (proc, out, err, t0) in list(running.items()):
+                late = time.perf_counter() - t0 > EXAMPLE_TIMEOUT
+                if proc.poll() is None and not late:
+                    continue
+                if late and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.seek(0)
+                err.seek(0)
+                text, etext = out.read(), err.read()
+                out.close()
+                err.close()
+                del running[name]
+                lines = text.strip().splitlines()
+                done[name] = dict(seconds=time.perf_counter() - t0, exit_code=proc.returncode,
+                                  last_line=lines[-1][:300] if lines else "")
+                log(f"[examples] {name}_torch.py: {json.dumps(done[name])}")
+                if proc.returncode != 0:
+                    raise AssertionError(f"examples/{name}_torch.py exited {proc.returncode}:\n"
+                                         f"{text[-2000:]}\n{etext[-3000:]}")
+    finally:
+        for proc, out, err, _ in running.values():
+            proc.kill()
+            proc.wait()
+            out.close()
+            err.close()
+    return done
+
+
+def phase17(dev, launches):
+    """(a), (b), then flash at the positions' new shapes, then (c)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    torch.cuda.empty_cache()
+    out = phase17_serve(dev, launches)
+    timings, err = [], 0.0
+    bf = torch.bfloat16
+    for i, (label, b, s, h, kv) in enumerate([
+            ("yi-6b (1, 8) position B=4 S=T=2048 H=4 KV=4 (repeated)", 4, 2048, 4, 4),
+            ("yi-6b (2, 4) position B=1 S=T=8192 H=8 KV=1", 1, 8192, 8, 1)]):
+        q, k, v = attn_inputs(b, s, s, h, kv, 128, bf, dev, seed=170 + i)
+        e, row = flash_errors(flash_attention_cuda(q, k, v, causal=True),
+                              ref.flash_attention(q, k, v, causal=True), bf)
+        err = max(err, e)
+        log(f"[flash] {label} bf16: max abs err {e:.3e}, max row err {row:.3e}")
+        timings.append(time_flash(q, k, v, label))
+        del q, k, v
+    torch.cuda.empty_cache()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    t0 = time.perf_counter()
+    try:
+        out["examples"] = phase17_examples(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase] 17c examples {time.perf_counter() - t0:.3f} s")
+    return out, timings, err
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase0()
@@ -4535,10 +4770,12 @@ def main():
     mesh_families, fam_flash_times, fam_flash_err = phase(
         "15 the other families on a model mesh", phase15, dev, launches)
     dryrun_check = phase("16 the dry run's accounting", phase16, dev, launches, smi)
+    seq_caches, seq_flash_times, seq_flash_err = phase("17 the meshed caches in JAX's layout",
+                                                       phase17, dev, launches)
     training["cli"] = mesh_families["cli"].pop("train_cli")
     mesh_training["cli"] = mesh_families["cli"].pop("mesh_train_cli")
-    flash_times += mp_flash_times + fam_flash_times
-    flash_err = max(flash_err, mp_flash_err, fam_flash_err)
+    flash_times += mp_flash_times + fam_flash_times + seq_flash_times
+    flash_err = max(flash_err, mp_flash_err, fam_flash_err, seq_flash_err)
     timings += mesh_times
     bin_times += mesh_bin_times
     bins_err = max([bins_err] + [r["max_abs_err"] for r in mesh_bin_times])
@@ -4589,7 +4826,7 @@ def main():
         kernel_entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:79",
                      ("yi6b_serve", *FAMILY_PATHS, *MP_PATHS, *FAMILY_MESH_PATHS,
-                      "dryrun_yi_tp"),
+                      "dryrun_yi_tp", *SEQ_PATHS),
                      launches,
                      flash_err, flash_times[0], flash_times),
     ]
@@ -4605,7 +4842,7 @@ def main():
                         family_check=family_check, training=training,
                         model_parallel=mp_serves, model_parallel_check=mp_check,
                         mesh_training=mesh_training, mesh_families=mesh_families,
-                        dryrun_check=dryrun_check)))
+                        dryrun_check=dryrun_check, seq_caches=seq_caches)))
     log(f"[total] {time.perf_counter() - t_start:.3f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -26,11 +26,15 @@ A train cell runs ``make_train_step(model, opt_cfg, mesh=)`` on
 donated as JAX donates it); a serve cell ``prefill`` or one ``serve_step``
 of the meshed model, its weights in ``cfg.dtype``, the decode step at the
 last slot of a cache of ``seq_len`` (its attention reads every slot, as
-JAX's traced cursor does).  A batch that does not divide over the batch
-axes (``long_500k``'s one row) is replicated over them, as JAX's
-``input_shardings`` leave it; JAX then shards the attention caches'
-sequence over ``data``, where each position here holds its heads' whole
-sequence (``memory`` counts that).
+JAX's traced cursor does).  Each position holds the block of every cache
+leaf that ``cache_specs`` (JAX's ``_cache_specs``) gives it: the KV heads
+over ``model`` where they divide, else the sequence, which a decode step
+then attends over slice by slice, the partial softmaxes combined by a
+``pmax`` and two ``psum`` reductions over the sequence's axes (counted with
+the other collectives).  A batch that does not divide over the batch axes
+(``long_500k``'s one row) is replicated over them, as JAX's
+``input_shardings`` leave it, and the caches' sequence is spread over
+those axes too.
 
 Records go to ``results/dryrun_torch/<mesh>/<arch>__<shape>.json``, so the
 two packages' records never overwrite each other, with JAX's keys but:

@@ -14,7 +14,9 @@ cached decode (port of ``repro.models.attention``).
   scores and softmax in float32.
 * :func:`decode_attention` — one query position against the KV cache, in
   plain PyTorch, as the JAX package computes it (no TPU kernel exists for
-  it there).
+  it there).  :func:`decode_attention_partial` is its share on one slice of
+  a cache whose sequence a model mesh shards: the slices' partial softmaxes
+  are combined over the positions holding them.
 """
 
 from __future__ import annotations
@@ -171,3 +173,32 @@ def decode_attention(q, k_cache, v_cache, pos: int | None = None) -> torch.Tenso
     probs = torch.softmax(sc, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
     return out.reshape(b, 1, h, d)
+
+
+def decode_attention_partial(q, k_block, v_block, pos: int | None = None, start: int = 0):
+    """q (B, 1, H, D) against a slice of the cache, ``k_block`` / ``v_block``
+    (B, n, KV, D) holding slots ``[start, start + n)`` -> ``(o, m, l)``:
+    the float32 row maxima ``m`` (B, 1, H, 1) of the scores, slots past
+    ``pos`` masked by ``_NEG``; ``l = sum exp(s - m)`` (B, 1, H, 1); and
+    the unnormalised ``o = sum exp(s - m) v`` (B, 1, H, D), float32.
+
+    Over slices ``j`` of one cache, with ``M = max_j m_j``,
+    ``sum_j exp(m_j - M) o_j / sum_j exp(m_j - M) l_j`` is
+    :func:`decode_attention` over the whole.  ``_NEG`` is finite, so a
+    slice whose every slot is masked gives finite ``m_j`` (slot 0 is always
+    written, so ``M`` is a real score and such a slice's weight is 0)."""
+    b, _, h, d = q.shape
+    qg = _split_gqa(q, k_block.shape[2]) * (d ** -0.5)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k_block).to(torch.float32)
+    if pos is not None:
+        kpos = start + torch.arange(k_block.shape[1], device=q.device)
+        sc = sc.masked_fill(kpos > pos, _NEG)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l_sum = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgst,btkd->bskgd", p.to(v_block.dtype), v_block).to(torch.float32)
+
+    def rows(x):  # (B, KV, G, 1, 1) -> (B, 1, H, 1)
+        return x.permute(0, 3, 1, 2, 4).reshape(b, 1, h, 1)
+
+    return o.reshape(b, 1, h, d), rows(m), rows(l_sum)

@@ -52,7 +52,14 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.model import MeshLM
 from repro_torch.models.rope import sinusoidal_positions, sinusoidal_rows
-from repro_torch.models.transformer import attn_heads, mesh_attn, mesh_mlp, mesh_norm, remat
+from repro_torch.models.transformer import (
+    CacheBlock,
+    cross_spec,
+    mesh_attn,
+    mesh_mlp,
+    mesh_norm,
+    remat,
+)
 
 
 def _enc_layer_defs(cfg) -> dict:
@@ -170,16 +177,19 @@ class EncDecLM(GreedyDecoding, LMBase):
             rows = sinusoidal_rows(torch.tensor(pos, device=table.device), self.cfg.d_model)
         return x + rows.to(x.dtype)
 
-    def new_caches(self, batch: int, length: int, device=None) -> list:
+    def new_caches(self, batch: int, length: int, device=None, cross: int | None = None) -> list:
         """Zeroed per-decoder-layer self-attention caches ``k``, ``v`` of
         ``(B, length, KV, D)`` (on ``device``, default the model's); prefill
         adds the cross-attention ``xk``, ``xv`` (``(B, S_enc, KV, D)``, the
-        encoder states projected)."""
+        encoder states projected), which ``cross`` (= S_enc) allocates here
+        too."""
         cfg = self.cfg
-        shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
         kw = dict(dtype=self.dtype, device=self.device if device is None else device)
-        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
-                for _ in self.dec_layers]
+        lengths = {"k": length, "v": length}
+        if cross is not None:
+            lengths.update(xk=cross, xv=cross)
+        return [{key: torch.zeros((batch, n, cfg.num_kv_heads, cfg.head_dim), **kw)
+                 for key, n in lengths.items()} for _ in self.dec_layers]
 
     def _decode_stack(self, x, caches, enc_out, pos, use_kernel) -> torch.Tensor:
         """Decoder layers over x -> final-normed states; ``pos`` None is
@@ -275,8 +285,10 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
       caches a position): the encoder's non-causal attention, the decoder's
       causal self-attention and its cross-attention over the encoder states
       through the flash kernel at the position's heads (one launch each a
-      layer a position); each position's caches hold ``k``, ``v``, ``xk``
-      and ``xv`` of its KV heads (every head where the heads do not divide);
+      layer a position); each position's caches hold its blocks of ``k``,
+      ``v``, ``xk`` and ``xv`` as ``cache_specs`` lays them out (the
+      encoder's length whole where it does not divide over the sequence's
+      axes: :func:`~repro_torch.models.transformer.cross_spec`);
     * ``serve_step(tokens, pos, caches)``: one decoder step, as
       :meth:`EncDecLM.serve_step`;
     * ``greedy(...)`` drives them, as :meth:`EncDecLM.greedy`;
@@ -288,17 +300,26 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
 
     final_norm = "top.dec_final"
 
-    def new_caches(self, batch: int, length: int, device=None) -> list:
-        """Zeroed self-attention caches ``k``, ``v`` of ``(batch / n_batch,
-        length, KV heads, D)`` a decoder layer a position (on its device, or
-        all on ``device``); prefill adds the cross-attention's ``xk``,
-        ``xv``."""
-        cfg, ctx = self.cfg, self.ctx
-        shape = (batch // ctx.n_batch, length, attn_heads(cfg, ctx.tp)[1], cfg.head_dim)
-        return [[{"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+    def new_caches(self, batch: int, length: int, device=None, cross: int | None = None) -> list:
+        """Zeroed self-attention caches ``k``, ``v`` a decoder layer a
+        position (on its device, or all on ``device``), one
+        :class:`~repro_torch.models.transformer.CacheBlock` each: the block
+        of ``(batch, length, KV, D)`` :meth:`cache_layout` gives the
+        position; prefill adds the cross-attention's ``xk``, ``xv``, which
+        ``cross`` (= S_enc) allocates here too."""
+        cfg = self.cfg
+        spec = self.cache_layout(batch, length)[0]["k"]
+        whole = {"k": (batch, length), "v": (batch, length)}
+        specs = {"k": spec, "v": spec}
+        if cross is not None:
+            whole.update(xk=(batch, cross), xv=(batch, cross))
+            specs["xk"] = specs["xv"] = cross_spec(spec, cross, self.mesh)
+        shapes = {key: self._block(whole[key] + (cfg.num_kv_heads, cfg.head_dim), specs[key])
+                  for key in whole}
+        return [[CacheBlock({key: torch.zeros(shape, dtype=self.dtype, device=dev)
+                             for key, shape in shapes.items()}, specs)
                  for _ in range(cfg.decoder_layers)]
-                for dev in (ctx.devices if device is None else [device] * ctx.n)]
+                for dev in (self.ctx.devices if device is None else [device] * self.ctx.n)]
 
     def _enc_layer(self, i: int, xs: list, use_kernel, train: bool) -> list:
         pre = f"enc_layers.{i}."

@@ -176,7 +176,7 @@ class LMBase(nn.Module):
         seq_ax = tuple(seq_axes) if seq_axes and s % mesh_extent(mesh, seq_axes) == 0 else None
         kv = PartitionSpec(batch_ax, seq_ax, kv_ax, None)
         if cfg.is_encdec:
-            return [{"k": kv, "v": kv, "xk": kv, "xv": kv} for _ in self.dec_layers]
+            return [{"k": kv, "v": kv, "xk": kv, "xv": kv} for _ in range(cfg.decoder_layers)]
         d_in, h, _ = mamba_dims(cfg)
         h_ax = "model" if model_ok and h % mesh.shape["model"] == 0 else None
         c_ax = "model" if model_ok and d_in % mesh.shape["model"] == 0 else None
@@ -204,11 +204,7 @@ class LMBase(nn.Module):
             return torch.empty(dims, dtype=dtype, device="meta")
 
         if shape.kind == "decode":
-            caches = self.new_caches(b, s, device="meta")
-            if cfg.is_encdec:
-                layers = [c for pos in caches for c in (pos if isinstance(pos, list) else [pos])]
-                for c in layers:
-                    c["xk"], c["xv"] = torch.empty_like(c["k"]), torch.empty_like(c["v"])
+            caches = self.new_caches(b, s, device="meta", **({"cross": s} if cfg.is_encdec else {}))
             return {"tokens": meta(b, 1), "pos": meta(), "caches": caches}
         if cfg.is_encdec:
             out = {"enc_embeds": meta(b, s, cfg.d_model, dtype=self.dtype), "dec_tokens": meta(b, s)}

@@ -39,9 +39,9 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import ShardedArray, rules_for, spec_axes
+from repro_torch.dist.sharding import ShardedArray, mesh_extent, rules_for, spec_axes
 from repro_torch.models.attention import attention_defs
 from repro_torch.models.layers import (
     LMBase,
@@ -61,8 +61,8 @@ from repro_torch.models.mamba import mamba_cache, mamba_defs, mamba_dims
 from repro_torch.models.moe import moe_defs
 from repro_torch.models.rope import rope_cos_sin
 from repro_torch.models.transformer import (
+    CacheBlock,
     RunCtx,
-    attn_heads,
     block_apply,
     group_pattern,
     is_sharded,
@@ -368,20 +368,42 @@ class MeshLM:
                 seen[(t.device, t.data_ptr())] = t.numel() * t.element_size()
         return sum(seen.values())
 
+    def cache_layout(self, batch: int, length: int) -> list:
+        """Each layer's leaf -> PartitionSpec of a ``batch`` x ``length``
+        decode cache: ``cache_specs`` (JAX's ``_cache_specs``) of that
+        cell.  Its batch entry must be this model's split of the rows (a
+        batch the batch axes divide goes over them; ``with_batch_replicated``
+        takes one that they do not)."""
+        specs = self.cache_specs(ShapeConfig("decode", length, batch, "decode"))
+        batch_entry = next(iter(specs[0].values()))[0]
+        if mesh_extent(self.mesh, batch_entry) != self.ctx.n_batch:
+            raise ValueError(f"a batch of {batch} rows is laid out over the batch axes "
+                             f"{self.ctx.gather_axes} otherwise than this model splits it "
+                             f"({self.ctx.n_batch} ways)")
+        return specs
+
+    def _block(self, whole: tuple, spec) -> tuple:
+        return tuple(d if e is None else d // mesh_extent(self.mesh, e) for d, e in zip(whole, spec))
+
     def new_caches(self, batch: int, length: int, device=None) -> list:
-        """Zeroed caches, one list of per-layer caches a position (on its
-        device, or all on ``device``):
-        ``{"k", "v"}`` of ``(batch / n_batch, length, KV heads, D)``, the KV
-        heads ``attn_heads`` gives a position, for attention; for Mamba
-        ``state`` of ``(batch / n_batch, its heads, P, N)``, ``conv_x`` of
-        ``(batch / n_batch, K - 1, its channels)``, ``conv_b`` and ``conv_c``
-        whole (:func:`~repro_torch.models.mamba.mesh_mamba`'s layout)."""
+        """Zeroed caches, one list of per-layer :class:`CacheBlock` a
+        position (on its device, or all on ``device``), each leaf the block
+        :meth:`cache_layout` gives the position: ``{"k", "v"}`` of
+        ``(batch, length, KV, D)`` for attention (its rows, its ``KV / tp``
+        heads or every KV head, its slice of the sequence where the spec
+        shards it); for Mamba ``state`` of ``(batch / n_batch, its heads, P,
+        N)``, ``conv_x`` of ``(batch / n_batch, K - 1, its channels)``,
+        ``conv_b`` and ``conv_c`` whole (:func:`~repro_torch.models.mamba
+        .mesh_mamba`'s layout, the same blocks)."""
         cfg, ctx = self.cfg, self.ctx
+        specs = self.cache_layout(batch, length)
         rows = batch // ctx.n_batch
-        kv = attn_heads(cfg, ctx.tp)[1]
-        shapes = {"attn": {"k": (rows, length, kv, cfg.head_dim),
-                           "v": (rows, length, kv, cfg.head_dim)}}
+        shapes = {}
         kinds = [kind for kind, _ in self.kinds]
+        if "attn" in kinds:
+            kv = self._block((batch, length, cfg.num_kv_heads, cfg.head_dim),
+                             specs[kinds.index("attn")]["k"])
+            shapes["attn"] = {"k": kv, "v": kv}
         if "ssm" in kinds:
             pre = f"layers.{kinds.index('ssm')}.ssm."
             split = {name: ctx.tp if self.spec(pre + name)[1] == ctx.model_axis else 1
@@ -391,10 +413,13 @@ class MeshLM:
             shapes["ssm"] = {"state": (rows, h // split["in_dt"], cfg.ssm_headdim, n),
                              "conv_x": (rows, k - 1, d_in // split["in_x"]),
                              "conv_b": (rows, k - 1, n), "conv_c": (rows, k - 1, n)}
-        return [[{name: torch.zeros(shape, dtype=self.dtype, device=dev)
-                  for name, shape in shapes[kind].items()} for kind in kinds]
+        return [[CacheBlock({name: torch.zeros(shape, dtype=self.dtype, device=dev)
+                             for name, shape in shapes[kind].items()}, spec)
+                 for kind, spec in zip(kinds, specs)]
                 for dev in (ctx.devices if device is None else [device] * ctx.n)]
 
+    cache_specs = LMBase.cache_specs
+    _batch_axes = LMBase._batch_axes
     input_specs = LMBase.input_specs
 
     def _embed(self, tokens: list) -> list:
@@ -625,35 +650,11 @@ def gather_params(meshed: MeshLM, device=None) -> dict:
 
 def gather_caches(meshed: MeshLM, caches: list, device=None) -> list:
     """Each position's caches -> the one-device model's layout, one dict a
-    layer on ``device``: the batch shards concatenated; the KV heads of
-    ``k``, ``v`` (and the cross-attention's ``xk``, ``xv``) from the
-    positions that hold them (a repeated head from the first position
-    holding it); a Mamba ``state``'s heads and ``conv_x``'s channels
-    concatenated over ``model`` where each position holds its share, and a
-    leaf every position holds whole (``conv_b``, ``conv_c``) from its first
-    holder."""
+    layer on ``device``: every leaf assembled from its blocks by the spec
+    its :class:`CacheBlock` carries (sequence slices in the flat order of
+    the sequence's axes, ``KV / tp`` heads over ``model``, batch shards in
+    order), a block that positions repeat from its first holder."""
     device = meshed.device if device is None else device
-    cfg, ctx = meshed.cfg, meshed.ctx
-    hq, kv_loc = attn_heads(cfg, ctx.tp)
-    g = cfg.num_heads // cfg.num_kv_heads
-    d_in, h_ssm, _ = mamba_dims(cfg)
-    shared = {"state": (1, h_ssm), "conv_x": (2, d_in)}  # Mamba leaf -> (dim cut, its extent)
-    by_shard = {}  # batch shard -> its positions by model index
-    for i in range(ctx.n):
-        by_shard.setdefault(ctx.batch_index[i], {}).setdefault(ctx.model_index[i], i)
-
-    def assemble(l, key, at):
-        parts = [caches[at[j]][l][key].to(device) for j in range(ctx.tp)]
-        if key in shared:
-            dim, whole = shared[key]
-            return parts[0] if parts[0].shape[dim] == whole else torch.cat(parts, dim)
-        if key not in ("k", "v", "xk", "xv") or hq == cfg.num_heads:  # whole a position
-            return parts[0]
-        if kv_loc * ctx.tp == cfg.num_kv_heads:  # KV / tp heads a position
-            return torch.cat(parts, 2)
-        # H / tp repeated heads a position: KV head c is query head c * g's
-        return torch.stack([parts[c * g // hq][:, :, c * g % hq]
-                            for c in range(cfg.num_kv_heads)], 2)
-
-    return [{key: torch.cat([assemble(l, key, by_shard[k]) for k in range(ctx.n_batch)], 0)
+    return [{key: ShardedArray([c[l][key] for c in caches], meshed.mesh,
+                               caches[0][l].specs[key]).whole(device)
              for key in caches[0][l]} for l in range(len(caches[0]))]

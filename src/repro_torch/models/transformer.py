@@ -258,15 +258,97 @@ def is_sharded(spec, dim: int, axis) -> bool:
     return axis is not None and spec[dim] == axis
 
 
-def attn_heads(cfg, tp: int) -> tuple[int, int]:
-    """(query heads, cached KV heads) of one position of a ``tp``-way
-    ``model`` axis: ``H / tp`` query heads where they divide (JAX's rule),
-    with ``KV / tp`` KV heads where those divide too, else the ``H / tp``
-    repeated heads they read; every head where ``H`` does not divide."""
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    if not (cfg.tp_style == "megatron" and tp > 1 and h % tp == 0):
-        return h, kv
-    return h // tp, (kv // tp if kv % tp == 0 else h // tp)
+class CacheBlock(dict):
+    """A position's cache of one layer on a model mesh: leaf name -> the
+    block of it the position holds, and ``specs``: leaf name -> the
+    :class:`~repro_torch.dist.sharding.PartitionSpec` laying the whole leaf
+    out over the mesh (``cache_specs``), so the blocks of every position
+    make the whole (:func:`~repro_torch.models.model.gather_caches`)."""
+
+    def __init__(self, leaves: dict, specs: dict):
+        super().__init__(leaves)
+        self.specs = dict(specs)
+
+
+def cross_spec(spec, length: int, mesh):
+    """The spec of a cross-attention cache (``xk``, ``xv``) of ``length``
+    encoder positions: the self-attention cache's ``spec``, its sequence
+    whole where ``length`` does not divide over the sequence's axes (where
+    JAX's ``NamedSharding(mesh, spec).shard_shape`` refuses it)."""
+    if spec[1] is None or length % mesh_extent(mesh, spec[1]) == 0:
+        return spec
+    return type(spec)(spec[0], None, *spec[2:])
+
+
+def query_heads(cfg, tp: int) -> int:
+    """The query heads one position of a ``tp``-way ``model`` axis
+    computes: ``H / tp`` where they divide (JAX's rule), else every head."""
+    h = cfg.num_heads
+    return h // tp if cfg.tp_style == "megatron" and tp > 1 and h % tp == 0 else h
+
+
+def _heads_of(ctx, i: int, x: torch.Tensor, spec, n: int) -> torch.Tensor:
+    """Position ``i``'s ``n`` heads of ``x`` (B, T, heads, D): ``x`` itself
+    where it holds ``n``, else its ``j``-th group of ``n``, ``j`` the
+    position's index along ``spec``'s head entry."""
+    if x.shape[2] == n:
+        return x
+    j = flat_axis_index(ctx.coords[i], spec[2], ctx.mesh)
+    return x[:, :, j * n:(j + 1) * n]
+
+
+def _cache_write(ctx, i: int, cache: CacheBlock, key: str, x: torch.Tensor, start: int) -> None:
+    """Write ``x`` (B, s, heads, D), the values of slots ``[start, start +
+    s)``, into position ``i``'s block of the cache leaf ``key``: the
+    block's KV heads, the slots of its sequence slice."""
+    block, spec = cache[key], cache.specs[key]
+    n = block.shape[1]
+    x = _heads_of(ctx, i, x, spec, block.shape[2])
+    lo = flat_axis_index(ctx.coords[i], spec[1], ctx.mesh) * n
+    a, z = max(start, lo), min(start + x.shape[1], lo + n)
+    if z > a:
+        block[:, a - lo:z - lo] = x[:, a - start:z - start]
+
+
+def _cross_block(ctx, i: int, x: torch.Tensor, spec, kv: int) -> torch.Tensor:
+    """Position ``i``'s block of the cross-attention K or V ``x`` (B, T,
+    heads, D) under ``spec``, ``kv`` heads a block."""
+    x = _heads_of(ctx, i, x, spec, kv)
+    if spec[1] is not None:
+        n = x.shape[1] // mesh_extent(ctx.mesh, spec[1])
+        lo = flat_axis_index(ctx.coords[i], spec[1], ctx.mesh) * n
+        x = x[:, lo:lo + n].clone()
+    return x
+
+
+def _mesh_decode(m, q: list, caches: list, keys: tuple, pos: int | None) -> list:
+    """One query a row against each position's cache block -> each
+    position's (B, 1, heads, D) output at the query heads its block's KV
+    heads read.  Where the blocks hold every KV head and a position's
+    query heads are a share of them, ``q`` is gathered over ``model``
+    first.  Where the spec shards the sequence over axes ``A`` each
+    position attends over its slice and the partial softmaxes are combined
+    over ``A`` in mesh order: ``M = pmax(m_j)``, ``l = psum(exp(m_j - M)
+    l_j)``, ``o = psum(exp(m_j - M) o_j) / l``."""
+    cfg, ctx = m.cfg, m.ctx
+    kvh, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    k0 = caches[0][keys[0]]
+    spec, kv = caches[0].specs[keys[0]], k0.shape[2]
+    if kv == kvh and q[0].shape[2] < cfg.num_heads:  # a share of the query heads: all of them
+        q = ctx.all_gather(q, ctx.model_axis, 2)
+    qs = [_heads_of(ctx, i, x, spec, kv * g) for i, x in enumerate(q)]
+    if spec[1] is None:
+        return [attn_mod.decode_attention(x, c[keys[0]], c[keys[1]], pos)
+                for x, c in zip(qs, caches)]
+    n = k0.shape[1]
+    parts = [attn_mod.decode_attention_partial(
+        x, c[keys[0]], c[keys[1]], pos, flat_axis_index(ctx.coords[i], spec[1], ctx.mesh) * n)
+        for i, (x, c) in enumerate(zip(qs, caches))]
+    top = ctx.pmax([mj for _, mj, _ in parts], spec[1])
+    scale = [torch.exp(mj - t) for (_, mj, _), t in zip(parts, top)]
+    l_sum = ctx.psum([a * lj for a, (_, _, lj) in zip(scale, parts)], spec[1])
+    o = ctx.psum([a * oj for a, (oj, _, _) in zip(scale, parts)], spec[1])
+    return [(oi / li).to(x.dtype) for oi, li, x in zip(o, l_sum, qs)]
 
 
 def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel, *,
@@ -278,30 +360,38 @@ def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel
 
     Where the query heads divide by the model extent (``H % tp == 0``,
     ``tp > 1``) each position computes its ``H / tp`` heads: its columns of
-    ``wq``; its KV heads when ``KV % tp == 0``, else the K and V projections
-    gathered over ``model`` and repeated to the query heads
-    (``attention.repeat_kv``), its heads of those.  Training (``train``,
-    by default ``caches`` None) attends through ``train_attention`` on the
-    position's heads, as the one-device ``train_loss`` does; prefill
-    (``pos`` None) runs the flash kernel on the position's heads, writing
-    its cache where ``caches`` holds one, and decode attends over the
-    position's own cache, which holds the KV heads its query heads read:
-    ``KV / tp`` heads, or ``H / tp`` repeated heads where ``KV % tp != 0``
-    (JAX's ``_cache_specs`` shards such a cache's sequence over ``model``
-    instead).  Otherwise every position computes every head.  ``wo`` is row
-    parallel where its rows are sharded: each position's heads times its
-    rows, the partials summed in mesh order.
+    ``wq``; its KV heads when ``KV % tp == 0``, else every KV head (the K
+    and V projections gathered over ``model``), repeated to its query heads
+    (``attention.repeat_kv``) for the attention itself.  Otherwise every
+    position computes every head.  Training (``train``, by default
+    ``caches`` None) attends through ``train_attention`` on the position's
+    heads, as the one-device ``train_loss`` does; prefill (``pos`` None)
+    runs the flash kernel on the position's heads.
+
+    ``caches`` holds each position's :class:`CacheBlock` of the layer: the
+    block of ``(B, L, KV, D)`` that JAX's ``_cache_specs`` gives it, its
+    rows, its ``KV / tp`` heads where they divide (else every KV head), and
+    its slice of the sequence where the spec shards it (over ``model``,
+    over the batch axes too where the batch did not divide).  Prefill
+    writes each position the slots of ``[0, S)`` its slice holds; a decode
+    step writes slot ``pos`` on the position whose slice holds it, then
+    attends over each block (:func:`_mesh_decode`: the partial softmaxes
+    of a sharded sequence combined over its axes).  ``wo`` is row parallel
+    where its rows are sharded: each position's heads times its rows, the
+    partials summed in mesh order.
 
     ``causal`` False is the encoder's attention and the cross-attention.
     ``cross`` is the decoder's cross-attention: K and V projected from the
-    encoder states ``xkv`` (one tensor a position) with their biases, on the
-    position's KV heads, and kept in the cache as ``xk`` / ``xv`` at
-    prefill; a decode step projects only its query and reads them.  Rotary
-    positions apply to self-attention only.
+    encoder states ``xkv`` (one tensor a position) with their biases, kept
+    in the cache as ``xk`` / ``xv`` at prefill (the block the
+    self-attention cache's spec gives them, the sequence whole where the
+    encoder's length does not divide: :func:`cross_spec`); a decode step
+    projects only its query and reads them.  Rotary positions apply to
+    self-attention only.
     """
     cfg, ctx = m.cfg, m.ctx
     h, kvh, hd, tp, ax = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, ctx.tp, ctx.model_axis
-    hq = attn_heads(cfg, tp)[0]
+    hq = query_heads(cfg, tp)
     heads = hq < h
     train = caches is None and pos is None if train is None else train
 
@@ -320,37 +410,43 @@ def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel
         src = xkv if cross else hs
         t = src[0].shape[1]
         k, v = project("wk", "bk", src), project("wv", "bv", src)
-        if heads and kvh % tp:  # KV heads not whole on a position: gather, repeat
+        if heads and kvh % tp:  # KV heads not whole on a position: every one of them
             k, v = (ctx.all_gather(x, ax, -1) if is_sharded(m.spec(pre + w), 1, ax) else x
                     for x, w in ((k, "wk"), (v, "wv")))
-            k, v = ([attn_mod.repeat_kv(x.view(bsz, t, kvh, hd), h // kvh)
-                     [:, :, j * hq:(j + 1) * hq] for x, j in zip(y, ctx.model_index)]
-                    for y in (k, v))
-        else:
-            k, v = ([x.view(bsz, t, -1, hd) for x in y] for y in (k, v))
+        k, v = ([x.view(bsz, t, -1, hd) for x in y] for y in (k, v))
     if cfg.use_rope and not cross:
         q = [rotate(x, *r) for x, r in zip(q, ropes)]
         k = [rotate(x, *r) for x, r in zip(k, ropes)]
-    outs = []
-    for i in range(ctx.n):
-        if train:  # the JAX package's attention, no kernel
-            o = attn_mod.train_attention(q[i], k[i], v[i], causal=causal, cfg=cfg)
-        elif cross:
-            if pos is None:
-                caches[i]["xk"], caches[i]["xv"] = k[i], v[i]
-                o = attn_mod.attention(q[i], k[i], v[i], causal=causal, use_kernel=use_kernel)
+    keys = ("xk", "xv") if cross else ("k", "v")
+    if caches is not None and not train:
+        for i, c in enumerate(caches):
+            if cross and pos is None:
+                spec = cross_spec(c.specs["k"], k[i].shape[1], ctx.mesh)
+                kv = c["k"].shape[2]
+                c["xk"], c["xv"] = (_cross_block(ctx, i, x[i], spec, kv) for x in (k, v))
+                c.specs["xk"] = c.specs["xv"] = spec
+            elif not cross:
+                for key, x in zip(keys, (k, v)):
+                    _cache_write(ctx, i, c, key, x[i], 0 if pos is None else pos)
+    if pos is not None and not train:
+        outs = _mesh_decode(m, q, caches, keys, None if cross else pos)
+        if outs[0].shape[2] != hq:  # the block's query heads -> this position's
+            if outs[0].shape[2] == h:
+                outs = [o[:, :, j * hq:(j + 1) * hq] for o, j in zip(outs, ctx.model_index)]
             else:
-                o = attn_mod.decode_attention(q[i], caches[i]["xk"], caches[i]["xv"])
-        else:
-            start = 0 if pos is None else pos
-            if caches is not None:
-                caches[i]["k"][:, start:start + s] = k[i]
-                caches[i]["v"][:, start:start + s] = v[i]
-            if pos is None:
-                o = attn_mod.attention(q[i], k[i], v[i], causal=causal, use_kernel=use_kernel)
+                outs = ctx.all_gather(outs, ax, 2)
+        outs = [o.reshape(bsz, s, hq * hd) for o in outs]
+    else:
+        if heads and kvh % tp:  # repeated to the position's query heads
+            k, v = ([attn_mod.repeat_kv(x, h // kvh)[:, :, j * hq:(j + 1) * hq]
+                     for x, j in zip(y, ctx.model_index)] for y in (k, v))
+        outs = []
+        for i in range(ctx.n):
+            if train:  # the JAX package's attention, no kernel
+                o = attn_mod.train_attention(q[i], k[i], v[i], causal=causal, cfg=cfg)
             else:
-                o = attn_mod.decode_attention(q[i], caches[i]["k"], caches[i]["v"], pos)
-        outs.append(o.reshape(bsz, s, hq * hd))
+                o = attn_mod.attention(q[i], k[i], v[i], causal=causal, use_kernel=use_kernel)
+            outs.append(o.reshape(bsz, s, hq * hd))
     row = is_sharded(m.spec(pre + "wo"), 0, ax)
     if row and not heads:  # every head here, a row shard of wo: its heads' columns
         width = h * hd // tp

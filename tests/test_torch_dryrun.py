@@ -37,7 +37,7 @@ from repro.train.train_step import train_state_shapes as jax_train_state_shapes
 
 from repro_torch.analysis import op_top
 from repro_torch.analysis.op_analysis import CollectiveOp, analyze_step
-from repro_torch.configs import SHAPES, get_config, list_archs, smoke_config
+from repro_torch.configs import SHAPES, get_config, list_archs, shape_applicable, smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist.meshes import make_mesh
 from repro_torch.kernels.flash_attention import flash_charge
@@ -180,6 +180,47 @@ def test_train_state_bytes_are_a_built_positions():
         built = (nbytes(state.params[i]) + nbytes(state.opt["m"][i]) + nbytes(state.opt["v"][i])
                  + 2 * 4)
         assert train_state_bytes(model, opt, mesh) == built, i
+
+
+def _position_caches(arch, shape_name, mesh):
+    """Position 0's decode caches of a production cell, as ``build_cell``
+    lays them out (no step counted)."""
+    meshed = mesh_model(build_model(get_config(arch), device="meta", mesh=mesh), mesh)
+    shape = SHAPES[shape_name]
+    if shape.global_batch % meshed.ctx.n_batch:
+        meshed = meshed.with_batch_replicated()
+    return meshed.input_specs(shape)["caches"][0]
+
+
+def _nbytes(caches, keys=None) -> int:
+    return sum(t.numel() * t.element_size() for layer in caches for k, t in layer.items()
+               if keys is None or k in keys)
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
+def test_decode_cache_bytes_a_position_are_the_cache_specs_blocks(shape_name):
+    """Every config's applicable decode cell on the (16, 16) ``meta``
+    production mesh: position 0 holds, leaf for leaf, the bytes of the
+    blocks JAX's ``_cache_specs`` gives it of ``_cache_shapes``.  yi-6b's
+    ``decode_32k`` holds 8 rows x 2048 slots x 4 KV heads x 128 x k and v x
+    2 bytes x 32 layers; jamba's ``long_500k`` attention layers 2048 slots
+    (the sequence over data x model) x 8 heads x 128 x 2 x 2 bytes x 9."""
+    mesh = make_production_mesh()
+    for arch in list_archs():
+        cfg, jcfg = get_config(arch), jax_get_config(arch)
+        if not shape_applicable(cfg, SHAPES[shape_name])[0]:
+            continue
+        bundle = jax_build_model(jcfg, types.SimpleNamespace(shape=dict(mesh.shape)))
+        jshape = JSHAPES[shape_name]
+        want = _jax_block_bytes(bundle._cache_shapes(jshape), bundle._cache_specs(jshape),
+                                mesh.shape)
+        caches = _position_caches(arch, shape_name, mesh)
+        assert _nbytes(caches) == want, arch
+    if shape_name == "decode_32k":
+        assert _nbytes(_position_caches("yi-6b", shape_name, mesh)) == 1_073_741_824
+    else:
+        jamba = _position_caches("jamba-1.5-large-398b", shape_name, mesh)
+        assert _nbytes(jamba, ("k", "v")) == 2048 * 8 * 128 * 2 * 2 * 9 == 75_497_472
 
 
 # -- counts against XLA's, and meta against the CPU ----------------------------

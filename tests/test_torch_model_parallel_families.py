@@ -16,8 +16,8 @@ Also: greedy ``ServeEngine`` tokens equal the JAX engine's (whisper's the
 port's one-device ``greedy``: JAX's engine refuses it), ``gather_params``
 inverts ``shard_params`` bit for bit, a Mamba config whose ``d_inner``
 divides by the model extent but whose SSM heads do not, whisper with six
-heads at tp = 4, the caches each position holds against the blocks of
-``cache_specs`` (JAX's ``_cache_specs``), and the refusals a meshed model
+heads at tp = 4, every cache leaf each position holds against the blocks
+of ``cache_specs`` (JAX's ``_cache_specs``), and the refusals a meshed model
 keeps: the SSD's prompt length, the conv window, an encoder-decoder engine.
 """
 
@@ -33,6 +33,7 @@ from repro.models.model import build_model as jax_build_model
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from test_torch_families import _jax_caches_by_layer, _pad_self_kv
+from test_torch_mesh_caches import jax_block_shape
 from torch_train_cases import jax_pair
 from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
@@ -172,9 +173,8 @@ def test_gather_params_inverts_shard_params_bitwise(pair, shape):
 
 def _held_blocks(model, meshed, caches, cell):
     """Each position's cache leaves against the blocks ``cache_specs``
-    gives it; -> the leaves held.  A KV cache whose heads the model extent
-    does not divide is left out: JAX shards its sequence, a position here
-    holds the heads its queries read (``transformer.mesh_attn``)."""
+    gives it (every leaf: ``k``, ``v``, ``xk``, ``xv`` and the Mamba
+    state); -> the leaves held."""
     specs, gathered = model.cache_specs(cell), gather_caches(meshed, caches)
     held = []
     for i, pos_caches in enumerate(caches):
@@ -182,8 +182,6 @@ def _held_blocks(model, meshed, caches, cell):
         for layer, (got, layer_specs) in enumerate(zip(pos_caches, specs)):
             for name, t in got.items():
                 whole, spec = list(gathered[layer][name].shape), layer_specs[name]
-                if name in ("k", "v", "xk", "xv") and spec[2] is None:
-                    continue
                 block = shard_slices(meshed.mesh, coords, spec, whole)
                 want = [len(range(*s.indices(n))) for s, n in zip(block, whole)]
                 assert list(t.shape) == want, (i, layer, name, tuple(spec))
@@ -231,15 +229,24 @@ def _jax_bundle_on(cfg, shape):
 def test_whisper_heads_the_model_axis_does_not_divide(shape):
     """Six heads (whisper-tiny's count): at tp = 4 every position computes
     every head of the encoder and both decoder attentions, ``wq``'s 192
-    columns and ``wo``'s rows still sharded; at tp = 2 three heads a
-    position, in its caches too."""
+    columns and ``wo``'s rows still sharded, and its caches hold all six
+    KV heads of its quarter of the sequence (JAX's ``_cache_specs``: the
+    heads do not divide, so the sequence goes over ``model``); at tp = 2
+    three heads a position, the whole sequence.  Each leaf is the block
+    JAX's ``NamedSharding.shard_shape`` gives it."""
     bundle, params, model = jax_pair("whisper-tiny", num_heads=6, num_kv_heads=6)
     want = _jax_run(bundle, params, model, B, S)
     meshed = shard_params(model, _mesh(shape))
     _hold_to_jax(model, meshed, want)
     _, caches = meshed.prefill(*want["args"])
-    heads = 3 if shape[1] == 2 else 6
-    assert {caches[0][0][k].shape[2] for k in ("k", "v", "xk", "xv")} == {heads}
+    cell = ShapeConfig("decode", S, B, "decode")
+    jspecs = _jax_bundle_on(bundle.cfg, shape)._cache_specs(cell)
+    hd = model.cfg.head_dim
+    for key, length in (("k", S), ("v", S), ("xk", ENC), ("xv", ENC)):
+        block = jax_block_shape(shape, jspecs[key], (2, B, length, 6, hd))[1:]
+        assert tuple(caches[0][0][key].shape) == block, key
+    heads, slots = (3, S) if shape[1] == 2 else (6, S // 4)
+    assert caches[0][0]["k"].shape[1:3] == (slots, heads)
     frames, toks = want["args"]
     assert torch.equal(meshed.greedy(frames, toks[:, :4], 4)[0],
                        model.greedy(frames, toks[:, :4], 4)[0])
@@ -247,13 +254,13 @@ def test_whisper_heads_the_model_axis_does_not_divide(shape):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_meshed_caches_are_the_blocks_of_the_cache_specs(arch):
-    """On (2, 2) and (1, 4): ``cache_specs`` equals JAX's ``_cache_specs``
-    (without the layer axis), and every position's Mamba leaves and
-    dividing KV caches are the blocks those specs give it."""
+    """On (2, 2), (1, 4) and (1, 2): ``cache_specs`` equals JAX's
+    ``_cache_specs`` (without the layer axis), and every position's cache
+    leaves are the blocks those specs give it."""
     cfg = smoke_config(arch)
     model = build_model(cfg, device="cpu", dtype=torch.float32)
     cell = ShapeConfig("decode", S, B, "decode")
-    for shape in [(2, 2), (1, 4)]:
+    for shape in [(2, 2), (1, 4), (1, 2)]:
         mesh = _mesh(shape)
         skeleton = build_model(cfg, device="meta", mesh=mesh)
         jspecs = _jax_bundle_on(jax_smoke_config(arch), shape)._cache_specs(cell)
@@ -272,6 +279,10 @@ def test_meshed_caches_are_the_blocks_of_the_cache_specs(arch):
         assert held, shape
         if cfg.family in ("ssm", "hybrid"):
             assert {"state", "conv_x", "conv_b", "conv_c"} <= set(held)
+        if cfg.family != "ssm":
+            assert {"k", "v"} <= set(held)
+        if cfg.is_encdec:
+            assert {"xk", "xv"} <= set(held)
 
 
 def test_the_meshed_ssd_prefill_keeps_the_chunk_check():
