@@ -214,9 +214,17 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    positions, tensor parallel: each position's heads through the flash
    kernel (256 launches: 2 waves x 32 layers x 4 positions, each held to
    the plain version on its own q, k, v), ``wo`` and ``down`` row parallel
-   with psums, the vocabulary split; the float32-compute last prefill
-   logits within ``MESH_F32_TOL`` of one device's, the bf16 ones under
-   phase 7's bf16-vs-float32 error, tokens by the margin rule.  (b) dbrx, 4
+   with reduce-scatters onto the sequence-parallel residual (each position
+   its quarter of the prompt between blocks; the normed slices gathered
+   before the column-parallel products), the vocabulary split; the
+   float32-compute last prefill logits within ``MESH_F32_TOL`` of one
+   device's, the bf16 ones under phase 7's bf16-vs-float32 error, tokens by
+   the margin rule; the 2048 wave's prefill run under the cost counter with
+   every block's input recorded (``residual_check``: each position's
+   residual (4, 512, 4096) as JAX's ``constrain_residual`` lays it out, the
+   collectives by kind, no all-reduce of an activation left), also with SP
+   off, and timed with SP on and off (``sp_compare``: seconds, peak
+   memory, flash launches, one call each traced).  (b) dbrx, 4
    of 40 layers, bf16, on ``(2, 2)``: the batch over ``data``, sequence
    chunks and experts over ``model`` (all-to-alls), the experts' d_ff on
    ``data``; held the same way to a one-device run whose MoE layers run
@@ -239,7 +247,10 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    ``make_train_step(mesh=)`` in bf16 compute (float32 masters, remat
    full) on ``ShardedDataPipeline.shards_at`` with the launch counts zeroed
    just before and read just after (all 0: no flash kernel in training),
-   step ms, tokens/s, peak memory, one step traced.  (b) llama4-scout at
+   step ms, tokens/s, peak memory, one step traced; one step's residual
+   layout and collectives by kind (``residual_check``, SP on and off), and
+   the step with SP on and off (``sp_compare``: step seconds, peak memory,
+   busy share of a traced step).  (b) llama4-scout at
    its published widths, 1 of 48 layers (experts over ``model``, their
    d_ff over ``data``, bf16 moments), 2 x 2048: the float32-compute loss,
    aux loss and router gradient against a one-device run through
@@ -258,7 +269,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    through ``mesh_serve`` (the one-device run first; the tokens by the
    margin rule, the float32-compute logits within ``MAMBA_F32_REL`` of
    their largest magnitude, as the one-device ones are of a float64
-   witness; no kernel), one decode step traced (its kernel launches); then trained on
+   witness; no kernel), a 4 x 256 prefill's residual layout and
+   collectives (``residual_check``), one decode step traced (its kernel
+   launches); then trained on
    (2, 2), 4 x 2048 tokens, through ``mesh_train_family``: a float32 step
    on the mesh and on one device (the loss within ``TRAIN_LOSS_RTOL``, the
    leaves of ``MAMBA_GRAD_LEAVES`` by ``TRAIN_GRAD_REL_L2``), then 3 bf16
@@ -268,7 +281,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    prompt, 32 greedy tokens, bf16 and float32, flash once a position a
    layer of each of its three attentions (48 a prefill), each held to the
    plain version on its own q, k, v, the float32 tokens equal to one
-   device's; trained on 8 x (1500 frames, 448 tokens).  (c) jamba's smoke
+   device's, the bf16 prefill's residual layout (the encoder's 750 frames
+   and the decoder's 2 tokens a position) and collectives; trained on 8 x
+   (1500 frames, 448 tokens).  (c) jamba's smoke
    superblock on (2, 2) and (1, 4) through ``mesh_serve`` (the reference's
    MoE layers run ``moe_blockwise_reference``), trained on (2, 2) (the
    float32 loss, aux and a router's gradient against the blockwise run).
@@ -306,7 +321,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    larger of the last prefill logits' and the first decode step's; each
    position's cache bytes exactly 1/8 of the whole, printed beside the
    former layout's (the whole sequence at 4 repeated heads); decode ms a
-   step, kernels a traced step, peak memory.  (b) The same weights on (2,
+   step, kernels a traced step, peak memory; the prefill's residual
+   layout (256 of the 2048 positions a position) and collectives
+   (``residual_check``).  (b) The same weights on (2,
    4), one row of 8192 tokens: the batch does not divide ``data``, so the
    batch is replicated and the sequence goes over ``data`` and the heads
    over ``model`` (path ``yi6b_seq_data_serve``), held the same way.  (c)
@@ -370,6 +387,7 @@ second-to-last line is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -3062,6 +3080,7 @@ def phase12(dev, launches):
 
 MP_PATHS = ("yi6b_tp_serve", "dbrx_ep_serve")
 YI_TP_MESH, DBRX_EP_MESH = (1, 4), (2, 2)  # ("data", "model") positions of the card
+YI_TP_WAVES = (2048, 1000)  # phase 7's: 4 requests each
 # (c): GPipe over four positions of the card, PIPE_STAGES stages of
 # tanh(h @ W + b) at D = PIPE_D on PIPE_B rows, float32.
 PIPE_STAGES, PIPE_D, PIPE_B = 32, 4096, 64
@@ -3113,6 +3132,126 @@ def recorded_dispatches(seen):
         yield
     finally:
         moe._dispatch = inner
+
+
+@contextlib.contextmanager
+def recorded_residuals(seen):
+    """While open, every meshed block's input residual goes to ``seen`` as
+    ``(stack, [each position's shape])``: ``"decoder"`` for a decoder-only
+    model's blocks, ``"enc"`` / ``"dec"`` for the encoder-decoder's layers."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.encdec import MeshEncDecLM
+
+    inner = model_mod.mesh_block_apply
+    enc, dec = MeshEncDecLM._enc_layer, MeshEncDecLM._dec_layer
+
+    def block(m, l, xs, *a, **kw):
+        seen.append(("decoder", [tuple(x.shape) for x in xs]))
+        return inner(m, l, xs, *a, **kw)
+
+    def enc_layer(self, i, xs, *a):
+        seen.append(("enc", [tuple(x.shape) for x in xs]))
+        return enc(self, i, xs, *a)
+
+    def dec_layer(self, i, xs, *a):
+        seen.append(("dec", [tuple(x.shape) for x in xs]))
+        return dec(self, i, xs, *a)
+
+    model_mod.mesh_block_apply = block
+    MeshEncDecLM._enc_layer, MeshEncDecLM._dec_layer = enc_layer, dec_layer
+    try:
+        yield seen
+    finally:
+        model_mod.mesh_block_apply = inner
+        MeshEncDecLM._enc_layer, MeshEncDecLM._dec_layer = enc, dec
+
+
+def sp_axis(cfg, mesh_shape, s):
+    """JAX's rule for a residual of ``s`` positions (``RunCtx.axes`` and
+    ``constrain_residual``): the sequence on ``model`` where the config
+    sets ``seq_shard_activations``, the ``model`` extent is above 1 and
+    ``s`` (above 1) divides by it, else whole."""
+    tp = mesh_shape.get("model", 1)
+    return "model" if cfg.seq_shard_activations and tp > 1 and s > 1 and s % tp == 0 else None
+
+
+def residual_check(tag, meshed, fn, rows, s, enc=None, want_sp=True):
+    """``fn()`` (one prefill, or one training step, of ``meshed``'s model)
+    under the cost counter with every block's input residual recorded ->
+    the check: each position's residual ``(rows, S / tp, d)`` where
+    ``sp_axis`` shards the sequence (``enc``: the encoder's length), else
+    whole; the collectives by kind (count and operand bytes a position);
+    the largest all-reduce's operand, which under SP is smaller than a
+    ``(rows, S, d)`` activation (no row-parallel psum is left)."""
+    from repro_torch.analysis.op_analysis import analyze_step
+
+    cfg, mesh = meshed.cfg, meshed.mesh
+    seen = []
+    t0 = time.perf_counter()
+    with recorded_residuals(seen):
+        rec = analyze_step(fn, num_partitions=mesh.size, keep_ops=True)
+    count_s = time.perf_counter() - t0
+    axes, shapes_seen = set(), set()
+    for stack, shapes in seen:
+        length = enc if stack == "enc" else s
+        sa = sp_axis(cfg, mesh.shape, length)
+        want = (rows, length // mesh.shape["model"] if sa else length, cfg.d_model)
+        if shapes != [want] * mesh.size:
+            raise AssertionError(f"{tag}: a {stack} block's residual {sorted(set(shapes))}, "
+                                 f"want {want} a position (sequence axis {sa})")
+        axes.add(sa)
+        shapes_seen.add((stack, want))
+    if not seen or (want_sp and "model" not in axes) or (not want_sp and axes != {None}):
+        raise AssertionError(f"{tag}: {len(seen)} blocks, sequence axes {axes}")
+    elem = torch.empty((), dtype=meshed.dtype).element_size()
+    act = rows * s * cfg.d_model * elem
+    largest = max((c for _, _, c, kind, _ in rec["ops"] if kind.startswith("all-reduce")),
+                  default=0.0)
+    if want_sp and largest >= act:
+        raise AssertionError(f"{tag}: an all-reduce of {largest} bytes is left (an activation "
+                             f"is {act})")
+    check = dict(blocks=len(seen), seq_axes=sorted(str(a) for a in axes),
+                 residual_a_position=sorted(f"{st} {list(w)}" for st, w in shapes_seen),
+                 collectives={k: dict(count=v["count"], operand_bytes=v["operand_bytes"])
+                              for k, v in rec["collectives"]["by_type"].items()},
+                 largest_all_reduce_operand=largest, activation_bytes=act, count_s=count_s)
+    log(f"[{tag} residual] {json.dumps(check)}")
+    return check
+
+
+def sp_compare(tag, fns, dev, rounds=3, trace=False):
+    """Each of ``fns`` (label -> a step or a prefill; SP on and off on the
+    same weights and inputs) run ``rounds`` times, alternating (after one
+    warm call each): seconds (median), peak memory over a call (reset just
+    before), flash launches a call; with ``trace`` one call each traced
+    (device busy share, device ms and calls, the top kernels).  -> label
+    -> the record."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    for fn in fns.values():
+        fn()
+    out = {k: dict(seconds=[], peak_mem_bytes=0, flash_launches=[]) for k in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = flash_attention_cuda.launches
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            r = out[label]
+            r["seconds"].append(time.perf_counter() - t0)
+            r["peak_mem_bytes"] = max(r["peak_mem_bytes"], torch.cuda.max_memory_allocated(dev))
+            r["flash_launches"].append(flash_attention_cuda.launches - before)
+    for label, fn in fns.items():
+        r = out[label]
+        r["median_s"] = sorted(r["seconds"])[len(r["seconds"]) // 2]
+        if trace:
+            t = device_breakdown(fn, top=6, host_ops=False)
+            r.update({k: t[k] for k in ("device_busy_share", "device_ms", "device_calls", "top")})
+    log(f"[{tag} sp on/off] {json.dumps(out)}")
+    return out
 
 
 def mesh_serve(tag, make_model, mesh, reqs, dev, launches, bf16_bound=None, f32_rel=None):
@@ -3235,12 +3374,23 @@ def phase13_yi(dev, launches, bf16_bound):
     cfg = get_config("yi-6b")
     rng = np.random.default_rng(0)
     reqs = [Request(rng.integers(0, cfg.vocab_size, n).tolist(), 32)
-            for n in [2048] * 4 + [1000] * 4]
+            for n in [YI_TP_WAVES[0]] * 4 + [YI_TP_WAVES[1]] * 4]
     meshed, rec, check = mesh_serve(
         "yi6b_tp", lambda: build_model(cfg, device=dev, dtype=torch.bfloat16,
                                        generator=torch.Generator(device=dev).manual_seed(0)),
         card_mesh(dev, YI_TP_MESH), reqs, dev, launches, bf16_bound)
-    del meshed
+    # the sequence-parallel residual: its layout and collectives on the
+    # 2048 wave, and the wave's prefill with SP on and off
+    toks = torch.tensor([r.prompt for r in reqs if len(r.prompt) == YI_TP_WAVES[0]], device=dev)
+    off = meshed.with_seq_shard(False)
+    rows = toks.shape[0] // meshed.ctx.n_batch
+    check["residual"] = residual_check("yi6b_tp", meshed, lambda: meshed.prefill(toks), rows,
+                                       toks.shape[1])
+    check["residual_sp_off"] = residual_check("yi6b_tp sp off", off, lambda: off.prefill(toks),
+                                              rows, toks.shape[1], want_sp=False)
+    check["sp_on_off"] = sp_compare("yi6b_tp prefill 4 x 2048", {
+        "on": lambda: meshed.prefill(toks), "off": lambda: off.prefill(toks)}, dev, trace=True)
+    del meshed, off
     torch.cuda.empty_cache()
     return rec, check
 
@@ -3279,7 +3429,7 @@ def phase13_dbrx(dev, launches):
     def recording(m, pre, hs, record=None):
         if pre != "layers.0.moe.":
             return inner_apply(m, pre, hs, record)
-        seen["x"] = m.ctx.gather_batch(hs, dev)
+        seen["x"] = m.ctx.gather_batch(m.ctx.gather_seq(hs), dev)  # the whole wave
         return inner_apply(m, pre, hs, records)
 
     n = len(reqs[0].prompt)
@@ -3539,7 +3689,11 @@ def phase14_qwen(dev, launches):
     opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 2, MESH_TRAIN_STEPS),
                           moment_dtype=cfg.optimizer_moment_dtype)
     step_fn = make_train_step(model, opt_cfg, mesh=mesh)
-    del model
+    model_off = copy.copy(model)  # the same weights, the residual whole
+    model_off.cfg = dataclasses.replace(model.cfg, seq_shard_activations=False)
+    step_off = make_train_step(model_off, opt_cfg, mesh=mesh)
+    meshed_bf16, meshed_off = mesh_model(model, mesh), mesh_model(model_off, mesh)
+    del model, model_off
     state = TrainState.create(shards, opt_cfg)
     del shards
     batches = [pipe.shards_at(i) for i in range(MESH_TRAIN_STEPS)]
@@ -3561,6 +3715,17 @@ def phase14_qwen(dev, launches):
     trace = device_breakdown(lambda: step_fn(state, batches[0]), top=12)
     if any(launches["qwen_mesh_train"].values()):
         raise AssertionError(f"meshed training launched kernels: {launches['qwen_mesh_train']}")
+    # the sequence-parallel residual: its layout and collectives in one
+    # step, then the step with SP on and off (the state not consumed)
+    rows = MESH_TRAIN_BATCH // meshed_bf16.ctx.n_batch
+    residual = residual_check("qwen_mesh_train", meshed_bf16, lambda: step_fn(state, batches[0]),
+                              rows, MESH_TRAIN_SEQ)
+    residual_off = residual_check("qwen_mesh_train sp off", meshed_off,
+                                  lambda: step_off(state, batches[0]), rows, MESH_TRAIN_SEQ,
+                                  want_sp=False)
+    sp_on_off = sp_compare("qwen_mesh_train step 4 x 2048", {
+        "on": lambda: step_fn(state, batches[0]), "off": lambda: step_off(state, batches[0])},
+        dev, trace=True)
     # The first step's loss is step 0's float32 one in bf16 compute.
     if not all(np.isfinite(losses)) or not abs(losses[0] - loss_mesh) <= \
             TRAIN_LOSS_RTOL * abs(loss_mesh):
@@ -3576,14 +3741,15 @@ def phase14_qwen(dev, launches):
                flash_launches=launches["qwen_mesh_train"]["flash_attention"], losses=losses,
                bound_ms=bound_ms, bound_share=bound_ms / step_ms, loss_f32_mesh=loss_mesh,
                loss_f32_one_device=loss_one, grad_rel_l2=rel, f32_mesh_step_s=f32_s,
-               trace=trace)
+               trace=trace, residual=residual, residual_sp_off=residual_off,
+               sp_on_off=sp_on_off)
     log(f"[mesh train] {json.dumps(rec)}")
     log(f"[mesh train] {TRAIN_ARCH} on {mesh.shape}: step {step_ms:.3f} ms (median of steps "
         f"2-{MESH_TRAIN_STEPS}; first {1e3 * step_s[0]:.3f}), {rec['tokens_per_s']:.1f} "
         f"tokens/s, peak {peak / 1e9:.3f} GB, 0 kernel launches, device busy "
         f"{100 * trace['device_busy_share']:.1f}% of a traced step; bound {bound_ms:.3f} ms "
         f"({100 * bound_ms / step_ms:.2f}%)")
-    del state, batches, step_fn
+    del state, batches, step_fn, step_off
     torch.cuda.empty_cache()
     return rec
 
@@ -4052,6 +4218,11 @@ def phase15_mamba(dev, launches):
     if any(launches["mamba2_tp_serve"].values()):
         raise AssertionError(f"mamba2 on the mesh launched {launches['mamba2_tp_serve']}")
     log(f"[mamba2_tp] served, held and freed the one-device model: {time.perf_counter() - t0:.3f} s")
+    n = min([256] + [len(r.prompt) for r in reqs[:4]])
+    toks = torch.tensor([r.prompt[:n] for r in reqs[:4]], device=dev)
+    check["residual"] = residual_check("mamba2_tp", meshed, lambda: meshed.prefill(toks),
+                                       toks.shape[0] // meshed.ctx.n_batch, n)
+    del toks
     check["decode_step_trace"] = decode_trace(meshed, reqs, dev)
     log(f"[mamba2_tp] a decode step traced: {json.dumps(check['decode_step_trace'])}")
     del meshed
@@ -4109,6 +4280,9 @@ def phase15_whisper(dev, launches):
         if not torch.isfinite(logits).all():
             raise AssertionError(f"{tag}: non-finite logits")
         same = torch.equal(toks, one)
+        residual = None if dtype != torch.bfloat16 else residual_check(
+            tag, meshed, lambda: meshed.prefill(frames, prompt),
+            WHISPER_REQUESTS // meshed.ctx.n_batch, WHISPER_PROMPT, enc=WHISPER_FRAMES)
         if dtype == torch.float32 and not same:
             raise AssertionError(f"{tag}: meshed and one-device tokens differ: {toks.tolist()} "
                                  f"vs {one.tolist()}")
@@ -4116,7 +4290,8 @@ def phase15_whisper(dev, launches):
                      layer_abs_err=max(e for e, _ in errs), layer_row_err=max(r for _, r in errs),
                      tokens_equal=same, one_device=dict(one_rec, decode_ms_per_step=1e3 *
                                                         one_rec["decode_s"] /
-                                                        one_rec["decode_steps"]))
+                                                        one_rec["decode_steps"]),
+                     residual=residual)
         rec.update(path=tag, arch=cfg.name, dtype=str(dtype)[6:], mesh=mesh.shape,
                    enc_frames=WHISPER_FRAMES, prompt_len=WHISPER_PROMPT, peak_mem_bytes=peak,
                    flash_launches=launches[tag]["flash_attention"],
@@ -4566,6 +4741,8 @@ def seq_serve(tag, model, mesh, reqs, dev, launches, replicate=False):
             raise AssertionError(f"{tag}: non-finite logits on the mesh")
     prefill_err = (logits - one_logits).abs().max().item()
     step_err = (step - one_step).abs().max().item()
+    residual = residual_check(tag, meshed, lambda: meshed.prefill(toks, cache_len=length),
+                              b // meshed.ctx.n_batch, s)
     agree = margin_rule(outs, one_outs, one_margins, max(prefill_err, step_err), reqs)
 
     spec = caches[0][0].specs["k"]
@@ -4597,7 +4774,7 @@ def seq_serve(tag, model, mesh, reqs, dev, launches, replicate=False):
                  kernels_a_step=trace["device_calls"], step_trace=trace,
                  peak_mem_bytes=rec["peak_mem_bytes"],
                  layer_abs_err=max(e for e, _ in layer_errs),
-                 layer_row_err=max(r for _, r in layer_errs))
+                 layer_row_err=max(r for _, r in layer_errs), residual=residual)
     log(f"[{tag}] {json.dumps(check)}")
     log(f"[{tag}] cache a position {per[0]} bytes of {whole} ({check['share']}; the former "
         f"layout held {old}); decode {rec['decode_ms_per_step']:.3f} ms a step "

@@ -74,6 +74,11 @@ class MRMRResult:
     engine: str = ""
     io: dict | None = None
 
+    @property
+    def objective_trajectory(self) -> torch.Tensor:
+        """Alias of ``gains``: the objective value of each pick."""
+        return self.gains
+
     def to_json(self) -> str:
         """Serialise to a strict-JSON string; non-finite floats are encoded
         as the strings "nan"/"inf"/"-inf"."""

@@ -34,7 +34,12 @@ then attends over slice by slice, the partial softmaxes combined by a
 the other collectives).  A batch that does not divide over the batch axes
 (``long_500k``'s one row) is replicated over them, as JAX's
 ``input_shardings`` leave it, and the caches' sequence is spread over
-those axes too.
+those axes too.  A prefill or train cell of a config with
+``seq_shard_activations`` holds each position's slice of the residual
+between blocks (JAX's ``constrain_residual``): its live bytes and its
+collectives (reduce-scatters and all-gathers where the psums were) are
+JAX's layout's, and its inputs are counted by their ``input_shardings``
+blocks.
 
 Records go to ``results/dryrun_torch/<mesh>/<arch>__<shape>.json``, so the
 two packages' records never overwrite each other, with JAX's keys but:
@@ -102,6 +107,20 @@ def _bytes(tree) -> int:
     return sum(_bytes(x) for x in items)
 
 
+def input_block_bytes(batch: dict, specs: dict, mesh) -> int:
+    """A position's bytes of the inputs ``batch`` laid out by ``specs``
+    (``input_shardings``): each input's block, as JAX counts an argument
+    (the batch over the batch axes, ``embeds`` over ``model`` too where the
+    residual is sequence-sharded)."""
+    total = 0
+    for name, t in batch.items():
+        n = t.numel() * t.element_size()
+        for entry in specs[name]:
+            n //= mesh_extent(mesh, entry)
+        total += n
+    return total
+
+
 def train_state_bytes(model, opt_cfg: AdamWConfig, mesh) -> int:
     """A position's bytes of ``train_state_shapes(model, opt_cfg, mesh)``,
     by arithmetic on the blocks ``param_specs`` lays out (no state built):
@@ -131,8 +150,8 @@ def build_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None):
         opt_cfg = AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
         state = train_state_shapes(model, opt_cfg, mesh)
         batch = model.input_specs(shape)
-        n_batch = mesh_model(model, mesh).ctx.n_batch
-        arg = train_state_bytes(model, opt_cfg, mesh) + _bytes(batch) // n_batch
+        arg = (train_state_bytes(model, opt_cfg, mesh)
+               + input_block_bytes(batch, model.input_shardings(shape), mesh))
         step = make_train_step(model, opt_cfg, mesh=mesh, donate=True)
         return step, (state, batch), arg, "train_step", model
     model = build_model(cfg, device="meta", mesh=mesh)
@@ -147,7 +166,8 @@ def build_cell(arch: str, shape_name: str, mesh, overrides: dict | None = None):
         def prefill(shards, batch):
             return meshed.with_shards(shards).prefill(**batch)
 
-        arg = _bytes(meshed.shards[0]) + _bytes(batch) // n_batch
+        arg = _bytes(meshed.shards[0]) + input_block_bytes(batch, model.input_shardings(shape),
+                                                           mesh)
         return prefill, (meshed.shards, batch), arg, "prefill", model
     pos = shape.seq_len - 1
 

@@ -25,7 +25,9 @@ sinusoidal too, not learned) and use LayerNorm and the GELU MLP.
 and ``mesh_model`` of :mod:`repro_torch.models.model` build it): the
 encoder's and both decoder attentions' heads, the MLP's ``d_ff`` and the
 vocabulary over ``model``, the batch over the batch axes, as
-:class:`~repro_torch.models.model.MeshLM` lays out a decoder-only model.
+:class:`~repro_torch.models.model.MeshLM` lays out a decoder-only model,
+and each stack's residual sequence-sharded over ``model`` where its own
+length divides (the encoder's frames, the decoder's tokens).
 """
 
 from __future__ import annotations
@@ -344,29 +346,35 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
 
     def encode(self, enc_embeds: list, use_kernel="auto", train: bool = False) -> list:
         """Each position's (B / n_batch, S_enc, d) frame embeddings -> its
-        final-normed encoder states (replicated over ``model``)."""
+        final-normed encoder states, whole over ``model``.  The encoder's
+        residual is sequence-sharded where S_enc divides
+        (:meth:`~repro_torch.models.model.MeshLM.at_length`): each position
+        runs the blocks on its slice, and the final normed slices are
+        gathered over ``model`` for the cross-attention's K and V."""
         cfg = self.cfg
-        xs = [x.to(self.dtype) + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                                      device=x.device).to(self.dtype)
-              for x in enc_embeds]
-        layer = remat(self._enc_layer, cfg.remat) if train else self._enc_layer
+        me = self.at_length(enc_embeds[0].shape[1])
+        xs = me.ctx.seq_slices([
+            x.to(self.dtype) + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                                    device=x.device).to(self.dtype)
+            for x in enc_embeds])
+        layer = remat(me._enc_layer, cfg.remat) if train else me._enc_layer
         for i in range(cfg.encoder_layers):
             xs = layer(i, xs, use_kernel, train)
-        return mesh_norm(self, "top.enc_final", xs)
+        return me.ctx.gather_seq(mesh_norm(me, "top.enc_final", xs))
 
     def embed_decoder_tokens(self, tokens: list, pos: int | None = None) -> list:
         """Each position's token rows -> their vocabulary-parallel
         embeddings plus the sinusoidal rows of positions ``0 .. S-1``
-        (``pos`` None) or of the decode cursor ``pos``."""
+        (``pos`` None; each position's slice of them where the residual is
+        sequence-sharded) or of the decode cursor ``pos``."""
         d = self.cfg.d_model
-        out = []
-        for x in self._embed(tokens):
-            if pos is None:
-                rows = sinusoidal_positions(x.shape[1], d, device=x.device)
-            else:
-                rows = sinusoidal_rows(torch.tensor(pos, device=x.device), d)
-            out.append(x + rows.to(x.dtype))
-        return out
+        xs = self._embed(tokens)
+        if pos is None:
+            rows = self.ctx.seq_slices([sinusoidal_positions(t.shape[1], d, device=x.device)
+                                        for t, x in zip(tokens, xs)], 0)
+        else:
+            rows = [sinusoidal_rows(torch.tensor(pos, device=x.device), d) for x in xs]
+        return [x + r.to(x.dtype) for x, r in zip(xs, rows)]
 
     def train_loss_positions(self, parts: list):
         """:meth:`EncDecLM.train_loss` on inputs already split (one dict a
@@ -374,11 +382,12 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
         "aux_loss": 0})."""
         cfg = self.cfg
         enc = self.encode([p["enc_embeds"] for p in parts], train=True)
-        xs = self.embed_decoder_tokens([p["dec_tokens"] for p in parts])
-        layer = remat(self._dec_layer, cfg.remat)
+        md = self.at_length(parts[0]["dec_tokens"].shape[1])
+        xs = md.embed_decoder_tokens([p["dec_tokens"] for p in parts])
+        layer = remat(md._dec_layer, cfg.remat)
         for i in range(cfg.decoder_layers):
             xs = layer(i, xs, enc, None, None, None, True)
-        loss = self._mean_nll(xs, [p["targets"] for p in parts])
+        loss = md._mean_nll(xs, [p["targets"] for p in parts])
         return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss)}
 
     @torch.inference_mode()
@@ -390,10 +399,11 @@ class MeshEncDecLM(GreedyDecoding, MeshLM):
         b, s = dec_tokens.shape
         enc = self.encode(ctx.split_batch(enc_embeds), use_kernel)
         caches = self.new_caches(b, s if cache_len is None else cache_len)
-        xs = self.embed_decoder_tokens(ctx.split_batch(dec_tokens))
+        md = self.at_length(s)
+        xs = md.embed_decoder_tokens(ctx.split_batch(dec_tokens))
         for i in range(self.cfg.decoder_layers):
-            xs = self._dec_layer(i, xs, enc, [c[i] for c in caches], None, use_kernel, False)
-        return self._logits([x[:, -1:] for x in xs])[:, 0], caches
+            xs = md._dec_layer(i, xs, enc, [c[i] for c in caches], None, use_kernel, False)
+        return self._logits(md.ctx.last_rows(xs))[:, 0], caches
 
     @torch.inference_mode()
     def serve_step(self, tokens: torch.Tensor, pos: int, caches: list):

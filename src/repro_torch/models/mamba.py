@@ -231,7 +231,12 @@ def mamba_apply(p, xres: torch.Tensor, *, cfg, cache: dict | None = None,
 def mesh_mamba(m, pre: str, hs: list, caches: list | None, pos: int | None) -> list:
     """The Mamba-2 mixer ``pre`` of the meshed model ``m`` on each
     position's normed input ``hs`` (B / n_batch, S, d), replicated over
-    ``model`` -> each position's output, psummed over ``model``.
+    ``model`` -> each position's output, psummed over ``model``.  Where the
+    residual is sequence-sharded (``ctx.seq``) ``hs`` are the positions'
+    slices, gathered over it before the input projections (the causal conv
+    and the SSD need the whole sequence), and the ``out`` partials are
+    reduce-scattered back onto the slices (each position keeps its slice
+    of a replicated output where ``d_inner`` does not divide).
 
     ``in_z``, ``in_x`` and ``in_dt`` are column parallel, ``conv_x`` and
     ``norm`` hold the position's channels, ``out`` its rows (row parallel,
@@ -261,6 +266,7 @@ def mesh_mamba(m, pre: str, hs: list, caches: list | None, pos: int | None) -> l
     chans = ax is not None and m.spec(pre + "in_x")[1] == ax  # d_inner over model
     heads = ax is not None and m.spec(pre + "in_dt")[1] == ax  # the SSM heads over model
     ws = m.weights(pre[:-1])
+    hs = ctx.gather_seq(hs)  # the conv and the SSD read the whole sequence
     proj = [{s: x @ p["in_" + s].to(x.dtype) for s in ("z", "x", "b", "c", "dt")}
             for x, p in zip(hs, ws)]
     conv, tails = [], []
@@ -308,4 +314,4 @@ def mesh_mamba(m, pre: str, hs: list, caches: list | None, pos: int | None) -> l
     for g, v, (y, _), p in zip(gs, var, outs, ws):
         normed = (g * torch.rsqrt(v + cfg.norm_eps)).to(y.dtype) * p["norm"].to(y.dtype)
         partial.append(normed @ p["out"].to(y.dtype))
-    return ctx.psum(partial, ax) if chans else partial
+    return ctx.reduce_partials(partial, ax) if chans else ctx.seq_slices(partial)

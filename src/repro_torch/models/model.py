@@ -270,18 +270,32 @@ class MeshLM:
     rows.  Attention heads, the MLP's ``d_ff``, Mamba's ``d_inner`` and SSM
     heads (:func:`~repro_torch.models.mamba.mesh_mamba`), the experts and
     the vocabulary go over ``model``; weights sharded over ``data`` (``fsdp``)
-    are gathered over ``data`` at their use.  The residual stream stays
-    replicated over ``model``: the values of JAX's sequence-sharded residual
-    (``constrain_residual``), without its reduce-scatter.
+    are gathered over ``data`` at their use.
+
+    The residual stream between blocks is laid out as JAX's
+    ``constrain_residual`` pins it (Megatron-SP): where the config sets
+    ``seq_shard_activations``, the ``model`` extent tp is above 1 and a
+    call's sequence length S (above 1) divides by it, each position holds
+    its rows' slice ``[j S/tp, (j+1) S/tp)`` of the sequence, ``j`` its
+    ``model`` index (:meth:`RunCtx.at_length`).  The norms and the adds run
+    on the slices; each mixer and MLP gathers the normed slices over
+    ``model`` before its column-parallel products and reduce-scatters its
+    row-parallel partials back onto them; the MoE's expert-parallel blocks
+    are the slices; the vocabulary-parallel embedding's sum is a
+    reduce-scatter; the loss gathers the final normed slices.  Decode
+    steps (S = 1), lengths that do not divide, and configs without the
+    flag keep the residual whole on every position, the row-parallel
+    partials psummed.
 
     ``prefill`` and ``serve_step`` have :class:`DecoderLM`'s signatures and
     return the logits gathered over the mesh onto ``device`` (the first
     position's), so :class:`~repro_torch.serve.engine.ServeEngine` drives a
     meshed model unchanged; the caches it hands back are one list of
-    per-layer caches a position.  The row-parallel sums (``wo``, ``down``,
-    the experts) add the partials in mesh order, not in the one-device
-    product's order: the logits match the one-device model's within float
-    rounding, not bit for bit.
+    per-layer caches a position.  Prefill unembeds only the last position's
+    row, handed over by the ``model`` member whose slice holds it.  The
+    row-parallel sums (``wo``, ``down``, the experts) add the partials in
+    mesh order, not in the one-device product's order: the logits match the
+    one-device model's within float rounding, not bit for bit.
 
     ``train_loss(batch, shards)`` is :meth:`DecoderLM.train_loss` on the
     mesh, differentiable in the per-position weights ``shards``.
@@ -293,7 +307,8 @@ class MeshLM:
                  param_dtype, compute_dtype=None):
         self.cfg, self.mesh, self.kinds = cfg, mesh, kinds
         self.param_dtype, self.compute_dtype = param_dtype, compute_dtype
-        self.ctx = RunCtx(mesh)
+        self.ctx = RunCtx(mesh, act_seq=rules_for(
+            mesh, seq_shard=cfg.seq_shard_activations).act_seq)
         self.device = self.ctx.devices[0]
         self.specs, self.shapes, self.shards = specs, shapes, shards
         self._children: dict = {}  # prefix -> the weight names under it
@@ -332,7 +347,25 @@ class MeshLM:
         positions along those axes compute the same rows; weights sharded
         over them are still gathered at their use."""
         out = copy.copy(self)
-        out.ctx = RunCtx(self.mesh, batch_axes=(), gather_axes=self.ctx.batch_axes)
+        out.ctx = RunCtx(self.mesh, batch_axes=(), gather_axes=self.ctx.batch_axes,
+                         act_seq=self.ctx.act_seq)
+        return out
+
+    def with_seq_shard(self, on: bool) -> "MeshLM":
+        """This model, its weights shared, with the config's
+        ``seq_shard_activations`` set to ``on``."""
+        out = copy.copy(self)
+        out.cfg = dataclasses.replace(self.cfg, seq_shard_activations=on)
+        out.ctx = copy.copy(self.ctx)
+        out.ctx.act_seq = rules_for(self.mesh, seq_shard=on).act_seq
+        return out
+
+    def at_length(self, s: int) -> "MeshLM":
+        """This model for a call whose residual has ``s`` positions: its
+        context's ``seq`` (:meth:`RunCtx.at_length`) says whether each
+        position holds a sequence slice."""
+        out = copy.copy(self)
+        out.ctx = self.ctx.at_length(s)
         return out
 
     def local(self, name: str) -> list:
@@ -425,27 +458,30 @@ class MeshLM:
     def _embed(self, tokens: list) -> list:
         """The vocabulary-parallel lookup: each position looks up the rows
         of its vocabulary shard (zeros for another shard's tokens), then a
-        psum over ``model`` (exact: one nonzero term)."""
+        psum over ``model`` (exact: one nonzero term), a reduce-scatter onto
+        the sequence slices where the residual is sequence-sharded."""
         ctx = self.ctx
         tables = self.weight("top.embed")
         if not is_sharded(self.spec("top.embed"), 0, ctx.model_axis):
-            return [tab[t].to(self.dtype) for tab, t in zip(tables, tokens)]
+            return [tab[t].to(self.dtype) for tab, t in zip(tables, ctx.seq_slices(tokens))]
         out = []
         for tab, t, j in zip(tables, tokens, ctx.model_index):
             loc = t - j * tab.shape[0]
             hit = (loc >= 0) & (loc < tab.shape[0])
             rows = tab[loc.clamp(0, tab.shape[0] - 1)].to(self.dtype)
             out.append(torch.where(hit[..., None], rows, 0))
-        return ctx.psum(out, ctx.model_axis)
+        return ctx.reduce_partials(out, ctx.model_axis)
 
     def _vocab_logits(self, xs: list) -> tuple[list, bool]:
         """Final norm and the vocabulary-column-parallel unembedding (the
         embedding table transposed when tied) -> (each position's logits
         (B / n_batch, S, V or V / tp), whether they are its vocabulary
-        shard)."""
+        shard).  Sequence slices are gathered over ``model`` after the norm
+        (the gather JAX's vocabulary-sharded logits imply)."""
         cfg, ctx = self.cfg, self.ctx
         norms = self.weights(self.final_norm)
-        hs = [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for p, x in zip(norms, xs)]
+        hs = ctx.gather_seq([norm_apply(p, x, cfg.norm_type, cfg.norm_eps)
+                             for p, x in zip(norms, xs)])
         if cfg.tie_embeddings:
             name, dim = "top.embed", 0
             out = [h @ w.to(h.dtype).T for h, w in zip(hs, self.weight(name))]
@@ -471,18 +507,23 @@ class MeshLM:
         return xs
 
     def split_inputs(self, batch) -> list:
-        """Each position's rows of a batch on its device: ``batch`` is the
-        global batch (a dict of (B, ...) tensors, split over the batch
-        axes) or one dict a batch shard in order, as
-        ``ShardedDataPipeline.shards_at`` gives them."""
+        """Each position's block of a batch on its device, as
+        ``input_shardings`` lays it out: its rows (``batch`` is the global
+        batch, a dict of (B, ...) tensors split over the batch axes, or one
+        dict a batch shard in order, as ``ShardedDataPipeline.shards_at``
+        gives them), and of ``embeds`` its sequence slice where the residual
+        is sequence-sharded; ``positions`` and ``targets`` stay whole."""
         ctx = self.ctx
         if isinstance(batch, dict):
             cols = {k: ctx.split_batch(v) for k, v in batch.items()}
-            return [{k: v[i] for k, v in cols.items()} for i in range(ctx.n)]
-        if len(batch) != ctx.n_batch:
-            raise ValueError(f"{len(batch)} batch shards for {ctx.n_batch} batch positions")
-        return [{k: v.to(dev) for k, v in batch[j].items()}
-                for j, dev in zip(ctx.batch_index, ctx.devices)]
+        else:
+            if len(batch) != ctx.n_batch:
+                raise ValueError(f"{len(batch)} batch shards for {ctx.n_batch} batch positions")
+            cols = {k: [batch[j][k].to(dev) for j, dev in zip(ctx.batch_index, ctx.devices)]
+                    for k in batch[0]}
+        if "embeds" in cols:
+            cols["embeds"] = ctx.at_length(cols["embeds"][0].shape[1]).seq_slices(cols["embeds"])
+        return [{k: v[i] for k, v in cols.items()} for i in range(ctx.n)]
 
     def train_loss(self, batch, shards: list | None = None):
         """:meth:`DecoderLM.train_loss` on the mesh -> (loss + AUX_COEF *
@@ -504,24 +545,25 @@ class MeshLM:
 
     def train_loss_positions(self, parts: list):
         """:meth:`train_loss` of inputs already split: one dict a position,
-        as :meth:`split_inputs` gives them."""
+        as :meth:`split_inputs` gives them (``embeds`` a sequence slice
+        where the residual is sequence-sharded)."""
         cfg = self.cfg
         targets = [p["targets"] for p in parts]
         b, s = targets[0].shape
+        m = self.at_length(s)
         if "embeds" in parts[0]:
             xs = [p["embeds"].to(self.dtype) for p in parts]
         else:
-            xs = self._embed([p["tokens"] for p in parts])
+            xs = m._embed([p["tokens"] for p in parts])
         positions = [p["positions"] if "positions" in p
                      else torch.arange(s, device=x.device).expand(b, s) for p, x in zip(parts, xs)]
         ropes = [rope_cos_sin(p, cfg.head_dim, theta=cfg.rope_theta, sections=cfg.mrope_sections)
                  for p in positions]
         aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
         for l, (kind, ffn) in enumerate(self.kinds):
-            xs, aux_l = remat(mesh_block_apply, cfg.remat)(self, l, xs, kind, ffn, ropes, None,
-                                                           None)
+            xs, aux_l = remat(mesh_block_apply, cfg.remat)(m, l, xs, kind, ffn, ropes, None, None)
             aux = [a + b for a, b in zip(aux, aux_l)]
-        loss = self._mean_nll(xs, targets)
+        loss = m._mean_nll(xs, targets)
         aux = aux[0].to(self.device)
         return loss + AUX_COEF * aux, {"loss": loss, "aux_loss": aux}
 
@@ -555,13 +597,14 @@ class MeshLM:
         ctx = self.ctx
         x = tokens if embeds is None else embeds
         b, s = x.shape[:2]
+        m = self.at_length(s)
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        xs = (self._embed(ctx.split_batch(tokens)) if embeds is None
-              else [e.to(self.dtype) for e in ctx.split_batch(embeds)])
+        xs = (m._embed(ctx.split_batch(tokens)) if embeds is None
+              else [e.to(self.dtype) for e in m.ctx.seq_slices(ctx.split_batch(embeds))])
         caches = self.new_caches(b, s if cache_len is None else cache_len)
-        xs = self._run(xs, ctx.split_batch(positions), caches, None, use_kernel)
-        return self._logits([x[:, -1:] for x in xs])[:, 0], caches
+        xs = m._run(xs, ctx.split_batch(positions), caches, None, use_kernel)
+        return self._logits(m.ctx.last_rows(xs))[:, 0], caches
 
     @torch.inference_mode()
     def serve_step(self, tokens: torch.Tensor, pos: int, caches: list):

@@ -22,7 +22,9 @@ all-to-all moves the ``(E, C, d)`` dispatch to the experts' owners as
 ``(E/ep, ep*C, d)``, the f-sliced SwiGLU runs where the experts' ``d_ff``
 shards lie on ``data`` (the tokens gathered over ``data``, the partial
 outputs psum-scattered back), and a second all-to-all brings the outputs
-home.  Decode, and a sequence ``ep`` does not divide, keep ``moe_einsum``'s
+home.  Under the sequence-parallel residual the position's slice is its
+chunk already: it is taken as it is and its output stays on the slice.
+Decode, and a sequence ``ep`` does not divide, keep ``moe_einsum``'s
 semantics over the whole batch: one routing and dispatch, each position
 running the experts (and ``d_ff`` slice) it stores, the partials summed in
 mesh order.  :func:`moe_blockwise_reference` is those semantics on one
@@ -168,26 +170,30 @@ def moe_dense_reference(p, x: torch.Tensor, *, cfg) -> torch.Tensor:
 
 def moe_apply(m, pre: str, hs: list, record: list | None = None):
     """The MoE layer ``pre`` of the meshed model ``m`` on each position's
-    normed activations ``hs`` (B/n_batch, S, d), replicated over ``model``
-    -> (outputs, load-balance losses), one a position.  ``record``, where
+    normed activations ``hs`` (B/n_batch, S, d), replicated over ``model``,
+    or each position's sequence slice (B/n_batch, S/tp, d) where the
+    residual is sequence-sharded (``ctx.seq``) -> (outputs in the layout of
+    ``hs``, load-balance losses), one a position.  ``record``, where
     given, receives one dict a position of the expert-parallel path:
     its block's ``buf_tok``, ``tokens``, ``capacity`` and ``dropped`` slots."""
     ctx, s = m.ctx, hs[0].shape[1]
-    if ctx.model_axis is None or s == 1 or s % ctx.tp:
+    if ctx.seq is None and (ctx.model_axis is None or s == 1 or s % ctx.tp):
         return _moe_whole_batch(m, pre, hs)
     return _moe_expert_parallel(m, pre, hs, record)
 
 
 def _moe_expert_parallel(m, pre: str, hs: list, record):
     cfg, ctx = m.cfg, m.ctx
+    sliced = ctx.seq is not None  # the residual's slices are the blocks already
     ax, ep, e = ctx.model_axis, ctx.tp, cfg.num_experts
     if m.spec(pre + "gate")[0] != ax or e % ep:
         raise ValueError(f"{e} experts do not shard over the {ep}-way model axis")
     mesh = ctx.mesh
     ff_axis = ("data" if cfg.fsdp and "data" in mesh.shape
                and cfg.d_ff % mesh.shape["data"] == 0 else None)
-    sl = hs[0].shape[1] // ep
-    xb = [x[:, j * sl:(j + 1) * sl] for x, j in zip(hs, ctx.model_index)]
+    # each position's block: its sequence chunk (JAX's in_specs P(batch, model))
+    sl = hs[0].shape[1] if sliced else hs[0].shape[1] // ep
+    xb = hs if sliced else [x[:, j * sl:(j + 1) * sl] for x, j in zip(hs, ctx.model_index)]
     router = m.weight(pre + "router")
     disp = [_dispatch(x.reshape(-1, cfg.d_model), {"router": r}, cfg) for x, r in zip(xb, router)]
     xe = [d[2] for d in disp]
@@ -220,7 +226,7 @@ def _moe_expert_parallel(m, pre: str, hs: list, record):
     reduce_axes = ctx.batch_axes + ((ax,) if ep > 1 else ())
     n_red = mesh_extent(mesh, reduce_axes)
     aux = [a / n_red for a in ctx.psum(aux, reduce_axes)] if reduce_axes else aux
-    return ctx.all_gather(ys, ax, 1), aux
+    return (ys if sliced else ctx.all_gather(ys, ax, 1)), aux
 
 
 def _moe_whole_batch(m, pre: str, hs: list):

@@ -33,6 +33,7 @@ under autograd and :func:`remat` as a one-device layer does.
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
@@ -147,15 +148,25 @@ class RunCtx:
     positions that differ only along its axes), in mesh order, on the
     group's first device, and hands every member its result with ``.to``:
     positions that repeat a device share one tensor.
+
+    ``act_seq`` is the sharding rules' ``act_seq``: the axis the residual
+    stream may be sequence-sharded over (Megatron-SP, the config's
+    ``seq_shard_activations``), None when it may not.  A call fixes its
+    length with :meth:`at_length`, whose ``seq`` is the axis its residual
+    is sharded over (JAX's ``constrain_residual``), None where it stays
+    whole; the meshed modules read ``seq``.
     """
 
-    def __init__(self, mesh, batch_axes=("pod", "data"), model_axis="model", gather_axes=None):
+    def __init__(self, mesh, batch_axes=("pod", "data"), model_axis="model", gather_axes=None,
+                 act_seq=None):
         self.mesh = mesh
         self.batch_axes = tuple(a for a in batch_axes if a in mesh.shape)
         # the axes weights sharded over ``data`` (fsdp) are gathered over at
         # their use: the batch axes, unless the batch is replicated over them
         self.gather_axes = self.batch_axes if gather_axes is None else tuple(gather_axes)
         self.model_axis = model_axis if model_axis in mesh.shape else None
+        self.act_seq = act_seq if act_seq in mesh.shape else None
+        self.seq = None
         self.n_batch = mesh_extent(mesh, self.batch_axes)
         self.tp = mesh_extent(mesh, self.model_axis)
         self.shape = mesh.devices.shape
@@ -164,6 +175,65 @@ class RunCtx:
         self.coords = [dict(zip(mesh.axis_names, c)) for c in np.ndindex(self.shape)]
         self.batch_index = [flat_axis_index(c, self.batch_axes, mesh) for c in self.coords]
         self.model_index = [flat_axis_index(c, self.model_axis, mesh) for c in self.coords]
+
+    # -- the sequence-parallel residual (Megatron-SP) ---------------------------
+
+    def axes(self) -> tuple:
+        """JAX's ``RunCtx.axes()``: (the batch axes, the axis the config
+        lets the residual's sequence go over, or None)."""
+        return self.batch_axes, self.act_seq
+
+    def residual_axis(self, s: int):
+        """The axis a residual of ``s`` positions is sequence-sharded over,
+        as JAX's ``constrain_residual`` pins it: ``act_seq`` where ``s > 1``
+        and ``s`` divides by its extent (> 1), else None (the whole
+        sequence on every position)."""
+        _, sa = self.axes()
+        if sa is None or s == 1 or s % mesh_extent(self.mesh, sa):
+            return None
+        return sa if mesh_extent(self.mesh, sa) > 1 else None
+
+    def at_length(self, s: int) -> "RunCtx":
+        """This context for a call whose residual has ``s`` positions: its
+        ``seq`` is :meth:`residual_axis` of ``s``."""
+        out = copy.copy(self)
+        out.seq = self.residual_axis(s)
+        return out
+
+    def seq_slices(self, vals: list, dim: int = 1) -> list:
+        """Each position's slice of ``dim`` of a value replicated over
+        ``seq`` (no collective): member ``j`` of the axis keeps chunk
+        ``j``.  ``vals`` itself where the residual is whole."""
+        if self.seq is None:
+            return vals
+        ext = mesh_extent(self.mesh, self.seq)
+        out = []
+        for c, x in zip(self.coords, vals):
+            n = x.shape[dim] // ext
+            out.append(x.narrow(dim, flat_axis_index(c, self.seq, self.mesh) * n, n))
+        return out
+
+    def gather_seq(self, vals: list) -> list:
+        """The residual's slices gathered over ``seq`` on dim 1 (the whole
+        sequence a position), before a column-parallel product reads it."""
+        return vals if self.seq is None else self.all_gather(vals, self.seq, 1)
+
+    def reduce_partials(self, vals: list, axes) -> list:
+        """Row-parallel partial sums over ``axes`` onto the residual's
+        layout: a reduce-scatter on dim 1 where the residual is
+        sequence-sharded (``axes`` is then ``seq``), else a psum."""
+        if self.seq is not None:
+            return self.psum_scatter(vals, self.seq, 1)
+        return self.psum(vals, axes)
+
+    def last_rows(self, vals: list) -> list:
+        """Every position's copy of the residual's last row (B, 1, d): the
+        member holding it hands it over (the last of each group's gathered
+        last rows) where the sequence is sharded."""
+        rows = [x[:, -1:] for x in vals]
+        if self.seq is None:
+            return rows
+        return [x[:, -1:] for x in self.all_gather(rows, self.seq, 1)]
 
     def group(self, i: int, axes) -> list:
         """The positions through ``i`` along ``axes``, in mesh order."""
@@ -356,7 +426,13 @@ def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel
               train: bool | None = None) -> list:
     """Attention on the mesh (``attn_block`` of the JAX package under its
     sharding rules) -> each position's share of the output projection,
-    psummed over ``model``.
+    psummed over ``model`` onto the residual's layout.
+
+    Where the residual is sequence-sharded (``ctx.seq``) the normed slices
+    ``hs`` are gathered over it first, so the projections, K and V, the
+    cache writes and the attention see the whole sequence, and the
+    row-parallel partials are reduce-scattered back onto the slices (a
+    position whose ``wo`` is whole keeps its slice of its output).
 
     Where the query heads divide by the model extent (``H % tp == 0``,
     ``tp > 1``) each position computes its ``H / tp`` heads: its columns of
@@ -403,6 +479,7 @@ def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel
             out = ctx.all_gather(out, ax, -1)
         return out
 
+    hs = ctx.gather_seq(hs)
     bsz, s = hs[0].shape[:2]
     q = [t.view(bsz, s, hq, hd) for t in project("wq", "bq", hs)]
     k = v = [None] * ctx.n  # a cross-attention decode step reads its K and V from the cache
@@ -452,28 +529,33 @@ def mesh_attn(m, pre: str, hs: list, ropes: list | None, caches, pos, use_kernel
         width = h * hd // tp
         outs = [o[..., j * width:(j + 1) * width] for o, j in zip(outs, ctx.model_index)]
     partial = [o @ w.to(o.dtype) for o, w in zip(outs, m.weight(pre + "wo"))]
-    return ctx.psum(partial, ax) if row else partial
+    return ctx.reduce_partials(partial, ax) if row else ctx.seq_slices(partial)
 
 
 def mesh_mlp(m, pre: str, hs: list) -> list:
     """The MLP: its first products (``gate`` and ``up``, or ``in`` and its
     bias) column parallel on ``ff``, the last (``down`` or ``out``) row
     parallel, its partials psummed over ``model``, then the output bias
-    (all replicated where ``d_ff`` does not divide)."""
+    (all replicated where ``d_ff`` does not divide).  Where the residual is
+    sequence-sharded the normed slices are gathered over ``seq`` before the
+    column-parallel products and the partials reduce-scattered onto the
+    slices; a replicated MLP runs on each position's slice."""
     cfg, ctx = m.cfg, m.ctx
+    last = "down" if cfg.mlp_gated else "out"
+    row = is_sharded(m.spec(pre + last), 0, ctx.model_axis)
+    if row:
+        hs = ctx.gather_seq(hs)
     if cfg.mlp_gated:
         gate, up, down = (m.weight(pre + n) for n in ("gate", "up", "down"))
         partial = [linear(F.silu(linear(x, g)) * linear(x, u), d)
                    for x, g, u, d in zip(hs, gate, up, down)]
-        last = "down"
     else:
         w_in, b_in, w_out = (m.weight(pre + n) for n in ("in", "b_in", "out"))
         # jax.nn.gelu defaults to the tanh approximation.
         partial = [linear(F.gelu(linear(x, wi, bi), approximate="tanh"), wo)
                    for x, wi, bi, wo in zip(hs, w_in, b_in, w_out)]
-        last = "out"
-    if is_sharded(m.spec(pre + last), 0, ctx.model_axis):
-        partial = ctx.psum(partial, ctx.model_axis)
+    if row:
+        partial = ctx.reduce_partials(partial, ctx.model_axis)
     if cfg.mlp_gated:
         return partial
     return [y + b.to(y.dtype) for y, b in zip(partial, m.weight(pre + "b_out"))]
@@ -481,7 +563,7 @@ def mesh_mlp(m, pre: str, hs: list) -> list:
 
 def mesh_norm(m, name: str, xs: list) -> list:
     """The norm ``name`` (a weight prefix) of a meshed model on each
-    position's residual."""
+    position's residual (its sequence slice under SP)."""
     cfg = m.cfg
     return [norm_apply(p, x, cfg.norm_type, cfg.norm_eps) for x, p in zip(xs, m.weights(name))]
 
@@ -489,7 +571,9 @@ def mesh_norm(m, name: str, xs: list) -> list:
 def mesh_block_apply(m, l: int, xs: list, kind: str, ffn_kind: str, ropes: list, caches: list,
                      pos: int | None, use_kernel="auto") -> list:
     """Layer ``l`` of a meshed model on the per-position residual ``xs``,
-    replicated over ``model``: the mixer of ``kind`` (``attn``:
+    replicated over ``model``, or each position's sequence slice where
+    ``ctx.seq`` shards it (the norms and the adds on the slices): the
+    mixer of ``kind`` (``attn``:
     :func:`mesh_attn`, ``ssm``: :func:`~repro_torch.models.mamba.mesh_mamba`),
     then the FFN of ``ffn_kind`` -> (the new residual, each position's MoE
     load-balance loss, averaged over the expert-parallel blocks; float32

@@ -220,6 +220,18 @@ class TestEngines:
                                    rtol=RTOL, atol=ATOL)
         assert (t.engine, t.criterion) == (j.engine, j.criterion)
 
+    def test_objective_trajectory_is_jaxs(self, corral):
+        """``objective_trajectory`` aliases ``gains``, as JAX's property does."""
+        X, y = corral
+        rows = np.ascontiguousarray(X.T)
+        t = tmrmr.mrmr_reference(torch.from_numpy(rows), torch.from_numpy(y), 4,
+                                 tscores.MIScore(2, 2), criterion="mid")
+        j = jmrmr.mrmr_reference(jnp.asarray(rows), jnp.asarray(y), 4, jscores.MIScore(2, 2),
+                                 criterion="mid")
+        assert t.objective_trajectory is t.gains
+        np.testing.assert_allclose(t.objective_trajectory.numpy(),
+                                   np.asarray(j.objective_trajectory), rtol=RTOL, atol=ATOL)
+
     def test_incremental_equals_recompute(self, corral):
         X, y = corral
         a = tmrmr.mrmr_conventional(torch.from_numpy(X), torch.from_numpy(y), 6,

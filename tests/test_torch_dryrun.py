@@ -6,6 +6,7 @@ config's steps against XLA's compiled ones, the ``meta`` run against the
 CPU run op for op, the collectives of a meshed step against a count
 derived from the model, the command line and the op ranking."""
 
+import dataclasses
 import inspect
 import json
 import math
@@ -348,9 +349,44 @@ def _expected_collectives(meshed, rows, train: bool) -> dict:
     return {"all-reduce": (count, nbytes)}
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
-def test_collectives_of_a_meshed_step_equal_the_models_count(shape):
-    cfg = smoke_config(DENSE)
+def _expected_sp_collectives(meshed, rows, train: bool) -> dict:
+    """kind -> (count, operand bytes a position) with the sequence-parallel
+    residual: the embedding's reduce-scatter onto the sequence slices, each
+    layer's two all-gathers of a normed slice (attention, MLP: a slice's
+    bytes each) and two reduce-scatters of the row-parallel partials (the
+    whole activation's), then the last position's row and the logits'
+    vocabulary shards gathered over ``model`` (serving), or the final
+    normed slices gathered before the vocabulary-parallel loss's max and
+    two sums and the batch shards' mean (training), every all-gather's
+    backward a reduce-scatter of the whole, every reduce-scatter's an
+    all-gather of a slice, the sums' backward and each replicated leaf's
+    gradient psum.  No all-reduce of a (rows, S, d) activation is left."""
+    cfg, ctx = meshed.cfg, meshed.ctx
+    d, v, L, tp = cfg.d_model, cfg.vocab_size, cfg.num_layers, ctx.tp
+    act = rows * S * d * 4  # a (rows, S, d) float32 activation
+    if not train:
+        return {"reduce-scatter": (1 + 2 * L, (1 + 2 * L) * act),
+                "all-gather": (2 * L + 2, 2 * L * act // tp + rows * d * 4 + rows * v * 4 // tp)}
+    tok = rows * S * 4  # a (rows, S) float32 reduction over the vocabulary
+    pairs = 2 * (1 + 2 * L)  # the forward's gathers and reduce-scatters and their backward's
+    count, nbytes = 5, 5 * tok  # max, two sums and their backward
+    if ctx.n_batch > 1:  # the mean over the batch shards and its backward
+        count, nbytes = count + 2, nbytes + 2 * 4
+    for name in meshed.specs:  # the gradient psum of every replicated block
+        if any(ctx.mesh.shape[a] > 1 for a in meshed.replica_axes(name)):
+            count += 1
+            nbytes += meshed.local(name)[0].numel() * 4
+    return {"all-gather": (pairs, pairs * act // tp), "reduce-scatter": (pairs, pairs * act),
+            "all-reduce": (count, nbytes)}
+
+
+@pytest.mark.parametrize("shape,sp", [((1, 2), False), ((2, 2), False), ((1, 2), True),
+                                      ((2, 2), True)],
+                         ids=["shape0", "shape1", "shape0-sp", "shape1-sp"])
+def test_collectives_of_a_meshed_step_equal_the_models_count(shape, sp):
+    """The smoke config (its residual whole), and with
+    ``seq_shard_activations`` (Megatron-SP: each position's sequence slice)."""
+    cfg = dataclasses.replace(smoke_config(DENSE), seq_shard_activations=sp)
     n = shape[0] * shape[1]
     mesh = make_mesh(shape, ("data", "model"), devices=["cpu"] * n)
     model = build_model(cfg, device="cpu", dtype=torch.float32, mesh=mesh)
@@ -366,8 +402,9 @@ def test_collectives_of_a_meshed_step_equal_the_models_count(shape):
                          keep_ops=True)
     meshed_state = mesh_model(model, mesh)
     meshed_state.shards = state.params
-    for rec, want in ((prefill, _expected_collectives(meshed, rows, False)),
-                      (train, _expected_collectives(meshed_state, rows, True))):
+    expected = _expected_sp_collectives if sp else _expected_collectives
+    for rec, want in ((prefill, expected(meshed, rows, False)),
+                      (train, expected(meshed_state, rows, True))):
         by = rec["collectives"]["by_type"]
         assert {k: (v["count"], v["operand_bytes"]) for k, v in by.items()} == want
         # each op's ring wire bytes are JAX's CollectiveOp's
