@@ -309,7 +309,10 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    command line (``repro_torch.launch.dryrun.main``, in this process) for
    one production cell (qwen1.5-0.5b
    ``decode_32k`` at 2 of its 24 layers, (16, 16) ``meta`` positions): its
-   seconds and roofline line.
+   seconds and roofline line; the same cell at 4 layers counted
+   trip-aware (at 2 and 3 layers, extended to 4) and in full, every field
+   equal (floats within ``1e-9``); and its trip-aware count at the full
+   24 layers, its seconds beside the 2-layer count's.
 17. The meshed caches in JAX's ``_cache_specs`` layout: (a) Yi-6B
    whole in bf16 on (1, 8) positions of the card, where its 4 KV heads do
    not divide and each position holds all 4 heads of its eighth of the
@@ -4459,6 +4462,7 @@ DRYRUN_PEAK_BAND = (0.90, 1.10)
 DRYRUN_CELL = ("--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--mesh", "single",
                "--set", "num_layers=2")
 DRYRUN_HAND_BOUND_MS = 68.149  # PERF.md's hand-worked bound of phase 12's step
+DRYRUN_HOLD_LAYERS = 4  # (c): the trip-aware count held to the full count at this depth
 
 
 def first_difference(card_ops, meta_ops):
@@ -4664,9 +4668,44 @@ def phase16_cli(smi):
     line = printed.getvalue().strip().splitlines()[-1]
     log(f"[dryrun] (c) {' '.join(DRYRUN_CELL)}: {seconds:.3f} s (trace {rec['trace_s']} s; the "
         f"host's CPU, beside {smi}): {line}")
+    # the trip-aware count against the full count, then at the full depth
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, cell_shape, mesh = get_config(arch), get_shape(shape), make_production_mesh()
+    at4 = dataclasses.replace(cfg, num_layers=DRYRUN_HOLD_LAYERS)
+    scaled4, counts4, _, _ = dryrun.count_cell(at4, cell_shape, mesh)
+    full4, whole4, _, _ = dryrun.count_cell(at4, cell_shape, mesh, full=True)
+    hold = {k: v for k, v in scaled4.items() if k not in ("phase_peaks", "phases")}
+    diff = dryrun.compare_records(hold, {k: v for k, v in full4.items()
+                                         if k not in ("phase_peaks", "phases")})
+    if diff:
+        raise AssertionError(f"{arch} {shape} at {DRYRUN_HOLD_LAYERS} layers: the scaled count "
+                             f"differs from the full count in {diff}")
+    t0 = time.perf_counter()
+    deep, counts, _, _ = dryrun.count_cell(cfg, cell_shape, mesh)
+    deep_s = time.perf_counter() - t0
+    depths = [c["num_layers"] for c in counts]
+    if depths != [2, 3] or not deep["flops"] > rec["cost"]["flops"]:
+        raise AssertionError(f"the {cfg.num_layers}-layer count ran at {depths} layers: {deep}")
+    trace24 = sum(c["trace_s"] for c in counts)
+    log(f"[dryrun] (c) {arch} {shape} at {DRYRUN_HOLD_LAYERS} layers: scaled "
+        f"({[c['num_layers'] for c in counts4]}, {sum(c['trace_s'] for c in counts4):.2f} s) "
+        f"equal to the full count ({whole4[0]['trace_s']} s) in every field: "
+        f"{scaled4['flops']:.6e} flops, {scaled4['bytes']:.6e} bytes, "
+        f"{scaled4['collectives']['operand_bytes']:.6e} collective bytes, peak "
+        f"{scaled4['memory']['total_hbm_bytes']} bytes a position. At its full "
+        f"{cfg.num_layers} layers: trace {trace24:.2f} s ({deep_s:.3f} s in all; 2 layers in "
+        f"full: trace {rec['trace_s']} s), peak {deep['memory']['total_hbm_bytes']} bytes a "
+        f"position (the host's CPU, beside {smi})")
     return dict(seconds=seconds, trace_s=rec["trace_s"], roofline=rec["roofline"],
                 memory=rec["memory"], collectives=rec["collectives"], cost=rec["cost"],
-                summary=line)
+                summary=line, hold_layers=DRYRUN_HOLD_LAYERS,
+                hold_scaled_trace_s=sum(c["trace_s"] for c in counts4),
+                hold_full_trace_s=whole4[0]["trace_s"], hold_equal=True,
+                full_depth_trace_s=trace24, full_depth_seconds=deep_s,
+                full_depth_memory=deep["memory"], full_depth_flops=deep["flops"],
+                full_depth_bytes=deep["bytes"])
 
 
 def phase16(dev, launches, smi):

@@ -43,6 +43,15 @@ alias`` as in the JAX records.  On ``meta`` tensors the peak covers every
 position at once, as one card's allocator does for a mesh of ``cuda:0``
 positions.
 
+The counter also keeps each phase's totals and peak (a phase is a run of
+forward ops or of backward ops: a train step's forward, backward and
+update, once a microbatch), which the dry run's trip-aware count extends
+phase by phase.  On ``meta`` tensors it runs each op's Python meta
+implementation once a signature (the op, its tensors' dtypes, shapes,
+strides and offsets, its other arguments) and makes a later call's output
+afresh from the first's shapes: a meshed step repeats every op once a
+position.  An op whose output is not a fresh tensor runs every time.
+
 The port counts every tensor at its true dtype, so the JAX package's
 ``bf16_model`` width correction (the CPU backend's float normalisation) and
 its ``cost_raw_f32`` record have no counterpart here.
@@ -254,6 +263,86 @@ def _flat(args, kwargs) -> list:
     return out
 
 
+_SCALARS = (int, float, bool, str, type(None), torch.dtype, torch.device, torch.memory_format,
+            torch.layout)
+
+
+class _Uncached(Exception):
+    pass
+
+
+def _signature(a):
+    """What a ``meta`` op's output can depend on: a tensor's shape, strides,
+    offset and dtype, any other argument's type and value."""
+    if isinstance(a, torch.Tensor):
+        if not a.is_meta:
+            raise _Uncached
+        return (a.dtype, a.shape, a.stride(), a.storage_offset())
+    if isinstance(a, (list, tuple)):
+        return tuple([_signature(x) for x in a])
+    if isinstance(a, _SCALARS) and a == a:  # a NaN matches no key
+        return (type(a), a)
+    raise _Uncached
+
+
+def _fresh(spec):
+    """A new ``meta`` tensor (or a tuple or list of them) of ``spec``."""
+    if spec is None:
+        return None
+    if spec[0] in ("tuple", "list"):
+        items = [_fresh(x) for x in spec[1]]
+        return tuple(items) if spec[0] == "tuple" else items
+    dtype, shape, stride = spec
+    return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+
+
+def _spec(out, seen: set):
+    """``out``'s spec for :func:`_fresh`, if a fresh tensor of it is
+    ``out``'s equal (its own storage, none in ``seen``, of the same bytes);
+    else raises."""
+    if out is None:
+        return None
+    if isinstance(out, (tuple, list)):
+        return ("tuple" if isinstance(out, tuple) else "list", [_spec(x, seen) for x in out])
+    if not isinstance(out, torch.Tensor) or not out.is_meta or out.storage_offset():
+        raise _Uncached
+    st = out.untyped_storage()
+    if id(st) in seen:
+        raise _Uncached
+    seen.add(id(st))
+    spec = (out.dtype, tuple(out.shape), out.stride())
+    if _fresh(spec).untyped_storage().nbytes() != st.nbytes():
+        raise _Uncached
+    return spec
+
+
+_MEMO_KINDS = frozenset(("plain", "dot", "gather"))
+_MISSING = object()
+
+
+def _run_meta(func, args, kwargs, memo: dict):
+    """``func(*args, **kwargs)`` on ``meta`` tensors, its output made from
+    the spec ``memo`` keeps of an earlier call with the same signature
+    (None: none to keep): a meshed step runs each op once a position, on
+    the same shapes, and the Python meta implementations are most of a
+    count's time.  An op whose output is not a fresh tensor (or tuple of
+    them) is run every time."""
+    try:
+        key = (func, _signature(args), _signature(tuple(kwargs.items())) if kwargs else ())
+    except _Uncached:
+        return func(*args, **kwargs)
+    spec = memo.get(key, _MISSING)
+    if spec is not _MISSING and spec is not None:
+        return _fresh(spec)
+    out = func(*args, **kwargs)
+    if spec is _MISSING:
+        try:  # an output that is an input's storage is no fresh tensor
+            memo[key] = _spec(out, {id(t.untyped_storage()) for t in _flat(args, kwargs)})
+        except _Uncached:
+            memo[key] = None
+    return out
+
+
 class OpCounter(TorchDispatchMode):
     """Counts the flops, bytes, collectives, kernel charges and live
     storage bytes of everything run inside it (see the module docstring).
@@ -271,6 +360,12 @@ class OpCounter(TorchDispatchMode):
         self.ops: list = []
         self.live = 0
         self.peak = 0
+        # the peak of each phase (a run of forward ops, or of backward
+        # ops), and the totals where each began
+        self.phase_peaks = [0]
+        self._phase_starts = []
+        self._backward = False
+        self._meta_outs: dict = {}  # _run_meta's specs
         self._tracked: dict = {}  # id(storage) -> (nbytes, weak reference)
         self._args: set = set()
         self.args_freed = 0
@@ -287,6 +382,8 @@ class OpCounter(TorchDispatchMode):
         self.live += n
         if self.live > self.peak:
             self.peak = self.live
+        if self.live > self.phase_peaks[-1]:
+            self.phase_peaks[-1] = self.live
 
     def _freed(self, key) -> None:
         n = self._tracked.pop(key, (0, None))[0]
@@ -329,6 +426,11 @@ class OpCounter(TorchDispatchMode):
     # -- the ops ------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        backward = torch._C._current_autograd_node() is not None
+        if backward != self._backward:
+            self._backward = backward
+            self.phase_peaks.append(self.live)
+            self._phase_starts.append(self._totals())
         kind = _KINDS.get(func)
         if kind is None:
             kind = _KINDS[func] = _classify(func)
@@ -340,7 +442,10 @@ class OpCounter(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
-        out = func(*args, **kwargs)
+        if kind in _MEMO_KINDS:
+            out = _run_meta(func, args, kwargs, self._meta_outs)
+        else:
+            out = func(*args, **kwargs)
         if kind in ("free", "view") or _quiet():
             return out
         ins = _flat(args, kwargs)
@@ -379,6 +484,33 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- the record ---------------------------------------------------------
+    def _totals(self) -> tuple:
+        return (self.flops, self.bytes, {k: list(v) for k, v in self.coll.items()},
+                {k: dict(v) for k, v in self.kernels.items()})
+
+    def phases(self, n: int) -> list:
+        """Each phase's flops, bytes, collectives (``by_type``) and kernel
+        charges, per device of ``n``."""
+        marks = [(0.0, 0.0, {}, {})] + self._phase_starts + [self._totals()]
+        out = []
+        for (f0, b0, c0, k0), (f1, b1, c1, k1) in zip(marks, marks[1:]):
+            coll = {}
+            for kind, v in c1.items():
+                u = c0.get(kind, [0, 0.0, 0.0])
+                if v != u:
+                    coll[kind] = {"operand_bytes": v[1] - u[1], "wire_bytes": v[2] - u[2],
+                                  "count": round(v[0]) - round(u[0])}
+            kern = {}
+            for name, v in k1.items():
+                u = k0.get(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+                if v != u:
+                    kern[name] = {"calls": v["calls"] - u["calls"],
+                                  "flops": (v["flops"] - u["flops"]) / n,
+                                  "bytes": (v["bytes"] - u["bytes"]) / n}
+            out.append({"flops": (f1 - f0) / n, "bytes": (b1 - b0) / n,
+                        "collectives": {"by_type": coll}, "kernels": kern})
+        return out
+
     def collectives(self) -> dict:
         """The collective block of ``analyze_hlo``, per device."""
         by_type = {k: {"operand_bytes": v[1], "wire_bytes": v[2], "count": round(v[0])}
@@ -393,7 +525,11 @@ def analyze_step(fn, *args, num_partitions: int = 1, argument_bytes: float | Non
     """Run ``fn(*args)`` under an :class:`OpCounter` -> per-device
     ``{flops, bytes, num_partitions, collectives, memory, kernels}`` (the
     keys of ``analyze_hlo`` plus ``memory`` as the dry run's
-    ``_memory_dict`` and the kernels' charges), ``ops`` with ``keep_ops``.
+    ``_memory_dict`` and the kernels' charges), ``phase_peaks`` (the peak
+    live bytes of each run of forward ops and of backward ops, in order:
+    ``total_hbm_bytes`` is their maximum) and ``phases`` (each run's
+    flops, bytes, collectives and kernel charges), ``ops`` with
+    ``keep_ops``.
     ``argument_bytes`` (a position's) defaults to the arguments' distinct
     storage bytes over ``num_partitions``."""
     n = num_partitions
@@ -406,15 +542,17 @@ def analyze_step(fn, *args, num_partitions: int = 1, argument_bytes: float | Non
         st = t.untyped_storage()
         if id(st) not in counter._args:
             out_st[id(st)] = st.nbytes()
-    out_bytes = sum(out_st.values()) / n
-    arg = arg_total / n if argument_bytes is None else float(argument_bytes)
-    total = counter.peak / n
-    alias = counter.args_freed / n
-    memory = {"argument_size_in_bytes": int(arg), "output_size_in_bytes": int(out_bytes),
-              "temp_size_in_bytes": int(max(total - arg - out_bytes + alias, 0.0)),
-              "alias_size_in_bytes": int(alias), "total_hbm_bytes": int(total)}
+    out_bytes = int(sum(out_st.values()) / n)
+    arg = int(arg_total / n if argument_bytes is None else argument_bytes)
+    total = int(counter.peak / n)
+    alias = int(counter.args_freed / n)
+    memory = {"argument_size_in_bytes": arg, "output_size_in_bytes": out_bytes,
+              "temp_size_in_bytes": max(total - arg - out_bytes + alias, 0),
+              "alias_size_in_bytes": alias, "total_hbm_bytes": total}
     rec = {"flops": counter.flops / n, "bytes": counter.bytes / n, "num_partitions": n,
            "collectives": counter.collectives(), "memory": memory,
+           "phase_peaks": [int(p / n) for p in counter.phase_peaks],
+           "phases": counter.phases(n),
            "kernels": {k: {**v, "flops": v["flops"] / n, "bytes": v["bytes"] / n}
                        for k, v in counter.kernels.items()}}
     if keep_ops:

@@ -71,6 +71,13 @@ def batched_counts(
     ])
 
 
+def counts_with_column(X: torch.Tensor, xj: torch.Tensor, v: int, *,
+                       block: int = 64) -> torch.Tensor:
+    """(F, v, v) int32 tables of every column of ``X`` against one feature
+    column ``xj`` (both in [0, v))."""
+    return batched_counts(X, xj, v, v, block=block)
+
+
 def fuse_targets(
     other: torch.Tensor, cls: torch.Tensor, vy: int, num_classes: int
 ) -> torch.Tensor:

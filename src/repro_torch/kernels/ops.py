@@ -200,6 +200,14 @@ def mi_scores(counts: torch.Tensor, use_kernel="auto") -> torch.Tensor:
     return _mi_op(counts)
 
 
+def mi_tables(X: torch.Tensor, y: torch.Tensor, num_values: int, num_classes: int,
+              use_kernel="auto") -> torch.Tensor:
+    """Fused convenience: (M, F), (M,) -> (F,) MI of every column against
+    ``y`` (nats), the counts then the MI through the dispatcher."""
+    counts = contingency_tables(X, y, num_values, num_classes, use_kernel)
+    return mi_scores(counts, use_kernel)
+
+
 def bin_codes(X: torch.Tensor, edges: torch.Tensor, use_kernel="auto") -> torch.Tensor:
     """(B, N) floats x (N, E) sorted edges -> (B, N) int32 bin codes."""
     if _decide(use_kernel, X):

@@ -142,6 +142,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, mesh=None, donate: bool = Fa
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     def accumulate(params: dict, batch: dict):
+        """The microbatches one after another, each's gradients summed as
+        the next runs: ``launch.dryrun._more_microbatches`` takes a
+        microbatch's ops to be a forward run (the previous sum at its head)
+        then a backward run, and checks two microbatches' backward runs
+        equal."""
         if micro == 1:
             return value_and_grad(params, batch)
         b = batch["targets"].shape[0]
@@ -211,6 +216,11 @@ def mesh_value_and_grad(model, mesh):
                 [{k: next(grads) for k in sh} for sh in leaves])
 
     def accumulate(shards: list, parts: list):
+        """The microbatches one after another, each's gradients summed as
+        the next runs: ``launch.dryrun._more_microbatches`` takes a
+        microbatch's ops to be a forward run (the previous sum at its head)
+        then a backward run, and checks two microbatches' backward runs
+        equal."""
         if micro == 1:
             return one(shards, parts)
         rows = parts[0]["targets"].shape[0]

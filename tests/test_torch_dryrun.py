@@ -467,7 +467,7 @@ def test_command_line_records_a_production_cell(tmp_path):
                 "mesh_shape", "params_total", "params_matmul_total", "params_matmul_active",
                 "lower_s", "compile_s", "cost_xla", "cost", "cost_raw_f32", "memory",
                 "collectives", "roofline", "hlo_bytes"}
-    assert set(rec) == (jax_keys - JAX_ONLY_KEYS) | {"trace_s", "kernels"}
+    assert set(rec) == (jax_keys - JAX_ONLY_KEYS) | {"trace_s", "kernels", "counted_depths", "counts"}
     assert rec["status"] == "ok" and rec["n_devices"] == 256
     assert rec["mesh_shape"] == {"data": 16, "model": 16}
     assert set(rec["memory"]) == {"argument_size_in_bytes", "output_size_in_bytes",

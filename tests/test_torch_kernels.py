@@ -370,3 +370,38 @@ class TestMIPlan:
         assert mi_plan(1000, 16, 2).group == 32
         assert mi_plan(1000, 16, 16)[:4] == (0, 256, 125, 8 * 4 * 32)
 
+
+
+class TestLastPublicOps:
+    """``ops.mi_tables`` (the counts, then the MI) and
+    ``contingency.counts_with_column`` against the JAX package's, on the
+    same seeded numpy inputs."""
+
+    @pytest.mark.parametrize("m,f,v,c,seed", [(500, 7, 3, 2, 0), (1000, 65, 5, 4, 1),
+                                              (64, 1, 2, 2, 2)])
+    def test_mi_tables_equal_jax(self, m, f, v, c, seed):
+        from repro.kernels import ops as jops
+
+        X, y = _counts_data(m, f, v, c, np.int32, seed)
+        got = ops.mi_tables(torch.from_numpy(X), torch.from_numpy(y), v, c)
+        want = jops.mi_tables(jnp.asarray(X), jnp.asarray(y), v, c)
+        assert got.shape == (f,) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+        # the counts and the MI of the dispatcher, in one call
+        counts = ops.contingency_tables(torch.from_numpy(X), torch.from_numpy(y), v, c)
+        assert torch.equal(got, ops.mi_scores(counts))
+
+    @pytest.mark.parametrize("m,f,v,block,seed", [(300, 10, 4, 64, 3), (257, 130, 3, 32, 4),
+                                                  (50, 3, 6, 1, 5)])
+    def test_counts_with_column_equal_jax(self, m, f, v, block, seed):
+        from repro_torch.core import contingency as tcont
+
+        rng = np.random.default_rng(seed)
+        X = rng.integers(0, v, (m, f)).astype(np.int32)
+        xj = X[:, rng.integers(0, f)].copy()
+        got = tcont.counts_with_column(torch.from_numpy(X), torch.from_numpy(xj), v,
+                                       block=block)
+        want = jcont.counts_with_column(jnp.asarray(X), jnp.asarray(xj), v, block=block)
+        assert got.shape == (f, v, v) and got.dtype == torch.int32
+        assert np.array_equal(_as_int(got), _as_int(want))
+        assert int(got.sum()) == m * f
