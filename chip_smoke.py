@@ -187,8 +187,20 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    whole: 4 x 1500 frame embeddings, a 4-token decoder prompt and 32 greedy
    steps (``EncDecLM.greedy``), 4 + 4 + 4 flash launches a prefill (encoder,
    decoder, cross-attention), each held to the plain version, in bf16 and
-   float32 (tokens equal).  Each logs parameters, weight bytes, prefill
-   seconds a wave, decode ms a step and flash launches a prefill.
+   float32 (tokens equal).  (g) jamba-1.5-large-398b at its published
+   widths, cut by ``JAMBA_CUT`` (``repro_torch.configs.jamba_1_5_large_398b``)
+   to 2 of 72 layers: an attention layer (H=64 over KV=8, a dense MLP of
+   d_ff 24576), then a Mamba-2 layer (256 SSD heads of 64, state 128) with
+   the 16-expert top-2 MoE (11,899,496,192 parameters; the interleave 1:1
+   in place of 1:7): waves of 4 x 2048 and 4 x 1024 tokens (whole SSD
+   chunks), 32 new tokens, through ``serve_and_hold`` in bf16 (margin rule,
+   one flash launch a wave, each held on its own q, k, v) and float32
+   (tokens equal); the Mamba layer's SSD against the recurrence in the bf16
+   run; ``moe_checks`` on the MoE layer in the float32 run (all 16 experts,
+   1024 tokens; its weights are float32 there, where a float32 copy of the
+   bf16 model's would not fit beside it).  Each logs parameters, weight
+   bytes, prefill seconds a wave, decode ms a step, peak memory and flash
+   launches a prefill.
 
 12. Training: qwen1.5-0.5b at its published widths and depth (24 layers,
    619,570,176 parameters), random float32 masters from seed 0, bf16
@@ -202,8 +214,9 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    under ``TRAIN_PEAK_LIMIT``; step ms, tokens/s and the share of the
    step's bound (``train_step_bound``); one more step traced (busy share,
    time by kernel); (c) (run beside phase 15 (d)) ``python -m repro_torch.launch.train`` twice at
-   once, 2 of 24 layers, 4 steps of 2 x 256 tokens, one with ``--fail-at-step 3``: the same
-   losses and, restored from their step-4 checkpoints, bitwise the same
+   once, 2 of 24 layers, ``RESTART_STEPS`` = 3 steps of 2 x 256 tokens, one with
+   ``--fail-at-step 2`` (the last step's start): the same
+   losses and, restored from their step-3 checkpoints, bitwise the same
    state; the serve command line's ``main`` with ``--ckpt-dir``, in this
    process, decoding from the uninterrupted run's checkpoint.  Its files go under one
    ``tempfile.mkdtemp()`` directory, removed at the end.
@@ -259,12 +272,13 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    counts 0.  (c) ``python
    -m repro_torch.launch.train --model-parallel 2`` with
    ``REPRO_DEVICES=4``, 2 of 24 layers, twice at once (one with
-   ``--fail-at-step 3``): the same losses and bitwise the same final
+   ``--fail-at-step 2``): the same losses and bitwise the same final
    checkpoint, restored by ``elastic_restore`` onto (1, 4) positions and
    onto one device bitwise; it runs beside phase 15 (d)'s command lines.
 
 15. The SSM, hybrid and encoder-decoder families on a model mesh of
-   positions of ``cuda:0``.  (a) mamba2-1.3b whole: served in bf16 on
+   positions of ``cuda:0``.  (a) mamba2-1.3b at 24 of its 48 layers
+   (``MAMBA_MESH_CUT``, cut for the script's time): served in bf16 on
    (1, 4) (16 SSM heads and 1024 channels a position, phase 11's waves)
    through ``mesh_serve`` (the one-device run first; the tokens by the
    margin rule, the float32-compute logits within ``MAMBA_F32_REL`` of
@@ -287,10 +301,20 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    superblock on (2, 2) and (1, 4) through ``mesh_serve`` (the reference's
    MoE layers run ``moe_blockwise_reference``), trained on (2, 2) (the
    float32 loss, aux and a router's gradient against the blockwise run).
-   (d) ``launch.serve --model-parallel 2`` on mamba2 (phase 13 (d)'s
-   check) and ``launch.train --model-parallel 2`` at 2 of its 48 layers
-   (phase 14 (c)'s).  Flash timed at whisper's per-position shapes (B=4,
-   S=T=1500 and S=4, T=1500, H=KV=3, D=64, non-causal).
+   (e) phase 11 (g)'s jamba cut in bf16 on (1, 4): 16 query heads over 2
+   KV heads, 64 SSD heads and 4 experts a position (checked), the
+   sequence-parallel residual on; one 4 x 2048 wave and 8 new tokens
+   through ``mesh_serve`` (flash once a position a wave, each held on its
+   own q, k, v; the reference's MoE layer ``moe_blockwise_reference`` over
+   the mesh's blocks; float32-compute logits within ``MESH_F32_TOL``,
+   tokens by the margin rule), the prefill's residual layout and
+   collectives by kind (``residual_check``).  (d) ``launch.serve
+   --model-parallel 2`` on mamba2 (phase 13 (d)'s check) and
+   ``launch.train --model-parallel 2`` at 2 of its 48 layers (phase 14
+   (c)'s).  Flash timed at whisper's per-position shapes (B=4, S=T=1500 and
+   S=4, T=1500, H=KV=3, D=64, non-causal) and at the jamba cut's (B=4,
+   S=T=2048, H=64 over KV=8 and a (1, 4) position's H=16 over KV=2), the
+   latter two with the kernel's own device time.
 
 16. The dry run's accounting (``repro_torch.analysis.op_analysis``) held
    to the card.  (a) phase 12's qwen1.5-0.5b step (8 x 2048, float32
@@ -312,7 +336,12 @@ Phases (each failure raises; the script exits non-zero and prints no result):
    seconds and roofline line; the same cell at 4 layers counted
    trip-aware (at 2 and 3 layers, extended to 4) and in full, every field
    equal (floats within ``1e-9``); and its trip-aware count at the full
-   24 layers, its seconds beside the 2-layer count's.
+   24 layers, its seconds beside the 2-layer count's.  (d) phase 11 (g)'s
+   jamba cut: the bf16 prefill of one 4 x 2048 wave counted on the card
+   and on ``meta`` (the weights the count's arguments): flops (the
+   products' and the kernels' charges) and each kernel's charge equal, the
+   ``meta`` peak within ``DRYRUN_PEAK_BAND`` of the card's
+   ``max_memory_allocated``.
 17. The meshed caches in JAX's ``_cache_specs`` layout: (a) Yi-6B
    whole in bf16 on (1, 8) positions of the card, where its 4 KV heads do
    not divide and each position holds all 4 heads of its eighth of the
@@ -370,9 +399,9 @@ in-memory binned fit encodes X once, and the wide Pearson fit launches the
 correlation kernel 8 times (1 relevance + 7 folds); the Yi-6B serve
 launches the flash-attention kernel 64 times (2 waves x 32 layers), phase
 12's and phase 14's training none, and each phase-11 path once an attention layer a prefill (dbrx 4 a wave,
-llama4 2, jamba 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
+llama4 2, jamba 1, the jamba cut 1, qwen2-vl 28, whisper 12; mamba2 none), each phase-13
 path once a position an attention layer a prefill (yi-6b 128 a wave, dbrx
-16), phase 15's likewise (whisper 48, jamba 4 a wave; mamba2 and every
+16), phase 15's likewise (whisper 48, jamba and the jamba cut 4 a wave; mamba2 and every
 training path none), phase 16 (b)'s 128 (one wave), phase 17's 256 a wave
 on (1, 8) and on (2, 4); each
 spilled fit of phase 8 counts its blocks (160; the binned one 40) and launches no bin-code kernel,
@@ -1425,7 +1454,9 @@ def phase2_flash(dev):
     return err, timings
 
 
-def time_flash(q, k, v, label, causal=True):
+def time_flash(q, k, v, label, causal=True, device=False):
+    """The kernel, its plain version and SDPA timed with CUDA events, beside
+    the bound; ``device`` adds the kernel's own device time a launch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -1446,8 +1477,14 @@ def time_flash(q, k, v, label, causal=True):
     nbytes = (2 * b * s * h * d + 2 * b * t * kvh * d) * es
     flops = 4 * b * h * d * visible_pairs(s, t, causal)
     b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
-    rec = dict(shape=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               share_of_bound=b_ms / ms, library_ms=library_ms,
+    # the body's kernel by its full name, so that no other activity of the
+    # trace is counted as one of its launches
+    body = ("flash_attention_wgmma_kernel" if q.dtype == torch.bfloat16
+            else "flash_attention_kernel")
+    device_ms = (kernel_device_ms(lambda: flash_attention_cuda(q, k, v, causal=causal), body)
+                 if device else None)
+    rec = dict(shape=label, ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, share_of_bound=b_ms / ms, library_ms=library_ms,
                library=f"scaled_dot_product_attention(is_causal={causal}, "
                "enable_gqa=True)", bytes=nbytes, flops=flops,
                tflops=flops / ms / 1e9)
@@ -1689,13 +1726,15 @@ def phase7(dev, launches):
 # Prompt lengths of each served wave (phase 7's traffic for dbrx); Mamba
 # prompts are whole SSD chunks (256; 32 in jamba's smoke config).
 FAMILY_WAVES = dict(dbrx=[2048] * 4 + [1000] * 4, llama4=[2048] * 4, mamba2=[2048] * 4 + [1024] * 4,
-                    jamba=[512] * 4 + [96] * 4, qwen2vl=[2048] * 4)
+                    jamba=[512] * 4 + [96] * 4, jamba_cut=[2048] * 4 + [1024] * 4,
+                    qwen2vl=[2048] * 4)
 FAMILY_DEPTH = {"dbrx-132b": 4, "llama4-scout-17b-a16e": 2}  # of 40 and 48 layers
 VLM_IMAGE = (1024, 32)  # image positions first, the grid's width: (0, i // 32, i % 32)
 WHISPER_FRAMES = 1500  # 30 s of audio at 50 frames/s
 WHISPER_PROMPT = 4
 NEW_TOKENS = 32
 FAMILY_PATHS = ("dbrx_serve", "llama4_serve", "jamba_bf16_serve", "jamba_f32_serve",
+                "jamba_cut_bf16_serve", "jamba_cut_f32_serve",
                 "qwen2vl_embeds", "qwen2vl_serve", "whisper_bf16", "whisper_f32")
 MOE_CHECK_TOKENS = 1024
 MOE_REL_TOL = 1e-4  # float32 MoE against the dense reference, of its largest magnitude
@@ -1718,15 +1757,19 @@ def counted(name, launches, fn):
     return out
 
 
-def build_family(arch, dev, dtype, smoke=False):
-    """A random model of ``arch`` at its published widths (depth cut to
-    ``FAMILY_DEPTH``), or its smoke config, from seed 0 on the card."""
+def build_family(arch, dev, dtype, smoke=False, cut=None):
+    """A random model of ``arch`` at its published widths, or its smoke
+    config, from seed 0 on the card.  ``cut`` replaces the published
+    config's layer fields (``JAMBA_CUT``: the depth and the interleave);
+    without it the depth is cut to ``FAMILY_DEPTH`` where that lists it."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models import build_model
 
     cfg = smoke_config(arch) if smoke else get_config(arch)
-    if not smoke and arch in FAMILY_DEPTH:
-        cfg = dataclasses.replace(cfg, num_layers=FAMILY_DEPTH[arch])
+    if not smoke and cut is None and arch in FAMILY_DEPTH:
+        cut = dict(num_layers=FAMILY_DEPTH[arch])
+    if not smoke and cut:
+        cfg = dataclasses.replace(cfg, **cut)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=dtype,
                         generator=torch.Generator(device=dev).manual_seed(0))
@@ -1737,18 +1780,21 @@ def build_family(arch, dev, dtype, smoke=False):
     return model
 
 
-def family_requests(cfg, lengths, seed=0):
+def family_requests(cfg, lengths, seed=0, new=None):
+    """One request a prompt length, ``new`` (default ``NEW_TOKENS``) new tokens each."""
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(seed)
-    return [Request(rng.integers(0, cfg.vocab_size, n).tolist(), NEW_TOKENS) for n in lengths]
+    new = NEW_TOKENS if new is None else new
+    return [Request(rng.integers(0, cfg.vocab_size, n).tolist(), new) for n in lengths]
 
 
 def moe_checks(tag, model, reqs):
-    """Layer 0's MoE on the first wave's tokens, as the prefill hands them
-    over: the slots dropped at the config's capacity factor; then, on
+    """The first MoE layer on the first wave's tokens, as the prefill hands
+    them over: the slots dropped at the config's capacity factor; then, on
     ``MOE_CHECK_TOKENS`` of them in float32 with the factor raised to E / k
-    (no expert can overflow), the MoE against ``moe_dense_reference``."""
+    (no expert can overflow), the MoE against ``moe_dense_reference`` (the
+    layer's weights in float32: a copy, unless the model's are)."""
     from repro_torch.models import moe, transformer
 
     cfg = model.cfg
@@ -1790,7 +1836,7 @@ def moe_checks(tag, model, reqs):
                slots=t * k, dropped=t * k - kept, expert_load=load,
                check_tokens=MOE_CHECK_TOKENS, check_dropped=MOE_CHECK_TOKENS * k - kept32,
                check_rel_err=rel)
-    log(f"[{tag}] layer 0 MoE: {json.dumps(rec)}")
+    log(f"[{tag}] the first MoE layer: {json.dumps(rec)}")
     if kept32 != MOE_CHECK_TOKENS * k:
         raise AssertionError(f"{tag}: the raised capacity factor still dropped slots")
     if not rel <= MOE_REL_TOL:
@@ -1813,29 +1859,18 @@ def phase11_moe(tag, arch, dev, launches):
     return [rec, prec], check
 
 
-def phase11_mamba(dev, launches):
-    """(c) mamba2-1.3b, whole: served in bf16 (no kernel on this path);
-    layer 0's chunked SSD in float32 against the token-by-token recurrence
-    on its own inputs; in float32, prefill of S-1 tokens plus one step
-    against prefill of S."""
+def ssd_check(tag, model, reqs):
+    """The first Mamba layer's chunked SSD in the longest wave's bf16
+    prefill, rerun in float32 on its own inputs against the token-by-token
+    recurrence: the outputs and the final state within ``SSD_REL_TOL`` of
+    their largest magnitude.  Every wave's last logits must be finite."""
     from repro_torch.models import mamba
-    from repro_torch.serve import Request
 
-    model = build_family("mamba2-1.3b", dev, torch.bfloat16)
-    cfg = model.cfg
-    reqs = family_requests(cfg, FAMILY_WAVES["mamba2"])
-    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])  # warm-up
-    outs, _, rec = serve_run("mamba2_serve", model, reqs, dev, launches)
-    if any(launches["mamba2_serve"].values()):
-        raise AssertionError(f"mamba2 launched {launches['mamba2_serve']}; no kernel expected")
-    for o in outs:
-        if len(o) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
-            raise AssertionError(f"mamba2: bad generation {o}")
     seen = []
     inner = mamba.ssd_chunked
-    longest = max(FAMILY_WAVES["mamba2"])
+    longest = max(len(r.prompt) for r in reqs)
 
-    def capture(*args, **kw):  # layer 0's inputs in the longest wave
+    def capture(*args, **kw):  # the first Mamba layer's inputs in the longest wave
         if not seen and args[0].shape[1] == longest:
             seen.append((args, kw))
         return inner(*args, **kw)
@@ -1846,7 +1881,7 @@ def phase11_mamba(dev, launches):
     finally:
         mamba.ssd_chunked = inner
     if not all(torch.isfinite(lg).all() for lg in logits):
-        raise AssertionError("mamba2: non-finite bf16 logits")
+        raise AssertionError(f"{tag}: non-finite bf16 logits")
     with torch.inference_mode():
         (x, dt, a, b, c), kw = seen[0]
         x, b, c = x.float(), b.float(), c.float()
@@ -1869,11 +1904,35 @@ def phase11_mamba(dev, launches):
         del x, b, c, y, y_rec, ys, st, state
     ssd = dict(shape=list(seen[0][0][0].shape), chunk=kw["chunk"], rel_err=ssd_err,
                state_rel_err=state_err, chunked_s=chunked_s, recurrence_s=rec_s)
-    log(f"[mamba2] layer 0 SSD in float32, chunked vs the recurrence: {json.dumps(ssd)}")
+    del seen
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the first Mamba layer's SSD in float32, chunked vs the recurrence: "
+        f"{json.dumps(ssd)}")
     if not (ssd_err <= SSD_REL_TOL and state_err <= SSD_REL_TOL):
-        raise AssertionError(f"mamba2: chunked SSD vs recurrence {ssd_err:.3e} / "
+        raise AssertionError(f"{tag}: chunked SSD vs recurrence {ssd_err:.3e} / "
                              f"{state_err:.3e} > {SSD_REL_TOL}")
-    del model, seen
+    return ssd
+
+
+def phase11_mamba(dev, launches):
+    """(c) mamba2-1.3b, whole: served in bf16 (no kernel on this path);
+    layer 0's chunked SSD in float32 against the token-by-token recurrence
+    on its own inputs (``ssd_check``); in float32, prefill of S-1 tokens plus
+    one step against prefill of S."""
+    from repro_torch.serve import Request
+
+    model = build_family("mamba2-1.3b", dev, torch.bfloat16)
+    cfg = model.cfg
+    reqs = family_requests(cfg, FAMILY_WAVES["mamba2"])
+    margin_engine(model).serve([Request(reqs[0].prompt[:64], 2)])  # warm-up
+    outs, _, rec = serve_run("mamba2_serve", model, reqs, dev, launches)
+    if any(launches["mamba2_serve"].values()):
+        raise AssertionError(f"mamba2 launched {launches['mamba2_serve']}; no kernel expected")
+    for o in outs:
+        if len(o) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"mamba2: bad generation {o}")
+    ssd = ssd_check("mamba2", model, reqs)
+    del model
     torch.cuda.empty_cache()
 
     model = build_family("mamba2-1.3b", dev, torch.float32)
@@ -1904,6 +1963,42 @@ def phase11_jamba(dev, launches):
         rec, prec, check, _ = serve_and_hold(tag, model, reqs, dev, launches, attn)
         if dtype == torch.float32 and not check["tokens_equal"]:
             raise AssertionError("jamba float32: kernel and plain tokens differ")
+        recs += [rec, prec]
+        checks[tag] = check
+        del model
+        torch.cuda.empty_cache()
+    return recs, checks
+
+
+def phase11_jamba_cut(dev, launches):
+    """(g) jamba at its published widths, cut by ``JAMBA_CUT`` to an
+    attention layer (64 heads over 8 KV heads, a dense MLP) and a Mamba-2
+    layer (256 SSD heads) with the 16-expert MoE: waves of whole SSD chunks
+    (4 x 2048 and 4 x 1024), 32 new tokens, through ``serve_and_hold`` in
+    bf16 (the margin rule) and in float32 (kernel and plain tokens equal).
+    The Mamba layer's SSD against the recurrence (``ssd_check``) in the bf16
+    run; ``moe_checks`` in the float32 run, whose expert weights are
+    float32 already: a float32 copy of the bf16 model's (38.65 GB) beside
+    it (23.8 GB) would leave too little of the card's 80 GB."""
+    from repro_torch.configs.jamba_1_5_large_398b import JAMBA_CUT
+
+    recs, checks = [], {}
+    for dtype, tag in ((torch.bfloat16, "jamba_cut_bf16"), (torch.float32, "jamba_cut_f32")):
+        model = build_family(JAMBA_ARCH, dev, dtype, cut=JAMBA_CUT)
+        reqs = family_requests(model.cfg, FAMILY_WAVES["jamba_cut"])
+        attn = sum(kind == "attn" for kind, _ in model.kinds)
+        rec, prec, check, _ = serve_and_hold(tag, model, reqs, dev, launches, attn)
+        if dtype == torch.float32:
+            if not check["tokens_equal"]:
+                raise AssertionError("jamba cut float32: kernel and plain tokens differ")
+            check["moe"] = moe_checks(tag, model, reqs)
+        else:
+            check["ssd"] = ssd_check(tag, model, reqs)
+        log(f"[{tag}] {model.cfg.num_layers} layers {model.kinds}: {rec['params']} parameters, "
+            f"{rec['weight_bytes']} weight bytes; prefill s a wave {rec['prefill_s']}, decode "
+            f"{rec['decode_ms_per_step']:.3f} ms a step, peak {rec['peak_mem_bytes']} bytes "
+            f"(plain attention: {prec['prefill_s']}, {prec['decode_ms_per_step']:.3f} ms, "
+            f"{prec['peak_mem_bytes']} bytes)")
         recs += [rec, prec]
         checks[tag] = check
         del model
@@ -2048,7 +2143,8 @@ def phase11_whisper(dev, launches):
 
 def phase11(dev, launches):
     """The other LM families: (a) dbrx, (b) llama4-scout, (c) mamba2,
-    (d) jamba, (e) qwen2-vl, (f) whisper; each model freed before the next."""
+    (d) jamba's smoke superblock, (e) qwen2-vl, (f) whisper, (g) jamba's
+    published-width cut; each model freed before the next."""
     recs, checks = [], {}
     parts = (("a dbrx", lambda: phase11_moe("dbrx", "dbrx-132b", dev, launches)),
              ("b llama4-scout", lambda: phase11_moe("llama4", "llama4-scout-17b-a16e", dev,
@@ -2056,7 +2152,8 @@ def phase11(dev, launches):
              ("c mamba2", lambda: phase11_mamba(dev, launches)),
              ("d jamba", lambda: phase11_jamba(dev, launches)),
              ("e qwen2-vl", lambda: phase11_vlm(dev, launches)),
-             ("f whisper", lambda: phase11_whisper(dev, launches)))
+             ("f whisper", lambda: phase11_whisper(dev, launches)),
+             ("g jamba-cut", lambda: phase11_jamba_cut(dev, launches)))
     for name, fn in parts:
         t0 = time.perf_counter()
         r, c = fn()
@@ -2863,9 +2960,11 @@ TRAIN_GRAD_LEAVES = ("top.final_norm.w", "layers.0.attn.wq", "layers.11.mlp.up",
 # moments, 12 bytes a parameter) is then 4.0 GB, not 7.4.
 CLI_DEVICE = "cuda"
 RESTART_MODEL = ("--arch", TRAIN_ARCH, "--preset", "full", "--num-layers", "2")
-# Cut from 6 steps of 512 tokens, a checkpoint every 3: a crash at step 3, a
-# restart from step 2's checkpoint and bitwise equality stay.
-RESTART_STEPS = 4
+# Cut for the script's time (PERF.md §4): a crash at the start of the last
+# step (``RESTART_FAIL_AT``, 0-based), a restart from the checkpoint after
+# step 2 and bitwise equality stay.
+RESTART_STEPS = 3
+RESTART_FAIL_AT = RESTART_STEPS - 1
 RESTART_ARGS = ("--steps", str(RESTART_STEPS), "--global-batch", "2", "--seq-len", "256",
                 "--ckpt-every", "2", "--log-every", "1", "--warmup", "2")
 TRAIN_PEAK_LIMIT = 70e9  # bytes; the step's batch is cut beyond this
@@ -2911,7 +3010,8 @@ def run_cli(module, args, timeout=600, env=None):
 
 
 def restart_checks(tmp):
-    """launch.train RESTART_STEPS steps uninterrupted and with --fail-at-step 3 (the two
+    """launch.train RESTART_STEPS steps uninterrupted and with --fail-at-step
+    RESTART_FAIL_AT (the two
     processes at once), and launch.serve --ckpt-dir (its ``main``, in this
     process) on the uninterrupted run's final checkpoint once it is written,
     beside the restarted run."""
@@ -2937,7 +3037,8 @@ def restart_checks(tmp):
             log(f"[serve] --ckpt-dir {time.perf_counter() - t0:.3f} s")
 
     threads = [threading.Thread(target=train, args=a)
-               for a in (("plain", ()), ("failed", ("--fail-at-step", "3")))]
+               for a in (("plain", ()),
+                         ("failed", ("--fail-at-step", str(RESTART_FAIL_AT))))]
     for t in threads:
         t.start()
     for t in threads:
@@ -2964,7 +3065,8 @@ def restart_checks(tmp):
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     if sorted(a) != sorted(b) or differ:
         raise AssertionError(f"restarted run's final state differs at {differ[:5]}")
-    log(f"[train] restart: {RESTART_STEPS} steps with a failure at step 3 equal the "
+    log(f"[train] restart: {RESTART_STEPS} steps with a failure at step {RESTART_FAIL_AT} "
+        f"equal the "
         f"uninterrupted run bit "
         f"for bit ({len(a)} leaves, losses {plain['losses']})")
     served = recs["serve"]
@@ -3904,7 +4006,7 @@ def phase14_cli(dev, tmp, model_args=None):
     """(c) ``launch.train --model-parallel 2`` with ``REPRO_DEVICES=4`` (a
     (2, 2) mesh of card positions) on ``model_args`` (default
     ``RESTART_MODEL``: 2 of qwen's 24 layers), uninterrupted and with
-    ``--fail-at-step 3``, both at once: the same losses and bitwise the same
+    ``--fail-at-step RESTART_FAIL_AT``, both at once: the same losses and bitwise the same
     final checkpoint; that checkpoint restored by ``elastic_restore`` onto
     (1, 4) positions and onto one device, each state gathered bitwise the
     saved one."""
@@ -3926,7 +4028,8 @@ def phase14_cli(dev, tmp, model_args=None):
                           env=dict(REPRO_DEVICES=MESH_CLI_DEVICES))
 
     threads = [threading.Thread(target=train, args=a)
-               for a in (("plain", ()), ("failed", ("--fail-at-step", "3")))]
+               for a in (("plain", ()),
+                         ("failed", ("--fail-at-step", str(RESTART_FAIL_AT))))]
     for t in threads:
         t.start()
     for t in threads:
@@ -3985,7 +4088,7 @@ def phase14_cli(dev, tmp, model_args=None):
         raise AssertionError("; ".join(faults))
     torch.cuda.empty_cache()
     log(f"[mesh train cli] {arch} --model-parallel 2 on REPRO_DEVICES={MESH_CLI_DEVICES}: {RESTART_STEPS} steps with "
-        f"a failure at step 3 equal the uninterrupted run bit for bit ({len(a)} leaves, losses "
+        f"a failure at step {RESTART_FAIL_AT} equal the uninterrupted run bit for bit ({len(a)} leaves, losses "
         f"{plain['losses']}); its step-{RESTART_STEPS} checkpoint restored onto (1, 4) and one device "
         f"bitwise in {json.dumps(restores)} s")
     return dict(plain=plain, failed=failed, elastic_restore_s=restores)
@@ -4007,10 +4110,12 @@ def phase14(dev, launches):
 
 MAMBA_ARCH, JAMBA_ARCH, WHISPER_ARCH = "mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"
 MAMBA_SERVE_MESH, FAMILY_TRAIN_MESH = (1, 4), (2, 2)  # ("data", "model") positions of the card
-# (a) mamba2 trained whole: 4 x 2048 tokens (8 SSD chunks of 256 a row).
+# (a) mamba2 at 24 of its 48 layers (cut from 48 for the script's time),
+# served, and trained on 4 x 2048 tokens (8 SSD chunks of 256 a row).
+MAMBA_MESH_CUT = dict(num_layers=24)
 MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, FAMILY_TRAIN_STEPS = 4, 2048, 3
 MAMBA_GRAD_LEAVES = ("top.embed", "layers.0.ssm.in_x", "layers.0.ssm.in_b",
-                     "layers.0.ssm.a_log", "layers.47.ssm.out", "layers.47.ln1.w")
+                     "layers.0.ssm.a_log", "layers.23.ssm.out", "layers.23.ln1.w")
 # (b) whisper-tiny whole on (2, 2): 8 requests of 1500 frames; training 8
 # rows of 1500 frames and 448 decoder tokens (its decoder context).
 WHISPER_MESH = (2, 2)
@@ -4022,18 +4127,22 @@ JAMBA_MESHES = ((2, 2), (1, 4))
 JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 8, 512
 JAMBA_GRAD_LEAVES = ("top.embed", "layers.0.ssm.in_x", "layers.1.moe.router",
                      "layers.4.attn.wq", "layers.7.moe.gate")
+# (e) jamba's published-width cut (phase 11 (g)) on (1, 4): one wave of 4 x
+# 2048 tokens, 8 new; 16 query heads over 2 KV heads, 64 SSD heads and 4 of
+# the 16 experts a position.
+JAMBA_CUT_MESH, JAMBA_CUT_PROMPT, JAMBA_CUT_NEW_TOKENS = (1, 4), 2048, 8
 # (d) the command lines on mamba2: serve at its defaults (8 x 32 tokens, 16
 # new), train at 2 of 48 layers (a 1.9 GB checkpoint).
 FAMILY_CLI_ARGS = ("--arch", MAMBA_ARCH, "--preset", "full", "--device", "cuda")
 FAMILY_RESTART_MODEL = ("--arch", MAMBA_ARCH, "--preset", "full", "--num-layers", "2")
-# Float32 compute over mamba2's 48 layers: the mesh's sums in another order
-# move the last logits by up to 4.8e-4 (read on the H100; 9.7% of them past
-# MESH_F32_TOL), so they are held as phase 11's decode check holds them, at
-# a share of the largest magnitude, beside a float64 witness that both
-# float32 runs must lie as near.
+# Float32 compute over mamba2's layers: the mesh's sums in another order
+# move the last logits by up to 4.8e-4 (read on the H100 over all 48 layers;
+# 9.7% of them past MESH_F32_TOL), so they are held as phase 11's decode
+# check holds them, at a share of the largest magnitude, beside a float64
+# witness that both float32 runs must lie as near.
 MAMBA_F32_REL = DECODE_REL_TOL
-FAMILY_MESH_PATHS = ("jamba_tp22_serve", "jamba_tp14_serve", "whisper_mesh_bf16",
-                     "whisper_mesh_f32")  # the phase's paths that launch flash
+FAMILY_MESH_PATHS = ("jamba_tp22_serve", "jamba_tp14_serve", "jamba_cut_tp14_serve",
+                     "whisper_mesh_bf16", "whisper_mesh_f32")  # the phase's paths that launch flash
 
 
 def mamba_step_bound(cfg, b, s):
@@ -4203,8 +4312,9 @@ def decode_trace(meshed, reqs, dev):
 
 
 def phase15_mamba(dev, launches):
-    """(a) mamba2-1.3b whole: served in bf16 on (1, 4) positions (16 SSM
-    heads and 1024 channels a position; phase 11's waves; no kernel), held
+    """(a) mamba2-1.3b at 24 of its 48 layers (``MAMBA_MESH_CUT``): served
+    in bf16 on (1, 4) positions (16 SSM heads and 1024 channels a position;
+    phase 11's waves; no kernel), held
     by ``mesh_serve`` (bf16 tokens by the margin rule, float32-compute
     logits within ``MAMBA_F32_REL`` of the largest magnitude, beside a
     float64 witness), one decode step traced; then trained
@@ -4213,10 +4323,11 @@ def phase15_mamba(dev, launches):
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedDataPipeline
 
-    reqs = family_requests(get_config(MAMBA_ARCH), FAMILY_WAVES["mamba2"])
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH), **MAMBA_MESH_CUT)
+    reqs = family_requests(cfg, FAMILY_WAVES["mamba2"])
     t0 = time.perf_counter()
     meshed, rec, check = mesh_serve(
-        "mamba2_tp", lambda: build_family(MAMBA_ARCH, dev, torch.bfloat16),
+        "mamba2_tp", lambda: build_family(MAMBA_ARCH, dev, torch.bfloat16, cut=MAMBA_MESH_CUT),
         card_mesh(dev, MAMBA_SERVE_MESH), reqs, dev, launches, f32_rel=MAMBA_F32_REL)
     if any(launches["mamba2_tp_serve"].values()):
         raise AssertionError(f"mamba2 on the mesh launched {launches['mamba2_tp_serve']}")
@@ -4230,7 +4341,6 @@ def phase15_mamba(dev, launches):
     log(f"[mamba2_tp] a decode step traced: {json.dumps(check['decode_step_trace'])}")
     del meshed
     torch.cuda.empty_cache()
-    cfg = get_config(MAMBA_ARCH)
     mesh = card_mesh(dev, FAMILY_TRAIN_MESH)
     pipe = ShardedDataPipeline(mesh=mesh, global_batch=MAMBA_TRAIN_BATCH, seq_len=MAMBA_TRAIN_SEQ,
                                vocab=cfg.vocab_size, seed=0)
@@ -4351,27 +4461,75 @@ def phase15_jamba(dev, launches):
     return dict(serve=recs, serve_check=checks, train=train)
 
 
+def phase15_jamba_cut(dev, launches):
+    """(e) phase 11 (g)'s cut of jamba at its published widths in bf16 on
+    ``JAMBA_CUT_MESH`` = (1, 4) positions (a position's blocks of the
+    attention, SSD and expert weights checked), the sequence-parallel
+    residual on (the published config's): one 4 x 2048 wave and 8 new tokens through ``mesh_serve``,
+    the one-device reference's MoE layer as ``moe_blockwise_reference`` over
+    the mesh's blocks (flash once a position a wave); the prefill's
+    residual layout and collectives by kind (``residual_check``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import JAMBA_CUT
+    from repro_torch.models import transformer
+    from repro_torch.models.mamba import mamba_dims
+
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), **JAMBA_CUT)
+    reqs = family_requests(cfg, [JAMBA_CUT_PROMPT] * 4, new=JAMBA_CUT_NEW_TOKENS)
+    inner = transformer.moe_einsum
+    transformer.moe_einsum = functools.partial(_blockwise, shape=JAMBA_CUT_MESH)
+    try:
+        meshed, rec, check = mesh_serve(
+            "jamba_cut_tp14", lambda: build_family(JAMBA_ARCH, dev, torch.bfloat16, cut=JAMBA_CUT),
+            card_mesh(dev, JAMBA_CUT_MESH), reqs, dev, launches)
+    finally:
+        transformer.moe_einsum = inner
+    tp, d, hd = JAMBA_CUT_MESH[1], cfg.d_model, cfg.head_dim
+    want = {"layers.0.attn.wq": (d, cfg.num_heads // tp * hd),
+            "layers.0.attn.wk": (d, cfg.num_kv_heads // tp * hd),
+            "layers.1.ssm.a_log": (mamba_dims(cfg)[1] // tp,),
+            "layers.1.moe.gate": (cfg.num_experts // tp, d, cfg.d_ff)}
+    blocks = {name: sorted({tuple(w.shape) for w in meshed.local(name)}) for name in want}
+    if blocks != {name: [shape] for name, shape in want.items()}:
+        raise AssertionError(f"jamba cut on {JAMBA_CUT_MESH}: blocks a position {blocks}, "
+                             f"want {want}")
+    check["blocks_a_position"] = {name: list(shape) for name, shape in want.items()}
+    log(f"[jamba_cut_tp14] a position's blocks: {json.dumps(check['blocks_a_position'])}")
+    toks = torch.tensor([r.prompt for r in reqs], device=dev)
+    check["residual"] = residual_check("jamba_cut_tp14", meshed, lambda: meshed.prefill(toks),
+                                       toks.shape[0] // meshed.ctx.n_batch, toks.shape[1])
+    del meshed, toks
+    torch.cuda.empty_cache()
+    return dict(serve=rec, serve_check=check)
+
+
 def phase15_flash(dev):
     """Flash at whisper's two new per-position shapes on (2, 2): the encoder
     (B=4, S=T=1500, H=KV=3, D=64, non-causal) and the cross-attention (B=4,
-    S=4, T=1500), bf16, held to the plain version and timed with its bound
+    S=4, T=1500); and at the jamba cut's, one device's (B=4, S=T=2048, H=64,
+    KV=8, causal) and a (1, 4) position's (H=16, KV=2), with the kernel's own
+    device time; bf16, held to the plain version and timed with its bound
     and SDPA's time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     timings, err = [], 0.0
     bf = torch.bfloat16
-    b = WHISPER_REQUESTS // WHISPER_MESH[0]
-    for i, (label, s) in enumerate([
-            (f"whisper (2, 2) position B={b} S=T=1500 H=KV=3 D=64 non-causal", WHISPER_FRAMES),
-            (f"whisper cross (2, 2) position B={b} S=4 T=1500 H=KV=3 D=64 non-causal",
-             WHISPER_PROMPT)]):
-        q, k, v = attn_inputs(b, s, WHISPER_FRAMES, 3, 3, 64, bf, dev, seed=150 + i)
-        e, row = flash_errors(flash_attention_cuda(q, k, v, causal=False),
-                              ref.flash_attention(q, k, v, causal=False), bf)
+    wb = WHISPER_REQUESTS // WHISPER_MESH[0]
+    n = JAMBA_CUT_PROMPT
+    for i, (label, (b, s, t, h, kv, d), causal) in enumerate([
+            (f"whisper (2, 2) position B={wb} S=T=1500 H=KV=3 D=64 non-causal",
+             (wb, WHISPER_FRAMES, WHISPER_FRAMES, 3, 3, 64), False),
+            (f"whisper cross (2, 2) position B={wb} S=4 T=1500 H=KV=3 D=64 non-causal",
+             (wb, WHISPER_PROMPT, WHISPER_FRAMES, 3, 3, 64), False),
+            (f"jamba cut B=4 S=T={n} H=64 KV=8", (4, n, n, 64, 8, 128), True),
+            (f"jamba cut (1, 4) position B=4 S=T={n} H=16 KV=2", (4, n, n, 16, 2, 128), True)]):
+        q, k, v = attn_inputs(b, s, t, h, kv, d, bf, dev, seed=150 + i)
+        e, row = flash_errors(flash_attention_cuda(q, k, v, causal=causal),
+                              ref.flash_attention(q, k, v, causal=causal), bf)
         err = max(err, e)
         log(f"[flash] {label} bf16: max abs err {e:.3e}, max row err {row:.3e}")
-        timings.append(time_flash(q, k, v, label, causal=False))
+        timings.append(time_flash(q, k, v, label, causal=causal, device=causal))
         del q, k, v
     torch.cuda.empty_cache()
     return timings, err
@@ -4430,10 +4588,11 @@ def phase15_cli(dev):
 def phase15(dev, launches):
     """The SSM, hybrid and encoder-decoder families on a model mesh of
     positions of the card: (a) mamba2, (b) whisper, (c) jamba's superblock,
-    (d) the command lines; and flash at whisper's per-position shapes."""
+    (e) jamba's published-width cut, (d) the command lines; and flash at
+    whisper's and the jamba cut's shapes."""
     out = {}
     for name, fn in (("a mamba2", phase15_mamba), ("b whisper", phase15_whisper),
-                     ("c jamba", phase15_jamba)):
+                     ("c jamba", phase15_jamba), ("e jamba-cut", phase15_jamba_cut)):
         t0 = time.perf_counter()
         out[name.split()[1]] = fn(dev, launches)
         log(f"[phase] 15{name} {time.perf_counter() - t0:.3f} s")
@@ -4644,6 +4803,73 @@ def phase16_yi(dev, launches, smi):
     return rec
 
 
+def phase16_jamba(dev, smi):
+    """(d) phase 11 (g)'s jamba cut at its published widths: the bf16
+    prefill of one 4 x ``JAMBA_CUT_PROMPT`` wave counted on the card and on
+    ``meta`` tensors (the weights passed as the count's arguments): the
+    flops (the products' and the kernels' charges) and each kernel's charge
+    equal, the ``meta`` peak within ``DRYRUN_PEAK_BAND`` of
+    ``torch.cuda.max_memory_allocated`` over the counted card prefill."""
+    from repro_torch.analysis.op_analysis import analyze_step
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import JAMBA_CUT
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), **JAMBA_CUT)
+    b, s = 4, JAMBA_CUT_PROMPT
+
+    def count(device):
+        kw = dict(device=device, dtype=torch.bfloat16)
+        if device == "meta":
+            model = build_model(cfg, **kw)
+            tokens = torch.empty((b, s), dtype=torch.int64, device="meta")
+        else:
+            model = build_model(cfg, **kw, generator=torch.Generator(device=device).manual_seed(0))
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                         (b, s))).to(device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        weights = dict(model.named_parameters())
+        t0 = time.perf_counter()
+        rec = analyze_step(lambda w, t: model.prefill(t), weights, tokens, keep_ops=True)
+        rec["count_s"] = time.perf_counter() - t0
+        if device != "meta":
+            torch.cuda.synchronize()
+            rec["card_peak"] = torch.cuda.max_memory_allocated(device)
+        del model, weights, tokens
+        torch.cuda.empty_cache()
+        return rec
+
+    card, meta = count(dev), count("meta")
+    if card["flops"] != meta["flops"]:
+        i, a, m = first_difference(card["ops"], meta["ops"])
+        raise AssertionError(f"card {card['flops']} flops, meta {meta['flops']}: op {i} card {a}, "
+                             f"meta {m}")
+    if card["kernels"] != meta["kernels"]:
+        raise AssertionError(f"kernel charges: card {card['kernels']}, meta {meta['kernels']}")
+    meta_peak, card_peak = meta["memory"]["total_hbm_bytes"], card["card_peak"]
+    ratio = meta_peak / card_peak
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise AssertionError(f"meta peak {meta_peak} bytes, card {card_peak}: {ratio:.4f} "
+                             f"outside {DRYRUN_PEAK_BAND}")
+    # The bytes are reported, not held: a card op may move other bytes than
+    # its meta counterpart (the first op where the two runs part is logged).
+    parted = (None if card["bytes"] == meta["bytes"]
+              else first_difference(card["ops"], meta["ops"]))
+    rec = dict(flops=meta["flops"], kernels=meta["kernels"], bytes=meta["bytes"],
+               card_bytes=card["bytes"], ops=len(meta["ops"]), card_ops=len(card["ops"]),
+               bytes_first_difference=None if parted is None else [str(x) for x in parted],
+               argument_bytes=meta["memory"]["argument_size_in_bytes"],
+               meta_peak_bytes=meta_peak, card_peak_bytes=card_peak, peak_ratio=ratio,
+               card_count_s=card["count_s"], meta_count_s=meta["count_s"], card=smi)
+    log(f"[dryrun] (d) jamba cut ({cfg.num_layers} layers, published widths) bf16 prefill of "
+        f"{b} x {s} on {smi}: card and meta count {meta['flops']:.6e} flops, kernel charges "
+        f"{json.dumps(meta['kernels'])}; bytes card {card['bytes']:.6e} / meta "
+        f"{meta['bytes']:.6e}; peak meta {meta_peak} / card {card_peak} = {ratio:.4f}: "
+        f"{json.dumps(rec)}")
+    return rec
+
+
 def phase16_cli(smi):
     """(c) the dry run's command line for one production cell: its ``main``
     in this process (as phase 12 runs the serve command line's), which
@@ -4711,7 +4937,7 @@ def phase16_cli(smi):
 def phase16(dev, launches, smi):
     torch.cuda.empty_cache()
     return dict(qwen=phase16_qwen(dev, smi), yi=phase16_yi(dev, launches, smi),
-                cli=phase16_cli(smi))
+                jamba=phase16_jamba(dev, smi), cli=phase16_cli(smi))
 
 
 # Phase 17: the meshed caches in JAX's ``_cache_specs`` layout.

@@ -32,3 +32,11 @@ CONFIG = ModelConfig(
     optimizer_moment_dtype="bfloat16",
     microbatches=8,  # §Perf A6: fits v5e HBM (EXPERIMENTS.md)
 )
+
+# The depth cut served at the published widths on one 80 GB card (one
+# superblock of 8 layers is 90.3 GB in bf16): ``dataclasses.replace(CONFIG,
+# **JAMBA_CUT)`` keeps every width and has the kinds of the superblock's
+# layers 4 and 5, attention with a dense MLP, then a Mamba-2 mixer with the
+# 16-expert MoE.  The one reduction is the interleave, 1:1 in place of 1:7,
+# and the depth, 2 of 72 layers: 11,899,496,192 parameters, 23.8 GB in bf16.
+JAMBA_CUT = dict(num_layers=2, attn_period=2, attn_offset=0)

@@ -11,8 +11,11 @@ leaf and a decode step agree with ``ModelBundle`` within
 ``rtol=1e-5, atol=1e-5``.  The pieces are held one by one too: the MoE
 routing and capacity dispatch (``buf_tok`` bit for bit, drops and ties
 included), ``ssd_chunked`` against JAX's and against the token-by-token
-recurrence, M-RoPE and the sinusoidal table.  Serving is held in
-``test_torch_families_serve.py``.
+recurrence, M-RoPE and the sinusoidal table.  The fixture's cases add
+``jamba-cut``, jamba's smoke config cut as the card serves the published
+one (``JAMBA_CUT``: an attention layer, then a Mamba-2 layer with the MoE),
+and the cut of the published config is counted on ``meta``.  Serving is
+held in ``test_torch_families_serve.py``.
 """
 
 import dataclasses
@@ -23,13 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.models import mamba as jmamba
 from repro.models import moe as jmoe
 from repro.models import rope as jrope
 from repro.models.model import build_model as jax_build_model
+from torch_train_cases import JAMBA_CUT_CASE, smoke_configs
 
-from repro_torch.configs import list_archs, smoke_config
+from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.configs.jamba_1_5_large_398b import JAMBA_CUT
 from repro_torch.models import build_model, mamba, moe, rope
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.encdec import EncDecLM
@@ -68,13 +74,13 @@ def _perturbed(params, seed):
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
-@pytest.fixture(scope="module", params=FAMILIES)
+@pytest.fixture(scope="module", params=FAMILIES + [JAMBA_CUT_CASE])
 def pair(request):
     """(JAX bundle, JAX params as numpy, port model with those weights)."""
-    arch = request.param
-    bundle = jax_build_model(jax_smoke_config(arch), mesh=None)
+    jax_cfg, cfg = smoke_configs(request.param)
+    bundle = jax_build_model(jax_cfg, mesh=None)
     params = _perturbed(bundle.init(jax.random.PRNGKey(1)), seed=7)
-    model = build_model(smoke_config(arch), device="cpu")
+    model = build_model(cfg, device="cpu")
     params_from_jax(model, params)
     return bundle, params, model
 
@@ -230,6 +236,22 @@ def test_prefill_then_decode_consistency(pair):
 def test_every_config_builds_with_the_jax_parameter_count(arch):
     model = build_model(smoke_config(arch), device="cpu")
     assert model.num_params() == jax_build_model(jax_smoke_config(arch), mesh=None).num_params()
+
+
+def test_jamba_cut_at_its_published_widths_on_meta():
+    """The cut the card serves (``JAMBA_CUT`` over the published config),
+    built on ``meta`` with no weight allocated: an attention layer with a
+    dense MLP, then a Mamba-2 layer with the 16-expert MoE; its parameters
+    and bf16 bytes, and JAX's count of the same replaced config."""
+    arch = "jamba-1.5-large-398b"
+    model = build_model(dataclasses.replace(get_config(arch), **JAMBA_CUT), device="meta",
+                        dtype=torch.bfloat16)
+    assert model.kinds == [("attn", "dense"), ("ssm", "moe")]
+    assert all(p.is_meta for p in model.parameters())
+    assert model.num_params() == 11_899_496_192
+    assert model.weight_bytes() == 23_798_992_384
+    bundle = jax_build_model(dataclasses.replace(jax_get_config(arch), **JAMBA_CUT), mesh=None)
+    assert bundle.num_params() == model.num_params()
 
 
 def test_hybrid_stacks_map_leaf_i_of_g_j_to_layer_i_times_period_plus_j():

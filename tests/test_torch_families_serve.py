@@ -3,7 +3,9 @@
 Greedy ``ServeEngine`` tokens equal the JAX engine's for the five
 decoder-only families (dbrx, llama4-scout, mamba2, jamba, qwen2-vl smoke
 configs, float32, the JAX weights loaded with ``params_from_jax``) over
-chunk-aligned and short-prompt waves; whisper is refused by both engines
+chunk-aligned and short-prompt waves (jamba also as ``jamba-cut``, its
+smoke config cut as the card serves the published one: ``JAMBA_CUT``);
+whisper is refused by both engines
 and served by ``EncDecLM.greedy``; the serve command line runs each new
 arch on the CPU.
 """
@@ -19,6 +21,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.models.model import build_model as jax_build_model
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
+from torch_train_cases import JAMBA_CUT_CASE, smoke_configs
 
 from repro_torch.configs import smoke_config
 from repro_torch.launch import serve as serve_cli
@@ -40,12 +43,12 @@ def _frames(cfg, b, s, seed):
             ).astype(np.float32)
 
 
-@pytest.fixture(scope="module", params=DECODERS)
+@pytest.fixture(scope="module", params=DECODERS + [JAMBA_CUT_CASE])
 def engines(request):
-    arch = request.param
-    bundle = jax_build_model(jax_smoke_config(arch), mesh=None)
+    jax_cfg, cfg = smoke_configs(request.param)
+    bundle = jax_build_model(jax_cfg, mesh=None)
     params = bundle.init(jax.random.PRNGKey(2))
-    model = build_model(smoke_config(arch), device="cpu")
+    model = build_model(cfg, device="cpu")
     params_from_jax(model, jax.tree.map(np.asarray, params))
     return bundle, params, model
 

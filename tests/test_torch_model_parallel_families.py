@@ -10,7 +10,9 @@ norm's sum of squares add their partials in mesh order, so the meshed
 model is held within ``1e-5``, never bitwise; jamba's eight-layer superblock within ``1e-4``
 (its tolerance in ``test_torch_families.py``), at ``capacity_factor=8.0``
 (no slot dropped: the expert-parallel prefill's per-block capacities give
-the one-device outputs).
+the one-device outputs); the fixture's cases add ``jamba-cut``, jamba's
+smoke config cut as the card serves the published one (``JAMBA_CUT``: an
+attention layer, then a Mamba-2 layer with the MoE).
 
 Also: greedy ``ServeEngine`` tokens equal the JAX engine's (whisper's the
 port's one-device ``greedy``: JAX's engine refuses it), ``gather_params``
@@ -34,7 +36,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from test_torch_families import _jax_caches_by_layer, _pad_self_kv
 from test_torch_mesh_caches import jax_block_shape
-from torch_train_cases import jax_pair
+from torch_train_cases import JAMBA_CUT_CASE, jax_pair
 from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.configs import smoke_config
@@ -87,7 +89,7 @@ def _jax_run(bundle, params, model, b, s, seed=3):
                 step_logits=np.asarray(step_logits), step_caches=step_caches)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=ARCHS + [JAMBA_CUT_CASE])
 def pair(request):
     """(the JAX outputs, the port's one-device model with the JAX weights):
     prefill and a decode step, and the greedy tokens over ``LENGTHS`` (the

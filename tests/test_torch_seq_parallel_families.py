@@ -12,12 +12,15 @@ output gathered over ``model``.  Prefill logits, every gathered cache leaf
 (k, v, xk, xv, the SSM state and conv tails), a decode step and greedy
 tokens (whisper's the port's one-device ``greedy``) against JAX's
 single-device bundle and the one-device model at ``1e-5``, jamba at
-``1e-4``.
+``1e-4``; jamba also as ``jamba-cut`` (``JAMBA_CUT``: an attention layer,
+then a Mamba-2 layer with the MoE), the pattern the card serves on (1, 4)
+at the published widths.
 """
 
 import pytest
 import torch
 from torch_sp_cases import MESHES, NEWS, hold_serve, mesh, serve_want, sp_pair
+from torch_train_cases import JAMBA_CUT_CASE
 from torch_train_cases import one_torch_thread  # noqa: F401  (autouse)
 
 from repro_torch.models.model import shard_params
@@ -26,7 +29,7 @@ from repro_torch.serve import Request, ServeEngine
 ARCHS = ["mamba2-1.3b", "jamba-1.5-large-398b", "whisper-tiny"]
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=ARCHS + [JAMBA_CUT_CASE])
 def pair(request):
     bundle, params, model = sp_pair(request.param)
     return serve_want(bundle, params, model), model

@@ -25,9 +25,8 @@ import torch
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from test_torch_families import _jax_caches_by_layer, _pad_self_kv
-from torch_train_cases import jax_pair
+from torch_train_cases import jax_pair, smoke_configs
 
-from repro_torch.configs import smoke_config
 from repro_torch.dist import make_mesh
 from repro_torch.models import model as model_mod
 from repro_torch.models.encdec import MeshEncDecLM
@@ -49,8 +48,9 @@ def mesh(shape):
 
 
 def sp_overrides(arch, **over) -> dict:
-    """SP on, and the MoE archs at the roomy capacity."""
-    fam = smoke_config(arch).family
+    """SP on, and the MoE archs at the roomy capacity (``arch``: a case of
+    ``smoke_configs``)."""
+    fam = smoke_configs(arch)[1].family
     roomy = dict(capacity_factor=ROOMY, microbatches=1) if fam in ("moe", "hybrid") else {}
     return {**SP, **roomy, **over}
 

@@ -1,9 +1,10 @@
 """Shared cases of the port's training tests (imported by the
 ``test_torch_train_*`` files, which hold the port to the JAX package).
 
-``jax_pair(arch)``: a smoke config's JAX bundle, its parameters (biases and
+``jax_pair(case)``: a smoke config's JAX bundle, its parameters (biases and
 norm weights perturbed off their zero/one init, so every weight matters) as
-numpy, and the port model loaded with them.  ``batch_for``: JAX's
+numpy, and the port model loaded with them; a case is an arch's id or
+``JAMBA_CUT_CASE`` (``smoke_configs``).  ``batch_for``: JAX's
 ``input_specs`` batch for the config, made from a seed with numpy.
 ``port_value_and_grad`` / ``jax_value_and_grad``: the loss, its metrics
 and every gradient leaf, the port's restacked into the JAX tree.
@@ -21,6 +22,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.models.model import build_model as jax_build_model
 
 from repro_torch.configs import smoke_config
+from repro_torch.configs.jamba_1_5_large_398b import JAMBA_CUT
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax, params_to_jax
 
@@ -53,11 +55,27 @@ def perturbed(params, seed=7):
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
-def jax_pair(arch, **overrides):
+# jamba's smoke config cut as the card serves the published one
+# (``JAMBA_CUT``: an attention layer, then a Mamba-2 layer with the MoE)
+JAMBA_CUT_CASE = "jamba-cut"
+
+
+def smoke_configs(case, **overrides):
+    """-> (JAX's smoke config, the port's) of ``case`` (an arch's id, or
+    ``JAMBA_CUT_CASE``: jamba's with ``JAMBA_CUT``) with ``overrides``."""
+    arch, over = case, overrides
+    if case == JAMBA_CUT_CASE:
+        arch, over = "jamba-1.5-large-398b", {**JAMBA_CUT, **overrides}
+    return (dataclasses.replace(jax_smoke_config(arch), **over),
+            dataclasses.replace(smoke_config(arch), **over))
+
+
+def jax_pair(case, **overrides):
     """(JAX bundle, JAX params as numpy, port model with those weights)."""
-    bundle = jax_build_model(dataclasses.replace(jax_smoke_config(arch), **overrides), None)
+    jax_cfg, cfg = smoke_configs(case, **overrides)
+    bundle = jax_build_model(jax_cfg, None)
     params = perturbed(bundle.init(jax.random.PRNGKey(1)))
-    model = build_model(dataclasses.replace(smoke_config(arch), **overrides), device="cpu")
+    model = build_model(cfg, device="cpu")
     params_from_jax(model, params)
     return bundle, params, model
 
