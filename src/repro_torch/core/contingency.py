@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.runtime import tracing
+
 # Out-of-range sentinel for fused and padded targets: one-hots to an
 # all-zero row, so invalid (padded / masked) observations vanish from the
 # counts.
@@ -90,11 +92,12 @@ def fuse_targets(
     int64 behind the range mask, so ``sentinel * num_classes`` can never
     wrap back into the valid code range.
     """
-    o = other.to(torch.int64)
-    c = cls.to(torch.int64)
-    ok = (o >= 0) & (o < vy) & (c >= 0) & (c < num_classes)
-    code = torch.where(ok, o * num_classes + c, torch.full_like(o, OOR))
-    return code.to(torch.int32)
+    with tracing.span("mrmr.fuse_targets"):
+        o = other.to(torch.int64)
+        c = cls.to(torch.int64)
+        ok = (o >= 0) & (o < vy) & (c >= 0) & (c < num_classes)
+        code = torch.where(ok, o * num_classes + c, torch.full_like(o, OOR))
+        return code.to(torch.int32)
 
 
 def conditional_counts(

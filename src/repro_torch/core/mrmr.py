@@ -50,6 +50,7 @@ from repro_torch.core.criteria import Criterion, resolve_criterion
 from repro_torch.core.scores import CustomScore, MIScore, ScoreFn
 from repro_torch.dist.meshes import check_mesh_kind
 from repro_torch.dist.sharding import axes_tuple, grid_devices, psum, shard_window
+from repro_torch.runtime import tracing
 
 _NEG_INF = float("-inf")
 
@@ -171,14 +172,14 @@ def _distributed_argmax(gs: list, offsets: list):
     sync a pick.  Float32 objectives and int ids are exact in float64.
     """
     if len(gs) == 1:
-        a = int(torch.argmax(gs[0]))
+        a = tracing.host_read("pick", torch.argmax(gs[0]))
         return a + offsets[0], gs[0][a]
     dev = gs[0].device
     rows = []
     for g, off in zip(gs, offsets):
         a = torch.argmax(g)
         rows.append(torch.stack([g[a].to(torch.float64), (a + off).to(torch.float64)]).to(dev))
-    host = torch.stack(rows).cpu().numpy()
+    host = tracing.host_read("pick", torch.stack(rows)).numpy()
     best = host[:, 0].max()
     k = int(host[host[:, 0] >= best, 1].min())
     return k, float(best)
@@ -199,12 +200,14 @@ def _masks(sizes: list, offsets: list, devices: list, n_features: int) -> list:
 
 
 def _greedy(rels: list, num_select, crit: Criterion, incremental: bool, terms_of,
-            offsets=(0,), n_features=None):
+            offsets=(0,), n_features=None, device=None):
     """The greedy loop every in-memory engine shares, over feature groups.
 
     ``rels[j]`` is group ``j``'s relevance slice on its device, holding
     global ids ``offsets[j]...``; one device is one group.  ``terms_of(k)``
-    -> every group's redundancy terms against feature ``k``.  The fold runs
+    -> every group's redundancy terms against feature ``k``: one counting
+    pass, timed on ``device`` where the fit runs on that one device (None on
+    a mesh; :func:`~repro_torch.runtime.tracing.pass_frame`).  The fold runs
     per group on its own slice.  Returns ``(selected int32, gains float32)``
     on the first group's device.
     """
@@ -219,6 +222,12 @@ def _greedy(rels: list, num_select, crit: Criterion, incremental: bool, terms_of
     def fresh():
         return [crit.init_state(s, d) for s, d in zip(sizes, devs)]
 
+    def folded(states, k, l):
+        with tracing.pass_frame("redundancy", device):
+            terms = terms_of(k)
+        with tracing.span("mrmr.fold"):
+            return [crit.update(s, t, l) for s, t in zip(states, terms)]
+
     states = fresh() if incremental and fold else None
     for l in range(num_select):
         if not fold:
@@ -228,16 +237,17 @@ def _greedy(rels: list, num_select, crit: Criterion, incremental: bool, terms_of
         else:
             cs = fresh()
             for j, kj in enumerate(selected):
-                cs = [crit.update(c, t, j) for c, t in zip(cs, terms_of(kj))]
-        gs = [torch.where(m, _NEG_INF, crit.objective(r, c, l))
-              for r, c, m in zip(rels, cs, masks)]
-        k, best = _distributed_argmax(gs, list(offsets))
-        j = _owner(k, offsets)
-        masks[j][k - offsets[j]] = True
-        gains[l] = best
+                cs = folded(cs, kj, j)
+        with tracing.span("mrmr.pick"):
+            gs = [torch.where(m, _NEG_INF, crit.objective(r, c, l))
+                  for r, c, m in zip(rels, cs, masks)]
+            k, best = _distributed_argmax(gs, list(offsets))
+            j = _owner(k, offsets)
+            masks[j][k - offsets[j]] = True
+            gains[l] = best
         selected.append(k)
         if incremental and fold and l + 1 < num_select:
-            states = [crit.update(s, t, l) for s, t in zip(states, terms_of(k))]
+            states = folded(states, k, l)
     return torch.tensor(selected, dtype=torch.int32, device=devs[0]), gains
 
 
@@ -345,8 +355,11 @@ def _feature_major(X_rows, y, num_select, score, crit, incremental, grid=None,
         return [score.redundancy_terms(x, row.to(x.device), yv, conditional=cond)
                 for x, yv in parts]
 
-    rels = [score.relevance(x, yv) for x, yv in parts]
-    sel, gains = _greedy(rels, num_select, crit, incremental, terms_of, offsets, n_features)
+    device = X_rows.device if grid is None else None
+    with tracing.pass_frame("relevance", device):
+        rels = [score.relevance(x, yv) for x, yv in parts]
+    sel, gains = _greedy(rels, num_select, crit, incremental, terms_of, offsets, n_features,
+                         device)
     rel = torch.cat([r.to(rels[0].device) for r in rels])[:n_features]
     return sel, gains, rel.to(torch.float32)
 
@@ -363,6 +376,7 @@ def _tiled_counts(X, y, num_select, score: MIScore, crit, incremental, grid=None
     same single sum as the marginal ones.
     """
     v, c = score.num_values, score.num_classes
+    device = X.device if grid is None else None  # where the passes are timed
     if grid is None:
         grid, tiles, ys, offsets = [[X.device]], [[X]], [[y]], [0]
         n_loc = X.shape[1]
@@ -396,8 +410,10 @@ def _tiled_counts(X, y, num_select, score: MIScore, crit, incremental, grid=None
         return [score.terms_from_conditional(cnt.reshape(n_loc, v, v, c))
                 for cnt in counts_vs(fused, v * c)]
 
-    rels = [score.mi(cnt) for cnt in counts_vs(ys, c)]
-    sel, gains = _greedy(rels, num_select, crit, incremental, terms_of, offsets, n_features)
+    with tracing.pass_frame("relevance", device):
+        rels = [score.mi(cnt) for cnt in counts_vs(ys, c)]
+    sel, gains = _greedy(rels, num_select, crit, incremental, terms_of, offsets, n_features,
+                         device)
     rel = torch.cat([r.to(rels[0].device) for r in rels])[:n_features]
     return sel, gains, rel
 

@@ -54,6 +54,7 @@ from repro_torch.dist.meshes import (
 from repro_torch.dist.sharding import axes_tuple as _axes_tuple
 from repro_torch.dist.streaming import effective_block_obs, resolve_prefetch
 from repro_torch.kernels import ops
+from repro_torch.runtime import tracing
 
 # Paper §III aspect-ratio rule: beyond these ratios one axis dominates and
 # single-axis sharding wins; between them (and with enough devices or hosts
@@ -514,15 +515,20 @@ class MRMRSelector:
             return self.score
         if X.dtype.is_floating_point:
             return PearsonMIScore()
-        if int(X.min()) < 0 or int(y.min()) < 0:
-            # Negative categories count nothing, so those observations would
-            # silently vanish from the MI counts — fail instead.
-            raise ValueError(
-                "negative category values in discrete data: contingency "
-                "counts drop them silently; remap categories to 0..K-1 "
-                "before fitting"
-            )
-        return MIScore(num_values=int(X.max()) + 1, num_classes=int(y.max()) + 1)
+
+        def read(t):
+            return int(tracing.host_read("validate", t))
+
+        with tracing.span("mrmr.validate"):
+            if read(X.min()) < 0 or read(y.min()) < 0:
+                # Negative categories count nothing, so those observations
+                # would silently vanish from the MI counts — fail instead.
+                raise ValueError(
+                    "negative category values in discrete data: contingency "
+                    "counts drop them silently; remap categories to 0..K-1 "
+                    "before fitting"
+                )
+            return MIScore(num_values=read(X.max()) + 1, num_classes=read(y.max()) + 1)
 
     def _resolve_source_score(self, source: DataSource) -> ScoreFn:
         if self.score is not None:
@@ -622,9 +628,11 @@ class MRMRSelector:
             res = dataclasses.replace(
                 res, criterion=resolve_criterion(plan.criterion).name
             )
-        self.selected_ = res.selected.cpu().numpy()
-        self.gains_ = res.gains.cpu().numpy()
-        self.scores_ = None if res.relevance is None else res.relevance.cpu().numpy()
+        with tracing.span("mrmr.finish"):
+            self.selected_ = tracing.host_read("finish", res.selected).numpy()
+            self.gains_ = tracing.host_read("finish", res.gains).numpy()
+            self.scores_ = (None if res.relevance is None
+                            else tracing.host_read("finish", res.relevance).numpy())
         ranking = np.full((n_features,), len(self.selected_) + 1, np.int32)
         ranking[self.selected_] = np.arange(1, len(self.selected_) + 1)
         self.ranking_ = ranking
@@ -754,6 +762,10 @@ class MRMRSelector:
                 "hosts > 1 runs the streaming engine: pass a DataSource, "
                 "or arrays with encoding='streaming'"
             )
+        with tracing.span(tracing.FIT):
+            return self._fit_arrays(X, y)
+
+    def _fit_arrays(self, X, y) -> "MRMRSelector":
         X = torch.as_tensor(X)
         y = torch.as_tensor(y)
         if X.dim() != 2 or y.dim() != 1 or y.shape[0] != X.shape[0]:

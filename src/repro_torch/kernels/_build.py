@@ -179,13 +179,10 @@ def count_launch(wrapper, flops: float = 0.0, nbytes: float = 0.0) -> None:
     worker threads of the selection service launch kernels at once, and an
     unlocked ``+=`` can lose a count between threads.  The launch's charge
     (its operations and the bytes it must move: each input read once, the
-    output written once) is added beside it, to ``wrapper.flops`` and
-    ``wrapper.bytes``, and to the open cost counter
+    output written once) goes to the open cost counter
     (:mod:`repro_torch.analysis.op_analysis`)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
-        wrapper.flops = getattr(wrapper, "flops", 0) + flops
-        wrapper.bytes = getattr(wrapper, "bytes", 0) + nbytes
     charge_kernel(kernel_name(wrapper), flops, nbytes)
 
 

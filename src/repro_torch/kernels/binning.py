@@ -126,4 +126,3 @@ def bin_codes_charge(B: int, N: int, E: int) -> tuple[int, int]:
 
 
 bin_codes_cuda.launches = 0
-bin_codes_cuda.flops = bin_codes_cuda.bytes = 0

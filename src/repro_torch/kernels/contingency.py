@@ -231,7 +231,6 @@ def contingency_charge(X, y, num_values: int, num_classes: int) -> tuple[int, in
 
 
 contingency_tables_cuda.launches = 0
-contingency_tables_cuda.flops = contingency_tables_cuda.bytes = 0
 
 
 def conditional_tables_cuda(

@@ -99,4 +99,3 @@ def mi_charge(counts) -> tuple[int, int]:
 
 
 mi_scores_cuda.launches = 0
-mi_scores_cuda.flops = mi_scores_cuda.bytes = 0

@@ -118,4 +118,3 @@ def pearson_charge(F: int, M: int, T: int) -> tuple[int, int]:
 
 
 pearson_corr_cuda.launches = 0
-pearson_corr_cuda.flops = pearson_corr_cuda.bytes = 0
